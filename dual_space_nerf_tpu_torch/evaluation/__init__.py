@@ -1,0 +1,4 @@
+from .metrics import mse, psnr
+from .render_image import ImageRenderer, light_state_for_novel_pose
+
+__all__ = ["ImageRenderer", "light_state_for_novel_pose", "mse", "psnr"]

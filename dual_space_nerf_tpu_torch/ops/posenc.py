@@ -1,0 +1,28 @@
+"""NeRF positional encoding.
+
+Log-spaced frequencies 2^0..2^(L-1), features ordered
+[x, sin(x*f0), cos(x*f0), sin(x*f1), cos(x*f1), ...] as in the JAX
+package's `ops/posenc.py`, so weights port layer for layer.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def posenc_dim(input_dim: int, n_freqs: int, include_input: bool = True) -> int:
+    return input_dim * (int(include_input) + 2 * n_freqs)
+
+
+def posenc(x: torch.Tensor, n_freqs: int, include_input: bool = True) -> torch.Tensor:
+    """x: (..., D) -> (..., D * (include_input + 2*n_freqs))."""
+    if n_freqs == 0:
+        return x if include_input else x[..., :0]
+    freqs = 2.0 ** torch.arange(n_freqs, dtype=x.dtype, device=x.device)  # (L,)
+    xb = x[..., None, :] * freqs[:, None]                                 # (..., L, D)
+    # interleave per-frequency [sin, cos] to match the reference layout
+    sc = torch.stack([torch.sin(xb), torch.cos(xb)], dim=-2)              # (..., L, 2, D)
+    sc = sc.reshape(*x.shape[:-1], 2 * n_freqs * x.shape[-1])
+    if include_input:
+        return torch.cat([x, sc], dim=-1)
+    return sc
