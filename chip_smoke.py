@@ -10,14 +10,23 @@ Phases (any failure exits non-zero, before the last line is printed):
    (one nvcc per source, in parallel) and prints the build seconds;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the render gives it (the first 8192-ray chunk of the 512x512 val
-   image), and times kernel, plain version, the card's bound and, where one
-   PyTorch call computes the same function, that call;
+   image: 524,288 points) and on a seeded random cloud, and times kernel,
+   plain version, the card's bound and, where one PyTorch call computes the
+   same function, that call. The three tile-pruned searches are also held
+   against the brute-force kernel, with the visit plan (a kernel of its own,
+   held against the plan in plain torch ops bit for bit) timed apart;
 4. renders the full 512x512 val image of the synthetic SMPL-sized scene with
    the trained fixture through `ImageRenderer.render_item` (the port's eval
-   entry point): launch counts per image, s_per_image, rays/s, PSNR, and a
-   profile of one render chunk;
+   entry point) on two paths: (a) exact full shading with the brute-force
+   search (`configs/zju_mocap/313.yml`), (b) the production path
+   (`configs/zju_mocap/313_tpu.yml`: SHADE_TOPK 16, REUSE_WARP_FACES) with
+   `KNN_IMPL: "listed"`. Each: launch counts per image, s_per_image, rays/s,
+   PSNR, and a profile of one render chunk;
 5. renders the golden rays (`tests/fixtures/torch_port_render_golden.npz`,
-   the JAX package's CPU render) on the card and holds them to its bands;
+   the JAX package's CPU render) on the card and holds them to its bands:
+   every leg with its config's search, then the exact legs again with
+   `KNN_IMPL: "pruned"` and with `"listed"` under `DSNERF_KNN_SLIM=1`, so
+   that every kernel is launched on a render path;
 6. prints the `kernels` JSON line, the card line, and as the last line
    {"ok": true, "device": {...}}.
 """
@@ -25,6 +34,7 @@ Phases (any failure exits non-zero, before the last line is printed):
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -39,6 +49,7 @@ from dual_space_nerf_tpu_torch.evaluation import ImageRenderer, psnr
 from dual_space_nerf_tpu_torch.evaluation.golden import (
     GOLDEN_NPZ,
     check_golden,
+    production_cfg,
     render_golden,
     slice_cfg,
     trained_model,
@@ -47,15 +58,24 @@ from dual_space_nerf_tpu_torch.geometry import sample_along_rays, stratified_z
 from dual_space_nerf_tpu_torch.ops import (
     GG_KERNEL,
     KERNELS,
+    LISTED_KERNEL,
+    LISTED_PLAN_KERNEL,
+    LISTED_SLIM_KERNEL,
     NEAREST_KERNEL,
+    PRUNED_KERNEL,
     face_centroids,
     gg_near_far_cuda,
     gg_near_far_plain,
+    listed_tables,
     nearest_face_cuda,
     nearest_face_plain,
+    pruned_search_listed,
+    pruned_search_presorted,
 )
+from dual_space_nerf_tpu_torch.ops import pruned_knn
 from dual_space_nerf_tpu_torch.ops.cuda_build import build_all
 from dual_space_nerf_tpu_torch.renderer import LightState, RenderSettings, render_rays
+from dual_space_nerf_tpu_torch.renderer.pipeline import _block_layout
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 operations/s
 # outside the tensor cores, an FMA counted as two operations
@@ -63,6 +83,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 H = W = 512
 N_TIMED_RENDERS = 3
+PAIR_OPS = 9.0  # 3 sub, 3 mul, 2 add, 1 compare per point-centroid pair
 
 
 def log(msg: str) -> None:
@@ -147,13 +168,15 @@ def cdist_argmin(pts, cents, step: int = 8192):
     return out
 
 
-def check_nearest_face(pts_path, cents) -> dict:
+def random_cloud(n: int, cents: torch.Tensor) -> torch.Tensor:
     g = torch.Generator(device=cents.device).manual_seed(0)
     lo, hi = cents.min(0).values - 0.2, cents.max(0).values + 0.2
-    cloud = lo + (hi - lo) * torch.rand(pts_path.shape[0], 3, dtype=torch.float32,
-                                        device=cents.device, generator=g)
+    return lo + (hi - lo) * torch.rand(n, 3, dtype=torch.float32, device=cents.device, generator=g)
+
+
+def check_nearest_face(pts_path, cents) -> dict:
     worst, mism = 0, 0
-    for pts in (pts_path, cloud):
+    for pts in (pts_path, random_cloud(pts_path.shape[0], cents)):
         ids_k = nearest_face_cuda(pts, cents)
         ids_p = nearest_face_plain(pts, cents)
         torch.cuda.synchronize()
@@ -162,9 +185,8 @@ def check_nearest_face(pts_path, cents) -> dict:
     if mism:
         raise AssertionError(f"nearest_face: {mism} ids differ from the plain version")
     n, f = pts_path.shape[0], cents.shape[0]
-    n_ops = 9.0 * n * f  # 3 sub, 3 mul, 2 add, 1 compare per pair
     n_bytes = 4.0 * (n * 3 + f * 3 + n)
-    b, by = bound_ms(n_bytes, n_ops)
+    b, by = bound_ms(n_bytes, PAIR_OPS * n * f)
     return {
         "name": "nearest_face", "route": "cuda",
         "source": "dual_space_nerf_tpu_torch/csrc/nearest_face.cu",
@@ -176,6 +198,163 @@ def check_nearest_face(pts_path, cents) -> dict:
         "library_ms": time_ms(lambda: cdist_argmin(pts_path, cents), reps=3),
         "shape": {"points": n, "centroids": f},
     }
+
+
+def near_tie_only(pts, cents, ids_a, ids_b, what: str) -> int:
+    """Points where two exact searches name different faces: allowed only
+    where the float64 distances of the two faces tie within float32 rounding
+    (1e-6 relative). Returns their number; raises on any other difference."""
+    off = (ids_a != ids_b).nonzero().squeeze(1)
+    if off.numel():
+        p = pts[off].double()
+        da = ((p - cents[ids_a[off].long()].double()) ** 2).sum(-1)
+        db = ((p - cents[ids_b[off].long()].double()) ** 2).sum(-1)
+        bad = int(((da - db).abs() > 1e-6 * torch.minimum(da, db)).sum())
+        if bad:
+            raise AssertionError(f"{what}: {bad} ids differ from the brute-force search beyond a near-tie")
+    return int(off.numel())
+
+
+def check_plan(pts_path, cloud, cents, mesh) -> dict:
+    """The plan kernel against the plan in plain torch ops: the same lists,
+    counts and lower bounds bit for bit, at several row sizes."""
+    name = LISTED_PLAN_KERNEL.name
+    _, tile_c, tile_r, _ = listed_tables(cents, mesh.tile_table)
+    n_tiles = mesh.tile_table.shape[0]
+    mism = 0
+    for pts in (pts_path, cloud):
+        for plan_p in (pruned_knn._PLAN_P_LISTED, 512, 2048):
+            got = pruned_knn.listed_plan(pts, tile_c, tile_r, n_tiles, plan_p)
+            want = pruned_knn.listed_plan_plain(pts, tile_c, tile_r, n_tiles, plan_p)
+            torch.cuda.synchronize()
+            mism += sum(int((a != b).sum()) for a, b in zip(got, want))
+    if mism:
+        raise AssertionError(f"{name}: {mism} plan entries differ from the plain version")
+    n, plan_p = pts_path.shape[0], pruned_knn._PLAN_P_LISTED
+    # per point-tile pair: witness distance 9 ops (3 sub, 3 mul, 2 add, min),
+    # AABB bound 14 (6 clamp, 3 sub, 3 mul, 2 add), compare + min 2
+    n_ops = 25.0 * n * n_tiles
+    n_bytes = 4.0 * (n * 3 + 9 * n_tiles + (n // plan_p) * (2 * n_tiles + 1))
+    b, by = bound_ms(n_bytes, n_ops)
+    return {
+        "name": name, "route": "cuda",
+        "source": f"dual_space_nerf_tpu_torch/csrc/{LISTED_PLAN_KERNEL.source}",
+        "replaces": "dual_space_nerf_tpu/ops/pruned_knn.py:643",
+        "max_abs_err": 0.0, "mismatches": mism,
+        "ms": time_ms(lambda: pruned_knn.listed_plan(pts_path, tile_c, tile_r, n_tiles, plan_p), reps=10),
+        "plain_ms": time_ms(lambda: pruned_knn.listed_plan_plain(pts_path, tile_c, tile_r, n_tiles, plan_p), reps=5),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "shape": {"points": n, "tiles": n_tiles, "plan_p": plan_p},
+    }
+
+
+def check_listed(kernel, slim: bool, pts_path, cloud, cents, mesh, brute_ids, library_ms,
+                 brute_ms) -> dict:
+    """The wide or the slim listed kernel against its plain version (every
+    slot id equal) and against the brute-force kernel (equal but for
+    near-ties), on the render's blocked points and a random cloud."""
+    name = kernel.name
+    plan_p = pruned_knn._PLAN_P_LISTED
+    tables = listed_tables(cents, mesh.tile_table)
+    cent_t, tile_c, tile_r, perm_pad = tables
+    n_tiles = mesh.tile_table.shape[0]
+    mism, ties, stats = 0, 0, {}
+    for label, pts in (("path", pts_path), ("cloud", cloud)):
+        order, counts, lbs = pruned_knn.listed_plan(pts, tile_c, tile_r, n_tiles, plan_p)
+        for tighten in ((False,) if slim else (False, True)):
+            ids_k = pruned_knn.listed_search(pts, cent_t, order, counts, lbs, plan_p, slim, tighten)
+            ids_p = pruned_knn.listed_search_plain(pts, cent_t, order, counts, lbs, plan_p, slim, tighten)
+            torch.cuda.synchronize()
+            mism += int((ids_k != ids_p).sum())
+            ties += near_tie_only(pts, cents, perm_pad[ids_k.long()], brute_ids[label], name)
+        stats[label] = {"visits_mean": float(counts.float().mean()), "visits_max": int(counts.max())}
+    if mism:
+        raise AssertionError(f"{name}: {mism} slot ids differ from the plain version")
+
+    pts = pts_path
+    n = pts.shape[0]
+    order, counts, lbs = pruned_knn.listed_plan(pts, tile_c, tile_r, n_tiles, plan_p)
+    pairs = float(counts.sum()) * plan_p * 128
+    n_bytes = 4.0 * (n * 3 + n + cent_t.numel() + order.numel() + lbs.numel() + counts.numel())
+    b, by = bound_ms(n_bytes, PAIR_OPS * pairs)
+    search = lambda: pruned_knn.listed_search(pts, cent_t, order, counts, lbs, plan_p, slim, False)
+    return {
+        "name": name, "route": "cuda",
+        "source": f"dual_space_nerf_tpu_torch/csrc/{kernel.source}",
+        "replaces": "dual_space_nerf_tpu/ops/pruned_knn.py:" + ("473" if slim else "539"),
+        "max_abs_err": 0.0, "mismatches": mism, "near_ties_vs_brute_force": ties,
+        "ms": time_ms(search, reps=10),
+        "plan_ms": time_ms(lambda: pruned_knn.listed_plan(pts, tile_c, tile_r, n_tiles, plan_p), reps=5),
+        "plan_plain_ms": time_ms(lambda: pruned_knn.listed_plan_plain(pts, tile_c, tile_r, n_tiles, plan_p), reps=3),
+        "search_ms": time_ms(lambda: pruned_search_listed(
+            pts, cents, mesh.tile_table, slim=slim, tighten=False, return_slots=True, tables=tables), reps=5),
+        "plain_ms": time_ms(lambda: pruned_knn.listed_search_plain(
+            pts, cent_t, order, counts, lbs, plan_p, slim, False), reps=1, warmup=0),
+        "bound_ms": b, "bound_by": by, "library_ms": library_ms, "brute_force_ms": brute_ms,
+        "shape": {"points": n, "tiles": n_tiles, "plan_p": plan_p, "pairs": pairs, **stats},
+    }
+
+
+def check_pruned(pts_path, cloud, cents, mesh, brute_ids, library_ms, brute_ms) -> dict:
+    name = PRUNED_KERNEL.name
+    block_p = pruned_knn._BLOCK_P
+    cent_t, tile_c, tile_r, n_tiles = pruned_knn.pruned_tables(cents, mesh.face_perm)
+    mism, ties, stats = 0, 0, {}
+    for label, pts in (("path", pts_path), ("cloud", cloud)):
+        for tighten in (1, 0):
+            ids_k = pruned_knn.pruned_search(pts, cent_t, tile_c, tile_r, n_tiles, block_p, tighten=tighten)
+            ids_p, visits = pruned_knn.pruned_search_plain(
+                pts, cent_t, tile_c, tile_r, n_tiles, block_p, tighten=tighten, with_visits=True)
+            torch.cuda.synchronize()
+            mism += int((ids_k != ids_p).sum())
+            ties += near_tie_only(pts, cents, mesh.face_perm[ids_k.long()], brute_ids[label], name)
+            if tighten == 1:
+                stats[label] = {"visits_mean": float(visits.float().mean()), "visits_max": int(visits.max()),
+                                "visits_sum": int(visits.sum())}
+    if mism:
+        raise AssertionError(f"{name}: {mism} ids differ from the plain version")
+    pts = pts_path
+    n = pts.shape[0]
+    pairs = float(stats["path"]["visits_sum"]) * block_p * 512
+    n_bytes = 4.0 * (n * 3 + n + cent_t.numel() + 4 * n_tiles)
+    b, by = bound_ms(n_bytes, PAIR_OPS * pairs)
+    return {
+        "name": name, "route": "cuda",
+        "source": f"dual_space_nerf_tpu_torch/csrc/{PRUNED_KERNEL.source}",
+        "replaces": "dual_space_nerf_tpu/ops/pruned_knn.py:64",
+        "max_abs_err": 0.0, "mismatches": mism, "near_ties_vs_brute_force": ties,
+        "ms": time_ms(lambda: pruned_knn.pruned_search(pts, cent_t, tile_c, tile_r, n_tiles, block_p), reps=10),
+        "search_ms": time_ms(lambda: pruned_search_presorted(pts, cents, mesh.face_perm), reps=5),
+        "plain_ms": time_ms(lambda: pruned_knn.pruned_search_plain(
+            pts, cent_t, tile_c, tile_r, n_tiles, block_p), reps=1, warmup=0),
+        "bound_ms": b, "bound_by": by, "library_ms": library_ms, "brute_force_ms": brute_ms,
+        "shape": {"points": n, "tiles": n_tiles, "block_p": block_p, "pairs": pairs, **stats},
+    }
+
+
+def sweep_granularity(pts, cents, mesh) -> dict:
+    """The searches' times over their plan and block sizes, the figures
+    behind the module defaults (`ops/pruned_knn.py`)."""
+    cent_t, tile_c, tile_r, _ = listed_tables(cents, mesh.tile_table)
+    n_tiles = mesh.tile_table.shape[0]
+    out = {"listed": [], "pruned": []}
+    for plan_p in (128, 256, 512, 1024, 2048):
+        order, counts, lbs = pruned_knn.listed_plan(pts, tile_c, tile_r, n_tiles, plan_p)
+        row = {"plan_p": plan_p, "visits_mean": float(counts.float().mean()),
+               "plan_ms": time_ms(lambda: pruned_knn.listed_plan(pts, tile_c, tile_r, n_tiles, plan_p), reps=3)}
+        for key, slim, tighten in (("wide_ms", False, False), ("tighten_ms", False, True),
+                                   ("slim_ms", True, False)):
+            row[key] = time_ms(lambda: pruned_knn.listed_search(
+                pts, cent_t, order, counts, lbs, plan_p, slim, tighten), reps=5)
+        out["listed"].append(row)
+    tabs = pruned_knn.pruned_tables(cents, mesh.face_perm)
+    for block_p in (128, 256, 512, 1024):
+        out["pruned"].append({
+            "block_p": block_p,
+            "tighten1_ms": time_ms(lambda: pruned_knn.pruned_search(pts, *tabs, block_p, tighten=1), reps=5),
+            "tighten0_ms": time_ms(lambda: pruned_knn.pruned_search(pts, *tabs, block_p, tighten=0), reps=5),
+        })
+    return out
 
 
 def profile_chunk(model, rays, mesh, settings, light) -> dict:
@@ -200,10 +379,16 @@ def profile_chunk(model, rays, mesh, settings, light) -> dict:
             k = "gg_near_far kernel"
         elif "nearest_face" in name:
             k = "nearest_face kernel"
+        elif "listed_plan" in name:
+            k = "listed plan kernel"
+        elif "listed_kernel" in name or "pruned_kernel" in name:
+            k = "tile-pruned search kernel"
         elif "gemm" in name or "cutlass" in name or "xmma" in name:
             k = "matrix products (cuBLAS)"
         elif "index" in name or "gather" in name or "scatter" in name:
             k = "gathers / index ops"
+        elif "sort" in name or "radix" in name:
+            k = "sorts"
         else:
             k = "elementwise and reductions"
         fam[k] = fam.get(k, 0.0) + ms
@@ -216,6 +401,82 @@ def profile_chunk(model, rays, mesh, settings, light) -> dict:
         "by_family_ms": dict(sorted(fam.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"name": n[:90], "ms": t, "calls": c} for n, t, c in top],
     }
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launches_now() -> dict:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def render_path(label, cfg, model, ds, item, rays0, mesh, expect: dict, n_timed: int,
+                reference=None) -> tuple[dict, dict]:
+    """Render the full image on one path through `ImageRenderer.render_item`:
+    a warm-up, the counted run (launch counts asserted against ``expect``),
+    timed runs, finiteness, PSNR, and a profile of one chunk. Returns (the
+    images, the launch counts)."""
+    dev = torch.device("cuda")
+    settings = RenderSettings.from_cfg(cfg)
+    renderer = ImageRenderer(model, settings, ds.faces, ds.canonical_vertex,
+                             chunk=cfg.TEST.RAY_CHUNK, device=dev)
+    renderer.render_item(item)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = renderer.render_item(item)  # this path's counted run
+    times = [time.perf_counter() - t0]
+    launches = launches_now()
+    if launches != expect:
+        raise AssertionError(f"{label}: launches per image {launches}, expected {expect}")
+    for _ in range(n_timed - 1):
+        t0 = time.perf_counter()
+        renderer.render_item(item)
+        times.append(time.perf_counter() - t0)
+    for name, img in out.items():
+        vals = img if name != "coarse_disp" else img[out["coarse_acc"] > 1e-3]
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"{label}: {name}: non-finite values in the render")
+    n_rays = int(item["ray_o"].shape[0])
+    mask = np.asarray(item["mask_at_box"]).reshape(H, W)
+    s_img = statistics.median(times)
+    render = {
+        "path": label, "rays": n_rays, "chunks": -(-n_rays // cfg.TEST.RAY_CHUNK),
+        "launches_per_image": launches,
+        "s_per_image": s_img, "s_per_image_runs": times, "rays_per_s": n_rays / s_img,
+        "psnr_box": psnr(out["coarse_color"], item["img"], mask),
+        "psnr_image": psnr(out["coarse_color"], item["img"]),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    if reference is not None:
+        render["psnr_box_vs_exact_render"] = psnr(out["coarse_color"], reference["coarse_color"], mask)
+        render["max_abs_acc_vs_exact_render"] = float(
+            np.abs(out["coarse_acc"] - reference["coarse_acc"]).max())
+    log("render: " + json.dumps(render))
+    prof = profile_chunk(model, rays0, mesh, settings, LightState.identity(dev))
+    if isinstance(prof["device_ms"], float):
+        # device time of all chunks over the unprofiled wall time
+        prof["device_busy_share_est"] = prof["device_ms"] * render["chunks"] / (s_img * 1e3)
+    log(f"profile_chunk {label}: " + json.dumps(prof))
+    return out, launches
+
+
+def golden_leg(label, golden, model, expect: dict, **kwargs) -> dict:
+    """Render golden legs on the card, hold them to the bands and the
+    kernels to the launch counts; returns the launch counts."""
+    reset_launches()
+    report = check_golden(render_golden(golden, device=torch.device("cuda"), model=model, **kwargs),
+                          golden)
+    launches = launches_now()
+    log(f"golden {label}: " + json.dumps({**report, "launches": launches}))
+    if not report["ok"]:
+        raise AssertionError(f"golden {label}: render outside its bands")
+    if launches != expect:
+        raise AssertionError(f"golden {label}: launches {launches}, expected {expect}")
+    return launches
 
 
 def main() -> int:
@@ -240,6 +501,7 @@ def main() -> int:
     ds = SyntheticDataset(split="val", n_frames=1, n_views=1, h=H, w=W)
     item = ds[0]
     n_rays = int(item["ray_o"].shape[0])
+    n_chunks = -(-n_rays // cfg.TEST.RAY_CHUNK)
     mesh = item_to_mesh(item, ds.faces, ds.canonical_vertex, dev)
     rays0, _ = next(iter_ray_chunks(item, cfg.TEST.RAY_CHUNK, dev))
 
@@ -248,65 +510,74 @@ def main() -> int:
     near, far = gg_near_far_cuda(rays0.ray_o, rays0.ray_d, rays0.near, rays0.far,
                                  mesh.verts_world, settings.gg_gamma)
     z = stratified_z(near, far, settings.n_samples)
-    pts_w = sample_along_rays(rays0.ray_o, rays0.ray_d, z).reshape(-1, 3).contiguous()
+    pts_rs = sample_along_rays(rays0.ray_o, rays0.ray_d, z)          # (R, S, 3)
+    pts_w = pts_rs.reshape(-1, 3).contiguous()
     cents_w = face_centroids(mesh.verts_world, mesh.faces).contiguous()
     kernels.append(check_nearest_face(pts_w, cents_w))
+    # the tile-pruned searches take the render's block-coherent layout
+    to_blocked, _ = _block_layout(*z.shape, settings.block_sc)
+    pts_blocked = to_blocked(pts_rs).contiguous()
+    cloud = random_cloud(pts_blocked.shape[0], cents_w)
+    brute_ids = {"path": nearest_face_cuda(pts_blocked, cents_w), "cloud": nearest_face_cuda(cloud, cents_w)}
+    brute_ms = time_ms(lambda: nearest_face_cuda(pts_blocked, cents_w), reps=10)
+    lib_ms = kernels[1]["library_ms"]
+    kernels.append(check_plan(pts_blocked, cloud, cents_w, mesh))
+    kernels.append(check_listed(LISTED_KERNEL, False, pts_blocked, cloud, cents_w, mesh, brute_ids, lib_ms, brute_ms))
+    kernels.append(check_listed(LISTED_SLIM_KERNEL, True, pts_blocked, cloud, cents_w, mesh, brute_ids, lib_ms, brute_ms))
+    kernels.append(check_pruned(pts_blocked, cloud, cents_w, mesh, brute_ids, lib_ms, brute_ms))
     for k in kernels:
-        log("kernel: " + json.dumps({key: k[key] for key in (
-            "name", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
+        log("kernel: " + json.dumps({key: k[key] for key in k if key not in ("route", "source", "replaces")}))
+    log("sweep: " + json.dumps(sweep_granularity(pts_blocked, cents_w, mesh)))
+    log("tables: " + json.dumps({
+        "listed_tables_ms": time_ms(lambda: listed_tables(cents_w, mesh.tile_table), reps=10),
+        "note": "item_to_mesh derives the posed mesh's tables once per item; per chunk it would be this x chunks",
+        "chunks": n_chunks,
+    }))
 
     # ---- 4. the full 512x512 render through the eval entry point --------
     model = trained_model(cfg.MODEL.MAX_FRAMES).eval()
-    renderer = ImageRenderer(model, settings, ds.faces, ds.canonical_vertex,
-                             chunk=cfg.TEST.RAY_CHUNK, device=dev)
-    renderer.render_item(item)  # warm-up: cuBLAS handles, allocator
-    torch.cuda.synchronize()
-    for k in KERNELS:
-        k.launches = 0
-    t0 = time.perf_counter()
-    out = renderer.render_item(item)  # the main path's counted run
-    first_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in KERNELS}
-    n_chunks = -(-n_rays // cfg.TEST.RAY_CHUNK)
-    expect = {GG_KERNEL.name: n_chunks, NEAREST_KERNEL.name: 2 * n_chunks}
-    if launches != expect:
-        raise AssertionError(f"launches per image {launches}, expected {expect}")
-    times = [first_s]
-    for _ in range(N_TIMED_RENDERS - 1):
-        t0 = time.perf_counter()
-        renderer.render_item(item)
-        times.append(time.perf_counter() - t0)
-    for name, img in out.items():
-        vals = img if name != "coarse_disp" else img[out["coarse_acc"] > 1e-3]
-        if not np.isfinite(vals).all():
-            raise AssertionError(f"{name}: non-finite values in the render")
-    mask = np.asarray(item["mask_at_box"]).reshape(H, W)
-    s_img = statistics.median(times)
-    render = {
-        "rays": n_rays, "chunks": n_chunks, "launches_per_image": launches,
-        "s_per_image": s_img, "s_per_image_runs": times, "rays_per_s": n_rays / s_img,
-        "psnr_box": psnr(out["coarse_color"], item["img"], mask),
-        "psnr_image": psnr(out["coarse_color"], item["img"]),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-    }
-    log("render: " + json.dumps(render))
-    prof = profile_chunk(model, rays0, mesh, settings, LightState.identity(dev))
-    if isinstance(prof["device_ms"], float):
-        # device time of the 18 chunks over the unprofiled wall time
-        prof["device_busy_share_est"] = prof["device_ms"] * n_chunks / (s_img * 1e3)
-    log("profile_chunk: " + json.dumps(prof))
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    zero = {k.name: 0 for k in KERNELS}
+    # (a) exact full shading, brute-force search: two searches per chunk
+    out_exact, launches_exact = render_path(
+        "exact", cfg, model, ds, item, rays0, mesh,
+        {**zero, GG_KERNEL.name: n_chunks, NEAREST_KERNEL.name: 2 * n_chunks}, n_timed=2)
+    # (b) production: gated shading with face reuse, one listed search per chunk
+    out_prod, launches_prod = render_path(
+        "production", production_cfg(), model, ds, item, rays0, mesh,
+        {**zero, GG_KERNEL.name: n_chunks, LISTED_PLAN_KERNEL.name: n_chunks,
+         LISTED_KERNEL.name: n_chunks}, n_timed=N_TIMED_RENDERS,
+        reference=out_exact)
 
     # ---- 5. golden rays against the JAX package's render ---------------
     with np.load(GOLDEN_NPZ) as data:
         golden = {k: data[k] for k in data.files}
-    report = check_golden(render_golden(golden, device=dev, model=model), golden)
-    log("golden: " + json.dumps(report))
-    if not report["ok"]:
-        raise AssertionError("golden render outside its bands")
+    # one 2048-ray chunk per leg: gg runs GG; the exact legs search twice
+    golden_leg("configs", golden, model,
+               {**zero, GG_KERNEL.name: 1, NEAREST_KERNEL.name: 4, LISTED_PLAN_KERNEL.name: 1,
+                LISTED_KERNEL.name: 1})
+    launches_pruned = golden_leg("pruned", golden, model, {**zero, GG_KERNEL.name: 1, PRUNED_KERNEL.name: 4},
+                                 legs=("fixed", "gg"), knn_impl="pruned")
+    os.environ["DSNERF_KNN_SLIM"] = "1"  # read when a search is called
+    try:
+        launches_slim = golden_leg("listed slim", golden, model,
+                                   {**zero, GG_KERNEL.name: 1, LISTED_PLAN_KERNEL.name: 4,
+                                    LISTED_SLIM_KERNEL.name: 4},
+                                   legs=("fixed", "gg"), knn_impl="listed")
+    finally:
+        del os.environ["DSNERF_KNN_SLIM"]
 
     # ---- 6. results ------------------------------------------------------
+    # each kernel's launches on the render path that is its own
+    on_path = {
+        GG_KERNEL.name: launches_exact, NEAREST_KERNEL.name: launches_exact,
+        LISTED_PLAN_KERNEL.name: launches_prod, LISTED_KERNEL.name: launches_prod,
+        LISTED_SLIM_KERNEL.name: launches_slim,
+        PRUNED_KERNEL.name: launches_pruned,
+    }
+    for k in kernels:
+        k["launches"] = on_path[k["name"]][k["name"]]
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']}: no launch on its render path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))

@@ -1,4 +1,5 @@
-"""Host item dict -> tensors on the renderer's device.
+"""Host item dict -> tensors on the renderer's device, with the mesh
+tables of the tile-pruned nearest-face searches.
 
 Eval images render in fixed-size chunks: `iter_ray_chunks` pads the tail
 chunk by repeating its last ray, and the caller keeps the valid prefix.
@@ -6,21 +7,75 @@ chunk by repeating its last ray, and the caller keeps the valid prefix.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Iterator
 
 import numpy as np
 import torch
 
+from ..ops import build_face_clusters, build_face_tiles, face_centroids, listed_tables
 from ..renderer import MeshBundle, RayBatch
+
+
+#: per (canonical mesh content, device): (faces, verts_cano, face_perm,
+#: tile_table, cano_tables) on the device; oldest entries leave first
+_STATIC_MESH_CACHE: dict[tuple, tuple] = {}
+_STATIC_MESH_CACHE_MAX = 8
+
+
+def _mesh_cache_key(faces: np.ndarray, verts_cano: np.ndarray, device: torch.device) -> tuple:
+    """Content-derived: an `id()` can be recycled after garbage collection
+    and would serve another mesh's face order to an exact search."""
+    f = np.ascontiguousarray(faces)
+    v = np.ascontiguousarray(verts_cano)
+    digest = hashlib.sha1(f.tobytes() + v.tobytes()).hexdigest()
+    return (f.shape, str(f.dtype), v.shape, str(v.dtype), digest, str(device))
+
+
+def _static_mesh_tables(faces: np.ndarray, verts_cano: np.ndarray, device: torch.device):
+    """Build (and cache per canonical mesh and device) what does not change
+    with the pose: the faces and canonical vertices on the device, the kd
+    order of the faces (`face_perm`, for the pruned search), the kd-leaf
+    tile table and the canonical mesh's listed-search tables. The partition
+    is plain numpy on the float32 mean of each face's canonical vertices, as
+    in the JAX package, so both build the same tables."""
+    key = _mesh_cache_key(faces, verts_cano, device)
+    hit = _STATIC_MESH_CACHE.get(key)
+    if hit is None:
+        faces_np = np.asarray(faces, np.int64)
+        cents = np.asarray(verts_cano, np.float32)[faces_np].mean(axis=1)
+        clusters = build_face_clusters(cents)
+        faces_dev = torch.as_tensor(faces_np, device=device)
+        cano_dev = torch.as_tensor(np.asarray(verts_cano, np.float32), device=device)
+        face_perm = torch.as_tensor(clusters[clusters >= 0].ravel().astype(np.int64), device=device)
+        tile_table = torch.as_tensor(build_face_tiles(cents), device=device)
+        cano_tables = listed_tables(face_centroids(cano_dev, faces_dev), tile_table)
+        hit = (faces_dev, cano_dev, face_perm, tile_table, cano_tables)
+        while len(_STATIC_MESH_CACHE) >= _STATIC_MESH_CACHE_MAX:
+            _STATIC_MESH_CACHE.pop(next(iter(_STATIC_MESH_CACHE)))
+        _STATIC_MESH_CACHE[key] = hit
+    return hit
 
 
 def item_to_mesh(item: dict, faces: np.ndarray, verts_cano: np.ndarray,
                  device: torch.device) -> MeshBundle:
-    """The posed mesh of the item plus the canonical mesh, on ``device``."""
+    """The posed mesh of the item plus the canonical mesh, on ``device``,
+    with the tables of the tile-pruned searches. The canonical tables come
+    from the cache; the posed mesh's listed-search tables are derived here,
+    once per item, so that no render chunk derives them again (the results
+    are identical either way)."""
+    faces_dev, cano_dev, face_perm, tile_table, cano_tables = _static_mesh_tables(
+        faces, verts_cano, device
+    )
+    verts_world = torch.as_tensor(np.asarray(item["xyz"], np.float32), device=device)
     return MeshBundle(
-        faces=torch.as_tensor(np.asarray(faces, np.int64), device=device),
-        verts_world=torch.as_tensor(np.asarray(item["xyz"], np.float32), device=device),
-        verts_cano=torch.as_tensor(np.asarray(verts_cano, np.float32), device=device),
+        faces=faces_dev,
+        verts_world=verts_world,
+        verts_cano=cano_dev,
+        face_perm=face_perm,
+        tile_table=tile_table,
+        cano_tables=cano_tables,
+        world_tables=listed_tables(face_centroids(verts_world, faces_dev), tile_table),
     )
 
 

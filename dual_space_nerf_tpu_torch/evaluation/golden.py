@@ -4,10 +4,11 @@ package's, on the CPU (tests) and on the card (`chip_smoke.py`).
 `tests/fixtures/torch_port_render_golden.npz` (written by
 `tests/test_torch_port_golden.py`) holds 2048 rays of the synthetic 512x512
 val image and the JAX package's CPU renders of them with the trained
-fixture `bench/r5/abhq_exact_s233_params.npz`, in two legs:
-``gg`` (the slice end to end) and ``fixed`` (near/far held at the JAX GG
-result, uniform sampling). `check_golden` holds a render to the bands that
-`tests/test_torch_port_golden.py` states and explains.
+fixture `bench/r5/abhq_exact_s233_params.npz`, in three legs:
+``gg`` (the exact slice end to end), ``fixed`` (near/far held at the JAX GG
+result, uniform sampling) and ``prod`` (the production path: the fixed leg's
+z with SHADE_TOPK 16 and REUSE_WARP_FACES). `check_golden` holds a render to
+the bands that `tests/test_torch_port_golden.py` states and explains.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ TRAINED_NPZ = os.path.join(_REPO, "bench", "r5", "abhq_exact_s233_params.npz")
 BANDS = {"color": 5e-4, "acc": 1e-4, "depth": 1e-4, "disp": 1e-4}
 #: per leg: the share of rays that must sit within the bands; every ray
 #: must sit within FACTOR times them (see tests/test_torch_port_golden.py)
-SHARE = {"fixed": 0.99, "gg": 0.97}
+SHARE = {"fixed": 0.99, "gg": 0.97, "prod": 0.99}
 FACTOR = 50.0
+LEGS = ("fixed", "gg", "prod")
 
 
 def slice_cfg():
@@ -47,6 +49,17 @@ def slice_cfg():
     return cfg
 
 
+def production_cfg():
+    """The production serving config: `configs/zju_mocap/313_tpu.yml`
+    semantics (`slice_cfg` plus SHADE_TOPK 16 and REUSE_WARP_FACES) with the
+    list-driven exact search."""
+    cfg = slice_cfg()
+    cfg.MODEL.SHADE_TOPK = 16
+    cfg.MODEL.REUSE_WARP_FACES = True
+    cfg.MODEL.KNN_IMPL = "listed"
+    return cfg
+
+
 def trained_model(max_frames: int = 16):
     """DualSpaceNeRF carrying the trained fixture's weights (on the CPU)."""
     from ..models import DualSpaceNeRF, load_flax_npz
@@ -57,7 +70,7 @@ def trained_model(max_frames: int = 16):
 
 
 def golden_items(rays: dict) -> dict:
-    """The two legs' items: every golden ray in a 1 x n "image"."""
+    """The legs' items: every golden ray in a 1 x n "image"."""
     n = rays["ray_o"].shape[0]
     base = {
         "img": np.zeros((1, n, 3), np.float32),
@@ -71,26 +84,42 @@ def golden_items(rays: dict) -> dict:
     return {
         "gg": {**base, "near": rays["near"], "far": rays["far"]},
         "fixed": {**base, "near": rays["gg_near"], "far": rays["gg_far"]},
+        "prod": {**base, "near": rays["gg_near"], "far": rays["gg_far"]},
     }
 
 
-def render_golden(rays: dict, device, chunk: int = 8192, model=None) -> dict:
-    """The port's render of the golden rays, both legs: {"<leg>/<output>":
-    (n, c) float32}."""
+def leg_settings(leg: str, exact, production):
+    """A leg's settings from the exact and the production `RenderSettings`
+    (of either package): ``gg`` is the exact path as it is, ``fixed`` and
+    ``prod`` sample uniformly between the item's near/far."""
+    if leg == "gg":
+        return exact
+    return dataclasses.replace(production if leg == "prod" else exact, sample_mode="uniform")
+
+
+def render_golden(rays: dict, device, chunk: int = 8192, model=None,
+                  legs: tuple = LEGS, knn_impl: str | None = None) -> dict:
+    """The port's render of the golden rays, leg by leg: {"<leg>/<output>":
+    (n, c) float32}. knn_impl: the search of every leg; None keeps the
+    configs' (brute force on the exact legs, "listed" on ``prod``)."""
     from ..data import SyntheticDataset
     from ..renderer import RenderSettings
     from .render_image import ImageRenderer
 
     ds = SyntheticDataset(split="val", n_frames=1, n_views=1, h=8, w=8)
-    settings = RenderSettings.from_cfg(slice_cfg())
+    exact = RenderSettings.from_cfg(slice_cfg())
+    production = RenderSettings.from_cfg(production_cfg())
     model = trained_model() if model is None else model
+    items = golden_items(rays)
     out = {}
-    for leg, item in golden_items(rays).items():
-        s = settings if leg == "gg" else dataclasses.replace(settings, sample_mode="uniform")
+    for leg in legs:
+        s = leg_settings(leg, exact, production)
+        if knn_impl is not None:
+            s = dataclasses.replace(s, knn_impl=knn_impl)
         img = ImageRenderer(model, s, np.asarray(ds.faces), ds.canonical_vertex,
-                            chunk=chunk, device=device).render_item(item)
+                            chunk=chunk, device=device).render_item(items[leg])
         for k in BANDS:
-            out[f"{leg}/{k}"] = img[f"coarse_{k}"].reshape(len(item["ray_o"]), -1)
+            out[f"{leg}/{k}"] = img[f"coarse_{k}"].reshape(len(items[leg]["ray_o"]), -1)
     return out
 
 
@@ -111,10 +140,10 @@ def _ray_errors(out: dict, ref: dict, leg: str) -> dict:
 
 def check_golden(out: dict, ref: dict) -> dict:
     """Hold a render of the golden rays to the bands. Returns a report with
-    ``ok`` and, per leg and output, the worst error over its band and the
-    share of rays within it."""
+    ``ok`` and, per leg of ``out`` and output, the worst error over its band
+    and the share of rays within it."""
     report = {"ok": True}
-    for leg in ("fixed", "gg"):
+    for leg in (leg for leg in LEGS if f"{leg}/color" in out):
         finite = all(
             np.isfinite(out[f"{leg}/{k}"]).all() for k in BANDS if k != "disp"
         )

@@ -62,9 +62,11 @@ class SpaceNet(nn.Module):
             nn.Linear(backbone_dim // 2, essence_dim, dtype=torch.float32),
         )
 
-    def forward(self, pos: torch.Tensor, code: torch.Tensor, pose_feat: torch.Tensor):
+    def forward(self, pos: torch.Tensor, code: torch.Tensor, pose_feat: torch.Tensor,
+                density_only: bool = False):
         """pos (N, 3) canonical xyz; code (code_dim,) frame code, already
-        scaled; pose_feat (N, 16). Returns (essence (N, 3), density (N, 1))."""
+        scaled; pose_feat (N, 16). Returns (essence (N, 3), density (N, 1));
+        density_only skips the essence head and returns (None, density)."""
         pe = posenc(pos, self.pe_freqs)
         if self.code_dim > 0:
             code = code.expand(pos.shape[0], self.code_dim)
@@ -73,6 +75,8 @@ class SpaceNet(nn.Module):
             x = pe
         x = self.stage1(x)
         x = self.stage2(torch.cat([x, pe], dim=-1))
+        if density_only:
+            return None, self.density_net(x)
         return self.rgb_net(x), self.density_net(x)
 
 
@@ -109,10 +113,11 @@ class DualSpaceNeRF(nn.Module):
         """body_pose (23, 3) joint rotation vectors -> (16,) feature."""
         return self.pose_mlp(rod2quat(body_pose).reshape(-1))
 
-    def sigma_essence(self, pos_cano, code, pose_feat, code_scale):
+    def sigma_essence(self, pos_cano, code, pose_feat, code_scale, density_only=False):
         """(essence (N, 3), density (N, 1)); ``code`` is the (code_dim,) frame
-        code, scaled here by ``code_scale`` (0 zeroes it for novel poses)."""
-        return self.nerf(pos_cano, code * code_scale, pose_feat)
+        code, scaled here by ``code_scale`` (0 zeroes it for novel poses).
+        density_only: the gated renderer's density pass, (None, density)."""
+        return self.nerf(pos_cano, code * code_scale, pose_feat, density_only)
 
     def frame_code(self, frame: int) -> torch.Tensor:
         """Embedding row of one frame index, clamped to the table; a

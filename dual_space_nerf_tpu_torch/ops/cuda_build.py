@@ -45,16 +45,18 @@ def _nvcc() -> str:
 class CudaKernel:
     """One `csrc/<source>` library with one C launcher ``symbol``.
 
-    The launcher takes device pointers and the stream as ``c_void_p`` and
+    ``includes`` names the headers under `csrc/` that the source includes, so
+    that an edited header rebuilds it. The launcher takes device pointers and the stream as ``c_void_p`` and
     returns `cudaGetLastError()` after its launch; `launch` raises if that is
     not 0 and counts one launch. ``launches`` is a plain integer that a run
     reads to show the kernel was on its path.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: list):
+    def __init__(self, source: str, symbol: str, argtypes: list, includes: tuple = ()):
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
+        self.includes = includes  # headers under csrc/ the source includes
         self.launches = 0
         self.build_log = ""
         self._fn = None
@@ -64,9 +66,11 @@ class CudaKernel:
         return os.path.splitext(self.source)[0]
 
     def library_path(self) -> str:
-        path = os.path.join(CSRC_DIR, self.source)
-        with open(path, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for name in (self.source, *self.includes):
+            with open(os.path.join(CSRC_DIR, name), "rb") as f:
+                h.update(f.read())
+        digest = h.hexdigest()
         return os.path.join(BUILD_DIR, f"lib{self.name}_{digest[:16]}.so")
 
     def start_build(self):

@@ -1,5 +1,6 @@
-"""Nearest face (K=1 nearest triangle centroid): kernel wrapper, plain
-version and the `KNN_IMPL` dispatch.
+"""Nearest face (K=1 nearest triangle centroid): the brute-force kernel's
+wrapper and plain version, and the `KNN_IMPL` dispatch (the tile-pruned
+searches are in `ops/pruned_knn.py`).
 
 Replaces the TPU kernel `dual_space_nerf_tpu/ops/nearest_face.py:_nearest_kernel`
 (wrapper `nearest_face_pallas`), the brute-force search that the JAX
@@ -21,6 +22,7 @@ import ctypes
 import torch
 
 from .cuda_build import CudaKernel, stream_ptr
+from .pruned_knn import pruned_search_listed, pruned_search_presorted
 
 _P = ctypes.c_void_p
 NEAREST_KERNEL = CudaKernel(
@@ -98,10 +100,8 @@ def nearest_face_cuda(pts: torch.Tensor, centroids: torch.Tensor) -> torch.Tenso
 # The JAX package's KNN_IMPL values (dual_space_nerf_tpu/ops/nearest_face.py).
 KNN_IMPLS = ("auto", "listed", "pruned", "grouped", "clustered", "pallas", "xla")
 # Values this port serves, and the ROADMAP items that bring the others.
-_PORTED = ("auto", "pallas")
+_PORTED = ("auto", "pallas", "listed", "pruned")
 _TO_COME = {
-    "listed": "ROADMAP queue 2, item 3 (_listed_kernel)",
-    "pruned": "ROADMAP queue 2, item 4 (_pruned_kernel)",
     "grouped": "ROADMAP queue 1, item 7 (nearest_face_grouped)",
     "clustered": "ROADMAP queue 1, item 7 (nearest_face_clustered)",
     "xla": "ROADMAP queue 1, item 7 (the expanded-form search, which misranks near-ties)",
@@ -118,11 +118,31 @@ def check_knn_impl(impl: str) -> None:
         )
 
 
-def nearest_face(pts: torch.Tensor, centroids: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """Nearest-centroid index per point for a `MODEL.KNN_IMPL` value.
+def nearest_face(
+    pts: torch.Tensor,
+    centroids: torch.Tensor,
+    impl: str = "auto",
+    *,
+    tile_table: torch.Tensor | None = None,
+    face_perm: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Nearest-centroid index per point for a `MODEL.KNN_IMPL` value: (N,)
+    int32 face ids.
 
-    "auto" and "pallas" run the brute-force search: the CUDA kernel on CUDA
-    tensors, the plain version on CPU tensors. Every other value raises; no
-    value quietly runs another search."""
+    "auto" and "pallas" run the brute-force search. "listed" runs the
+    list-driven search and needs ``tile_table`` (`build_face_tiles`);
+    "pruned" runs the sphere-pruned search and needs ``face_perm`` (the kd
+    order of the faces); both take the points as spatially coherent blocks.
+    Each is a CUDA kernel on CUDA tensors and its plain version on CPU
+    tensors. Every other value raises, as does a missing table; no value
+    quietly runs another search."""
     check_knn_impl(impl)
+    if impl == "listed":
+        if tile_table is None:
+            raise ValueError("knn_impl 'listed' needs the mesh's tile_table")
+        return pruned_search_listed(pts, centroids, tile_table)
+    if impl == "pruned":
+        if face_perm is None:
+            raise ValueError("knn_impl 'pruned' needs the mesh's face_perm")
+        return pruned_search_presorted(pts, centroids, face_perm)
     return nearest_face_cuda(pts, centroids)

@@ -1,20 +1,30 @@
-"""The dual-space volume-rendering pipeline: exact full shading, eval path.
+"""The dual-space volume-rendering pipeline, eval path.
+
+Exact full shading (`configs/zju_mocap/313.yml`):
 
   GG near/far -> z -> world nearest-face search -> warp (world -> canonical)
   -> canonical nearest-face search -> SpaceNet (+ autograd density normal)
   -> normal (canonical -> world) -> LightingMLP -> transparent mask
   -> composite
 
-The same math as the JAX package's `renderer/pipeline.py` on its
-materialized dataflow (the route the JAX package takes on the CPU): the warp
-and the triangle gathers are computed for the whole chunk, then the
-networks run over point slices of `mlp_chunk`. Both nearest-face searches
-are the brute-force search (`ops.nearest_face`), a CUDA kernel on the card.
+Importance-gated shading (`configs/zju_mocap/313_tpu.yml`: SHADE_TOPK 16,
+REUSE_WARP_FACES): the density of every sample from a forward pass that
+builds no autograd graph, then the color chain (canonical search, normal,
+transport, LightingMLP) only on the K samples per ray with the largest
+compositing weights; the other samples take the color of the nearest
+selected sample of their ray. With face reuse the normal is transported
+through the face the world search found, and the canonical search is gone.
 
-Not ported yet, and refused when asked for: importance-gated shading
-(SHADE_TOPK), face reuse (REUSE_WARP_FACES), the fused SpaceNet kernels
-(FUSED_MLP), hierarchical sampling (FINE_RAY_SAMPLING), the listed, pruned,
-grouped and clustered searches, and the face-id dataflow.
+The same math as the JAX package's `renderer/pipeline.py`. The searches are
+`MODEL.KNN_IMPL`: the brute-force kernel ("auto", "pallas"), or the
+list-driven ("listed") and sphere-pruned ("pruned") kernels of
+`ops/pruned_knn.py`, which take the points in the block-coherent layout
+(`_block_layout`). "listed" exchanges tile-slot ids between the stages and
+gathers from a slot-ordered face table.
+
+Not ported yet, and refused when asked for: the fused SpaceNet kernels
+(FUSED_MLP), hierarchical sampling (FINE_RAY_SAMPLING), the grouped,
+clustered and xla searches, bf16 matrix products.
 """
 
 from __future__ import annotations
@@ -33,7 +43,13 @@ from ..geometry import (
     stratified_z,
     transparent_mask,
 )
-from ..ops import face_centroids, gg_near_far_cuda, nearest_face
+from ..ops import (
+    face_centroids,
+    gg_near_far_cuda,
+    nearest_face,
+    pruned_search_listed,
+    slot_perm_from_tiles,
+)
 from ..ops.nearest_face import check_knn_impl
 
 # The renderer is float32 throughout and is held against a float32 reference.
@@ -43,11 +59,21 @@ torch.backends.cudnn.allow_tf32 = False
 
 class MeshBundle(NamedTuple):
     """Posed mesh of one frame + canonical mesh of the sequence.
-    faces: (F, 3) int64; verts_world, verts_cano: (V, 3) float32."""
+    faces: (F, 3) int64; verts_world, verts_cano: (V, 3) float32.
+
+    For the tile-pruned searches (`data.batching.item_to_mesh` fills them):
+    face_perm (F,) the kd order of the faces ("pruned"); tile_table (T, 128)
+    int32 kd-leaf face tiles, -1 padded ("listed"); cano_tables and
+    world_tables, optional `listed_tables(centroids, tile_table)` of the
+    canonical and the posed mesh, derived per search when None."""
 
     faces: torch.Tensor
     verts_world: torch.Tensor
     verts_cano: torch.Tensor
+    face_perm: torch.Tensor | None = None
+    tile_table: torch.Tensor | None = None
+    cano_tables: tuple | None = None
+    world_tables: tuple | None = None
 
 
 class RayBatch(NamedTuple):
@@ -105,13 +131,23 @@ def _fused_requested(cfg_value) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class RenderSettings:
-    """Settings of the exact eval path, with the fields it reads."""
+    """Settings of the eval path, with the fields it reads."""
 
     n_samples: int = 64
     sample_mode: str = "GG"          # "GG" | "uniform"
     gg_gamma: float = 0.05
     mlp_chunk: int = 8192            # points per network call
     knn_impl: str = "auto"
+    # importance-gated shading: density at every sample, the color chain on
+    # the shade_topk samples per ray with the largest weights; 0 = full
+    # shading of every sample (reference-exact)
+    shade_topk: int = 0
+    # transport the normal through the world search's face instead of
+    # searching again in canonical space (an approximation, off by default)
+    reuse_warp_faces: bool = False
+    # consecutive samples of a ray kept adjacent in the block-coherent point
+    # layout of the listed and pruned searches
+    block_sc: int = 32
 
     def __post_init__(self):
         if self.mlp_chunk < 1:
@@ -121,6 +157,10 @@ class RenderSettings:
             )
         if self.sample_mode not in ("GG", "uniform"):
             raise ValueError(f"sample_mode {self.sample_mode!r}: expected 'GG' or 'uniform'")
+        if self.shade_topk < 0:
+            raise ValueError(f"RenderSettings.shade_topk={self.shade_topk}: expected >= 0")
+        if self.block_sc < 1:
+            raise ValueError(f"RenderSettings.block_sc={self.block_sc}: expected >= 1")
         check_knn_impl(self.knn_impl)
 
     @classmethod
@@ -128,10 +168,6 @@ class RenderSettings:
         """Settings from a config tree. Raises NotImplementedError for the
         options whose code paths are not ported yet (see ROADMAP.md)."""
         shade_topk = max(cfg.MODEL.SHADE_TOPK, 0)
-        if shade_topk > 0:
-            raise NotImplementedError("MODEL.SHADE_TOPK > 0 (gated shading) is not ported yet")
-        if cfg.MODEL.REUSE_WARP_FACES:
-            raise NotImplementedError("MODEL.REUSE_WARP_FACES is not ported yet")
         if _fused_requested(cfg.MODEL.FUSED_MLP):
             raise NotImplementedError("MODEL.FUSED_MLP (fused SpaceNet kernels) is not ported yet")
         if cfg.MODEL.FINE_RAY_SAMPLING > 0:
@@ -143,6 +179,8 @@ class RenderSettings:
             sample_mode=cfg.MODEL.sample_points_mode,
             mlp_chunk=resolve_mlp_chunk(cfg.MODEL.MLP_CHUNK, shade_topk),
             knn_impl=cfg.MODEL.KNN_IMPL,
+            shade_topk=shade_topk,
+            reuse_warp_faces=bool(cfg.MODEL.REUSE_WARP_FACES),
         )
 
 
@@ -152,16 +190,53 @@ def _safe_unit(v: torch.Tensor) -> torch.Tensor:
     return v / torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True) + 1e-24)
 
 
-def _faces_table(mesh: MeshBundle) -> torch.Tensor:
+def _faces_table(mesh: MeshBundle, slot_perm: torch.Tensor | None = None) -> torch.Tensor:
     """(F, 18) rows of [world triangle (9) | canonical triangle (9)] per face:
-    one row gather per point serves both spaces."""
-    return torch.cat(
+    one row gather per point serves both spaces. With ``slot_perm`` ((T*128,)
+    tile slot -> face id) the table is slot-ordered, (T*128, 18), matching
+    the listed search's `return_slots=True` ids: one small permutation here
+    replaces a translation gather per search."""
+    table = torch.cat(
         [
             mesh.verts_world[mesh.faces].reshape(-1, 9),
             mesh.verts_cano[mesh.faces].reshape(-1, 9),
         ],
         dim=-1,
     )
+    return table if slot_perm is None else table[slot_perm]
+
+
+def _warp_chunk(pts_w: torch.Tensor, fidx: torch.Tensor, faces_wc: torch.Tensor):
+    """Gather + barycentric transport for points with known face (or slot)
+    ids: (pts_c, tmask, tris_w, tris_c). The stages exchange world points
+    and ids and replay this wherever canonical coordinates are needed."""
+    tris_wc = faces_wc[fidx]                                        # (n, 18)
+    tris_w = tris_wc[:, :9].reshape(-1, 3, 3)
+    tris_c = tris_wc[:, 9:].reshape(-1, 3, 3)
+    uv, h = project_point2mesh(pts_w, tris_w)
+    return barycentric_map(uv, h, tris_c), transparent_mask(uv, h), tris_w, tris_c
+
+
+def _search(pts: torch.Tensor, centroids: torch.Tensor, mesh: MeshBundle,
+            settings: RenderSettings, tables: tuple | None,
+            return_slots: bool) -> torch.Tensor:
+    """Nearest face of (N, 3) points by the settings' search. The listed and
+    pruned searches want block-coherent points; ``tables`` are the mesh's
+    precomputed listed-search tables for these centroids, if any.
+    return_slots (listed only): tile-slot ids for a slot-ordered table."""
+    if settings.knn_impl == "listed":
+        if mesh.tile_table is None:
+            raise ValueError("knn_impl 'listed' needs MeshBundle.tile_table (item_to_mesh builds it)")
+        return pruned_search_listed(pts, centroids, mesh.tile_table,
+                                    return_slots=return_slots, tables=tables)
+    return nearest_face(pts, centroids, settings.knn_impl, face_perm=mesh.face_perm)
+
+
+def _search_canonical(pts_c: torch.Tensor, centroids_c: torch.Tensor, mesh: MeshBundle,
+                      settings: RenderSettings, return_slots: bool = False) -> torch.Tensor:
+    """Canonical-space nearest face with the settings' search. Warped points
+    inherit the world layout's block coherence."""
+    return _search(pts_c, centroids_c, mesh, settings, mesh.cano_tables, return_slots)
 
 
 def warp_world_to_canonical(
@@ -177,12 +252,9 @@ def warp_world_to_canonical(
     pts_w: (N, 3). Returns (pts_cano (N, 3), tmask (N,), face_idx (N,)).
     fidx: optional precomputed nearest-face ids."""
     if fidx is None:
-        fidx = nearest_face(pts_w, centroids_w, settings.knn_impl)
-    tris_wc = _faces_table(mesh)[fidx]                              # (N, 18)
-    tris_w = tris_wc[:, :9].reshape(-1, 3, 3)
-    tris_c = tris_wc[:, 9:].reshape(-1, 3, 3)
-    uv, h = project_point2mesh(pts_w, tris_w)
-    return barycentric_map(uv, h, tris_c), transparent_mask(uv, h), fidx
+        fidx = _search(pts_w, centroids_w, mesh, settings, mesh.world_tables, False)
+    pts_c, tmask, _, _ = _warp_chunk(pts_w, fidx, _faces_table(mesh))
+    return pts_c, tmask, fidx
 
 
 def _transport_normal(pts_c, normal_local, tris_c, tris_w) -> torch.Tensor:
@@ -204,7 +276,7 @@ def normal_canonical_to_world(
 ) -> torch.Tensor:
     """World-space unit normals from canonical density gradients, through a
     second nearest-face search in canonical space (as the reference does)."""
-    cidx = nearest_face(pts_c, centroids_c, settings.knn_impl)
+    cidx = _search_canonical(pts_c, centroids_c, mesh, settings)
     tri_vidx = mesh.faces[cidx]
     return _transport_normal(
         pts_c, normal_local, mesh.verts_cano[tri_vidx], mesh.verts_world[tri_vidx]
@@ -225,6 +297,76 @@ def _point_network(model, pts_w, pts_c, dir_w, code, pose_feat, code_scale,
     normal_w = _transport_normal(pts_c, normal_local, tris_c2, tris_w2)
     color = model.lighting(normal_w, pts_w, dir_w, essence)
     return color, density.detach()[:, 0]
+
+
+def _light_space(pts_w: torch.Tensor, light: LightState) -> torch.Tensor:
+    """The world coordinates the LightingMLP sees: xy rotated about
+    rot_center, then shifted by light_bias."""
+    xy = (pts_w[:, :2] - light.rot_center[:2]) @ light.rot + light.rot_center[:2]
+    return torch.cat([xy, pts_w[:, 2:]], dim=-1) + light.light_bias
+
+
+def _color_pass(model, settings: RenderSettings, light: LightState, pts_w, pts_c, dir_w,
+                code, pose_feat, tris_c2, tris_w2):
+    """`_point_network` over slices of mlp_chunk points: color (n, 3),
+    sigma (n,) (before the transparent mask)."""
+    n = pts_w.shape[0]
+    pts_w_light = _light_space(pts_w, light)
+    color = torch.empty((n, 3), dtype=pts_w.dtype, device=pts_w.device)
+    sigma = torch.empty((n,), dtype=pts_w.dtype, device=pts_w.device)
+    for a in range(0, n, settings.mlp_chunk):
+        sl = slice(a, a + settings.mlp_chunk)
+        m = pts_w[sl].shape[0]
+        color[sl], sigma[sl] = _point_network(
+            model, pts_w_light[sl], pts_c[sl], dir_w[sl], code,
+            pose_feat.expand(m, pose_feat.shape[-1]), light.code_scale,
+            tris_c2[sl], tris_w2[sl],
+        )
+    return color, sigma
+
+
+def _block_layout(r: int, s: int, block_sc: int):
+    """The block-coherent point layout of the listed and pruned searches,
+    without a sort: (sample-chunk, ray, sample-within), so that consecutive
+    points are adjacent rays' runs of ``sc`` consecutive samples (sc is
+    block_sc, halved until it divides s). Rays of an eval chunk are in
+    scanline order already. Returns (to_blocked, from_blocked):
+    (R, S, ...) -> (N, ...) and (N, ...) blocked -> (N, ...) ray-major."""
+    sc = block_sc
+    while s % sc:
+        sc //= 2
+    n_sc = s // sc
+
+    def to_blocked(x):
+        y = x.reshape(r, n_sc, sc, *x.shape[2:]).transpose(0, 1)
+        return y.reshape(r * s, *x.shape[2:])
+
+    def from_blocked(x):
+        y = x.reshape(n_sc, r, sc, *x.shape[1:]).transpose(0, 1)
+        return y.reshape(r * s, *x.shape[1:])
+
+    return to_blocked, from_blocked
+
+
+def topk_first(w: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices (R, k) of the k largest entries of each row of w (R, S), in
+    descending order, equal entries by increasing index: `jax.lax.top_k`'s
+    order, which `torch.topk` does not promise. A stable descending sort
+    gives it on every device (rays that miss the body have S equal zero
+    weights)."""
+    return torch.sort(w, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def nearest_selected(top_idx: torch.Tensor, s: int) -> torch.Tensor:
+    """For each of the s samples of a ray the position (R, s), in 0..K-1,
+    of the selected sample (top_idx (R, K)) nearest to it along the ray;
+    among equally near ones the first of the K, as `jnp.argmin` decides.
+    The rule is explicit: the key dist * K + position has no ties."""
+    k = top_idx.shape[-1]
+    samples = torch.arange(s, device=top_idx.device)[None, :, None]
+    dist = (samples - top_idx[:, None, :]).abs()                    # (R, s, K)
+    key = dist * k + torch.arange(k, device=top_idx.device)
+    return key.argmin(dim=-1)
 
 
 def _check_devices(device: torch.device, model, *tensors) -> None:
@@ -269,43 +411,58 @@ def _render_with_z(model, batch: RayBatch, mesh: MeshBundle,
     """warp + networks + composite for given per-ray z values (R, S)."""
     r, s = z_vals.shape
     n = r * s
-    pts_w = sample_along_rays(batch.ray_o, batch.ray_d, z_vals).reshape(n, 3)
-    dir_w = batch.ray_d[:, None, :].expand(r, s, 3).reshape(n, 3)
+    pts_w = sample_along_rays(batch.ray_o, batch.ray_d, z_vals)     # (R, S, 3)
+    dir_w = batch.ray_d[:, None, :].expand(r, s, 3)
 
     centroids_w = face_centroids(mesh.verts_world, mesh.faces)
     centroids_c = face_centroids(mesh.verts_cano, mesh.faces)
 
-    # both searches depend on geometry only; each runs once per chunk
-    fidx_w = nearest_face(pts_w, centroids_w, settings.knn_impl)
-    pts_c, tmask, _ = warp_world_to_canonical(
-        pts_w, mesh, centroids_w, settings, fidx=fidx_w
-    )
-    cidx = nearest_face(pts_c, centroids_c, settings.knn_impl)
-    tris_wc2 = _faces_table(mesh)[cidx]                              # (N, 18)
-    tris_w2 = tris_wc2[:, :9].reshape(-1, 3, 3)
-    tris_c2 = tris_wc2[:, 9:].reshape(-1, 3, 3)
+    # The listed and pruned searches run in the block-coherent point order;
+    # the networks do not care about the order, so it is undone only on the
+    # per-point results. The listed search returns tile-slot ids, and every
+    # stage gathers from the slot-ordered face table: the ids stay consistent
+    # across the world search, the canonical search and face reuse, and
+    # nothing outside this function sees them.
+    blocked = settings.knn_impl in ("listed", "pruned")
+    use_slots = settings.knn_impl == "listed"
+    from_blocked = None
+    if blocked:
+        to_blocked, from_blocked = _block_layout(r, s, settings.block_sc)
+        pts_w_flat = to_blocked(pts_w).contiguous()
+        dir_w_flat = to_blocked(dir_w)
+    else:
+        pts_w_flat = pts_w.reshape(n, 3)
+        dir_w_flat = dir_w.reshape(n, 3)
 
+    # the searches depend on geometry only; each runs once per chunk
+    fidx_w = _search(pts_w_flat, centroids_w, mesh, settings, mesh.world_tables, use_slots)
+    faces_wc = _faces_table(mesh, slot_perm_from_tiles(mesh.tile_table) if use_slots else None)
     pose_feat = model.pose_feature(batch.body_pose)                  # (16,)
     code = model.frame_code(batch.frame)
 
-    # light-space manipulation of the world coords the LightingMLP sees
-    xy = (pts_w[:, :2] - light.rot_center[:2]) @ light.rot + light.rot_center[:2]
-    pts_w_light = torch.cat([xy, pts_w[:, 2:]], dim=-1) + light.light_bias
+    if 0 < settings.shade_topk < s:
+        return _gated_shading(model, batch, mesh, settings, light, z_vals, pts_w,
+                              pts_w_flat, fidx_w, faces_wc, centroids_c, code, pose_feat,
+                              from_blocked, use_slots)
 
-    color = torch.empty((n, 3), dtype=pts_w.dtype, device=pts_w.device)
-    sigma = torch.empty((n,), dtype=pts_w.dtype, device=pts_w.device)
-    for a in range(0, n, settings.mlp_chunk):
-        sl = slice(a, a + settings.mlp_chunk)
-        m = pts_w[sl].shape[0]
-        c, sg = _point_network(
-            model, pts_w_light[sl], pts_c[sl], dir_w[sl], code,
-            pose_feat.expand(m, pose_feat.shape[-1]), light.code_scale,
-            tris_c2[sl], tris_w2[sl],
-        )
-        color[sl] = c
-        sigma[sl] = torch.where(tmask[sl], 0.0, sg)
+    pts_c, tmask, _, _ = _warp_chunk(pts_w_flat, fidx_w, faces_wc)
+    if settings.reuse_warp_faces:
+        cidx = fidx_w
+    else:
+        cidx = _search_canonical(pts_c, centroids_c, mesh, settings, use_slots)
+    tris_wc2 = faces_wc[cidx]                                        # (N, 18)
+    color, sigma = _color_pass(
+        model, settings, light, pts_w_flat, pts_c, dir_w_flat, code, pose_feat,
+        tris_wc2[:, 9:].reshape(-1, 3, 3), tris_wc2[:, :9].reshape(-1, 3, 3),
+    )
+    sigma = torch.where(tmask, 0.0, sigma)
+    if blocked:
+        color, sigma = from_blocked(color), from_blocked(sigma)
+    return _outputs(composite(color.reshape(r, s, 3), sigma.reshape(r, s), z_vals, batch.ray_d),
+                    z_vals)
 
-    out = composite(color.reshape(r, s, 3), sigma.reshape(r, s), z_vals, batch.ray_d)
+
+def _outputs(out, z_vals: torch.Tensor) -> dict[str, torch.Tensor]:
     return {
         "color": out.rgb,
         "disp_map": out.disp,
@@ -314,3 +471,71 @@ def _render_with_z(model, batch: RayBatch, mesh: MeshBundle,
         "weights": out.weights,
         "z_vals": z_vals,
     }
+
+
+def _gated_shading(model, batch: RayBatch, mesh: MeshBundle, settings: RenderSettings,
+                   light: LightState, z_vals, pts_w, pts_w_flat, fidx_flat, faces_wc,
+                   centroids_c, code, pose_feat, from_blocked, use_slots: bool):
+    """Importance-gated shading: density everywhere, color on the top-K
+    samples of each ray.
+
+    Per-ray rgb = sum_i w_i c_i; a sample outside the top K by weight adds at
+    most its near-zero weight times a bounded color, so with K covering the
+    weight mass the image matches full shading to the weights' tail. Density
+    (hence weights, acc, depth) is computed at every sample.
+
+    pts_w (R, S, 3) ray-major; pts_w_flat (N, 3) and fidx_flat (N,) in the
+    searches' order (blocked iff from_blocked is given); faces_wc the face
+    table that fidx_flat indexes (slot-ordered iff use_slots)."""
+    r, s = z_vals.shape
+    n = r * s
+    k = settings.shade_topk
+    pf_dim = pose_feat.shape[-1]
+
+    # ---- density pass over all samples: forward only, no autograd graph ----
+    sigma_flat = torch.empty((n,), dtype=pts_w.dtype, device=pts_w.device)
+    for a in range(0, n, settings.mlp_chunk):
+        sl = slice(a, a + settings.mlp_chunk)
+        pc, tmask, _, _ = _warp_chunk(pts_w_flat[sl], fidx_flat[sl], faces_wc)
+        _, density = model.sigma_essence(
+            pc, code, pose_feat.expand(pc.shape[0], pf_dim), light.code_scale,
+            density_only=True,
+        )
+        sigma_flat[sl] = torch.where(tmask, 0.0, density[:, 0])
+    if from_blocked is not None:
+        sigma_flat = from_blocked(sigma_flat)
+        fidx_flat = from_blocked(fidx_flat)
+    sigma = sigma_flat.reshape(r, s)
+
+    # ---- the K samples per ray that carry the weight mass ----
+    # selection and the final composite go through the one `composite`, so
+    # they see the same weights (and, in training, the same noise)
+    zero_rgb = torch.zeros((r, s, 3), dtype=sigma.dtype, device=sigma.device)
+    w_sel = composite(zero_rgb, sigma, z_vals, batch.ray_d).weights
+    top_idx = topk_first(w_sel, k)                                   # (R, K)
+    pw_sel = torch.take_along_dim(pts_w, top_idx[..., None], dim=1).reshape(r * k, 3)
+    fi_sel = torch.take_along_dim(fidx_flat.reshape(r, s), top_idx, dim=1).reshape(r * k)
+    dw_sel = batch.ray_d[:, None, :].expand(r, k, 3).reshape(r * k, 3)
+
+    # canonical coordinates of the selected points, from the face ids again
+    pc_sel, _, _, _ = _warp_chunk(pw_sel, fi_sel, faces_wc)
+    if settings.reuse_warp_faces:
+        cidx = fi_sel
+    else:
+        # ray-major selected points are surface-concentrated and locally
+        # coherent: the listed and pruned searches take them as blocks
+        cidx = _search_canonical(pc_sel, centroids_c, mesh, settings, use_slots)
+
+    # ---- the full color chain on the selected samples ----
+    tris_wc2 = faces_wc[cidx]
+    color_sel, _ = _color_pass(
+        model, settings, light, pw_sel, pc_sel, dw_sel, code, pose_feat,
+        tris_wc2[:, 9:].reshape(-1, 3, 3), tris_wc2[:, :9].reshape(-1, 3, 3),
+    )
+
+    # tail completion: an unselected sample takes the color of the nearest
+    # selected sample of its ray (colors vary smoothly along a ray), so the
+    # weight tail adds about its true color and not black
+    nearest = nearest_selected(top_idx, s)                           # (R, S)
+    color = torch.take_along_dim(color_sel.reshape(r, k, 3), nearest[..., None], dim=1)
+    return _outputs(composite(color, sigma, z_vals, batch.ray_d), z_vals)

@@ -13,11 +13,15 @@ import torch
 
 from dual_space_nerf_tpu_torch.data.synthetic import make_scene
 from dual_space_nerf_tpu_torch.ops import (
+    build_face_clusters,
+    build_face_tiles,
     face_centroids,
     gg_near_far_cuda,
     gg_near_far_plain,
+    listed_tables,
     nearest_face_cuda,
     nearest_face_plain,
+    pruned_knn,
 )
 
 pytestmark = pytest.mark.cuda
@@ -69,6 +73,77 @@ def test_nearest_face_kernel_equals_plain(dev, scene, n):
     assert torch.equal(ids_k, ids_p)
 
 
+def _search_inputs(scene, n, dev):
+    """Morton-sorted near-surface points, centroids and the searches' tables."""
+    verts = torch.as_tensor(scene.verts_world, device=dev)
+    cents = face_centroids(verts, torch.as_tensor(scene.faces.astype(np.int64), device=dev))
+    g = torch.Generator(device=dev).manual_seed(0)
+    idx = torch.randint(0, cents.shape[0], (n,), device=dev, generator=g)
+    pts = cents[idx] + 0.05 * torch.randn(n, 3, dtype=torch.float32, device=dev, generator=g)
+    pts = pts[pruned_knn.morton_order(pts)].contiguous()
+    cano = scene.verts_cano[scene.faces.astype(np.int64)].mean(axis=1)
+    clusters = build_face_clusters(cano)
+    tiles = torch.as_tensor(build_face_tiles(cano), device=dev)
+    perm = torch.as_tensor(clusters[clusters >= 0].astype(np.int64), device=dev)
+    return pts, cents, tiles, perm
+
+
+@pytest.mark.parametrize("n,plan_p", [(128, 128), (2048, 128), (2048, 512), (2048, 2048),
+                                      (524_288, 128), (524_288, 1024)])
+def test_listed_plan_kernel_equals_plain(dev, scene, n, plan_p):
+    """Lists, counts and sorted lower bounds, bit for bit."""
+    pts, cents, tiles, _ = _search_inputs(scene, n, dev)
+    _, tile_c, tile_r, _ = listed_tables(cents, tiles)
+    got = pruned_knn.listed_plan(pts, tile_c, tile_r, tiles.shape[0], plan_p)
+    want = pruned_knn.listed_plan_plain(pts, tile_c, tile_r, tiles.shape[0], plan_p)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("order", "counts", "lbs"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert int(got[1].min()) >= 1
+
+
+@pytest.mark.parametrize("n", [128, 2048, 524_288])
+@pytest.mark.parametrize("variant", ["wide", "tighten", "slim"])
+@pytest.mark.parametrize("plan_p", [128, 512])
+def test_listed_kernels_equal_plain(dev, scene, n, variant, plan_p):
+    if n % plan_p:
+        pytest.skip("n is not a whole number of plan rows")
+    pts, cents, tiles, _ = _search_inputs(scene, n, dev)
+    cent_t, tile_c, tile_r, perm_pad = listed_tables(cents, tiles)
+    order, counts, lbs = pruned_knn.listed_plan(pts, tile_c, tile_r, tiles.shape[0], plan_p)
+    args = (pts, cent_t, order, counts, lbs, plan_p, variant == "slim", variant == "tighten")
+    ids_k = pruned_knn.listed_search(*args)
+    ids_p = pruned_knn.listed_search_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(ids_k, ids_p)
+    # and the search is exact: the brute-force kernel's faces, but for near-ties
+    assert int((perm_pad[ids_k.long()] != nearest_face_cuda(pts, cents)).sum()) <= max(1, n // 5000)
+
+
+@pytest.mark.parametrize("n", [128, 2048, 524_288])
+@pytest.mark.parametrize("block_p,tighten", [(128, 1), (512, 1), (1024, 0), (256, 2)])
+def test_pruned_kernel_equals_plain(dev, scene, n, block_p, tighten):
+    if n % block_p:
+        pytest.skip("n is not a whole number of blocks")
+    pts, cents, _, perm = _search_inputs(scene, n, dev)
+    tabs = pruned_knn.pruned_tables(cents, perm)
+    ids_k = pruned_knn.pruned_search(pts, *tabs, block_p, tighten=tighten)
+    ids_p = pruned_knn.pruned_search_plain(pts, *tabs, block_p, tighten=tighten)
+    torch.cuda.synchronize()
+    assert torch.equal(ids_k, ids_p)
+    assert int((perm[ids_k.long()] != nearest_face_cuda(pts, cents)).sum()) <= max(1, n // 5000)
+
+
+def test_searches_pad_ragged_tails_on_the_card(dev, scene):
+    pts, cents, tiles, perm = _search_inputs(scene, 1000, dev)
+    brute = nearest_face_cuda(pts, cents)
+    for ids in (pruned_knn.pruned_search_listed(pts, cents, tiles),
+                pruned_knn.pruned_search_listed(pts, cents, tiles, slim=True),
+                pruned_knn.pruned_search_presorted(pts, cents, perm),
+                pruned_knn.nearest_face_pruned(pts.flip(0).contiguous(), cents, perm).flip(0)):
+        assert ids.shape == (1000,) and int((ids != brute).sum()) <= 1
+
+
 def test_kernels_reject_what_they_do_not_take(dev, scene):
     args = _rays(scene, 16, dev)
     with pytest.raises(TypeError):
@@ -82,3 +157,18 @@ def test_kernels_reject_what_they_do_not_take(dev, scene):
         nearest_face_cuda(pts, torch.zeros(0, 3, dtype=torch.float32, device=dev))
     with pytest.raises(TypeError):
         nearest_face_cuda(pts.half(), torch.zeros(2, 3, dtype=torch.float32, device=dev))
+    spts, cents, tiles, perm = _search_inputs(scene, 256, dev)
+    with pytest.raises(TypeError):
+        pruned_knn.pruned_search_listed(spts.double(), cents, tiles)
+    with pytest.raises(ValueError):
+        pruned_knn.pruned_search_listed(spts, cents, tiles, plan_p=64)  # not a thread block
+    with pytest.raises(ValueError):
+        pruned_knn.pruned_search_listed(spts, cents, tiles, tables=tuple(
+            t.cpu() for t in listed_tables(cents, tiles)))
+    tabs = listed_tables(cents, tiles)
+    with pytest.raises(ValueError):  # 4096-point rows do not fit the plan kernel's shared memory
+        pruned_knn.listed_plan(spts.repeat(16, 1), tabs[1], tabs[2], tiles.shape[0], 4096)
+    with pytest.raises(ValueError):
+        pruned_knn.pruned_search_presorted(spts, cents, perm, block_p=48)
+    with pytest.raises(ValueError):
+        pruned_knn.pruned_search_presorted(spts, cents, perm, block_f=256)

@@ -3,11 +3,16 @@
 `tests/fixtures/torch_port_render_golden.npz` holds 2048 rays of the
 synthetic scene's 512x512 val image (every 71st ray inside the box) and
 what the JAX package renders for them on the CPU with the trained fixture
-at the slice's settings (64 GG samples, full shading). Two legs:
+at 64 samples. Three legs:
 
-- ``gg/*``: the slice end to end, GG near/far on each side;
-- ``fixed/*``: near/far held at the JAX package's GG result (``gg_near``,
-  ``gg_far``) with uniform sampling, so both sides sample the same z.
+- ``gg/*``: the exact slice (full shading) end to end, GG near/far on each
+  side;
+- ``fixed/*``: the exact slice with near/far held at the JAX package's GG
+  result (``gg_near``, ``gg_far``) and uniform sampling, so both sides sample
+  the same z;
+- ``prod/*``: the production path (`configs/zju_mocap/313_tpu.yml`:
+  SHADE_TOPK 16, REUSE_WARP_FACES) on the fixed leg's z. The JAX package
+  renders it with its CPU search, the port with `KNN_IMPL: "listed"`.
 
 Bands (bench/r5/NOTES.md, "On-DEVICE parity"): color <= 5e-4, acc <= 1e-4,
 depth <= 1e-4 relative, disp only where acc > 1e-3. The transparent mask
@@ -19,10 +24,16 @@ inputs 0.0056. So in the fixed leg 99% of rays sit within the bands (3 of
 2048 do not, on the CPU and on the card) and every ray within fifty times
 them. In the gg leg the two sides' GG near/far also differ by ulps on most
 rays (see test_torch_port_render.py): 97% within the bands, every ray
-within fifty times them. `chip_smoke.py` holds the card's render of all
+within fifty times them. The prod leg adds the selection of the 16 shaded
+samples as a discontinuity (two weights closer than the frameworks'
+rounding swap places, see test_torch_port_gated.py) and drops the second
+search's near-ties: 99% within the bands, every ray within fifty times them.
+`chip_smoke.py` holds the card's render of all
 2048 rays to the same checks (`check_golden`).
 
-Regenerate the file with ``python tests/test_torch_port_golden.py``.
+Regenerate the file with ``python tests/test_torch_port_golden.py``; with
+``--add-missing-legs`` the legs already in the file stay as they are and
+only new ones are rendered.
 """
 
 from __future__ import annotations
@@ -39,8 +50,10 @@ sys.path.insert(0, REPO)
 
 from dual_space_nerf_tpu_torch.evaluation.golden import (  # noqa: E402
     GOLDEN_NPZ,
+    LEGS,
     check_golden,
     golden_items,
+    leg_settings,
     render_golden,
 )
 
@@ -49,8 +62,8 @@ FAST_STRIDE = 8  # the fast CPU test renders every 8th golden ray (256 rays)
 CHUNK = 256
 
 
-def _jax_render_golden(rays: dict) -> dict:
-    """The JAX package's render of the golden rays, both legs."""
+def _jax_render_golden(rays: dict, legs: tuple = LEGS) -> dict:
+    """The JAX package's render of the golden rays, leg by leg."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_port_common import jax_model_and_params, slice_cfg
 
@@ -61,10 +74,12 @@ def _jax_render_golden(rays: dict) -> dict:
 
     ds = SyntheticDataset(split="val", n_frames=1, n_views=1, h=512, w=512)
     model, params = jax_model_and_params()
-    settings = RenderSettings.from_cfg(slice_cfg(get_cfg_defaults, 64))
+    exact = RenderSettings.from_cfg(slice_cfg(get_cfg_defaults, 64))
+    production = dataclasses.replace(exact, shade_topk=16, reuse_warp_faces=True)
+    items = golden_items(rays)
     out = {}
-    for leg, item in golden_items(rays).items():
-        s = settings if leg == "gg" else dataclasses.replace(settings, sample_mode="uniform")
+    for leg in legs:
+        item, s = items[leg], leg_settings(leg, exact, production)
         r = ImageRenderer(model, params, s, np.asarray(ds.faces), ds.canonical_vertex,
                           chunk=CHUNK, pack="f32")
         img = r.render_item(item)
@@ -132,6 +147,12 @@ def test_golden_file_is_what_jax_renders(golden):
 
 if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    data = make_golden()
+    if "--add-missing-legs" in sys.argv:
+        with np.load(GOLDEN_NPZ) as old:
+            data = {k: old[k] for k in old.files}
+        missing = tuple(leg for leg in LEGS if f"{leg}/color" not in data)
+        data.update(_jax_render_golden(data, missing))
+    else:
+        data = make_golden()
     np.savez_compressed(GOLDEN_NPZ, **data)
     print(f"wrote {GOLDEN_NPZ}: {len(data['ray_o'])} rays")

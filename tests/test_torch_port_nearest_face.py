@@ -83,10 +83,36 @@ def test_dispatch_runs_the_brute_force_search(impl, rng_np):
     assert torch.equal(nearest_face(pts, cents, impl), nearest_face_cuda(pts, cents))
 
 
-@pytest.mark.parametrize("impl", ["listed", "pruned", "grouped", "clustered", "xla"])
+@pytest.mark.parametrize("impl", ["grouped", "clustered", "xla"])
 def test_dispatch_refuses_unported_searches(impl):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         nearest_face(torch.zeros((1, 3)), torch.zeros((1, 3)), impl)
+
+
+@pytest.mark.parametrize("impl", ["listed", "pruned"])
+def test_dispatch_runs_the_tile_pruned_searches(impl, mesh, rng_np):
+    """ "listed" and "pruned" need their mesh table and then agree with the
+    brute-force search; without it they raise and run no other search."""
+    from dual_space_nerf_tpu_torch.ops import build_face_clusters, build_face_tiles
+
+    verts, faces = mesh
+    cents = face_centroids(torch.from_numpy(verts), torch.from_numpy(faces.astype(np.int64)))
+    pts = torch.from_numpy(_near_surface_points(rng_np, cents.numpy(), 300))
+    with pytest.raises(ValueError, match="needs the mesh"):
+        nearest_face(pts, cents, impl)
+    clusters = build_face_clusters(cents.numpy())
+    ids = nearest_face(
+        pts, cents, impl,
+        tile_table=torch.from_numpy(build_face_tiles(cents.numpy())),
+        face_perm=torch.from_numpy(clusters[clusters >= 0].astype(np.int64)),
+    )
+    brute = nearest_face_plain(pts, cents)
+    d2 = ((pts[:, None].double() - cents[None].double()) ** 2).sum(-1)
+    rows = torch.arange(len(pts))
+    gap = d2[rows, ids.long()] - d2[rows, brute.long()]
+    assert ids.dtype == torch.int32
+    assert bool((gap.abs() <= 1e-6 * d2[rows, brute.long()]).all())  # equal but for f32 near-ties
+    assert int((ids != brute).sum()) <= 1
 
 
 def test_dispatch_rejects_unknown_impl():

@@ -142,12 +142,22 @@ def test_render_item_novel_pose_light_matches_jax(item, renderers, identity_rend
 
 def test_unported_settings_raise():
     cfg = slice_cfg(get_cfg_defaults)
-    for key, value in (("SHADE_TOPK", 16), ("REUSE_WARP_FACES", True), ("FUSED_MLP", "on"),
-                       ("FINE_RAY_SAMPLING", 8), ("KNN_IMPL", "listed")):
+    for key, value in (("FUSED_MLP", "on"), ("FINE_RAY_SAMPLING", 8), ("KNN_IMPL", "grouped"),
+                       ("KNN_IMPL", "clustered"), ("KNN_IMPL", "xla")):
         bad = cfg.clone()
         bad.MODEL[key] = value
         with pytest.raises(NotImplementedError):
             RenderSettings.from_cfg(bad)
+
+
+@pytest.mark.parametrize("key,value,field", [
+    ("SHADE_TOPK", 16, "shade_topk"), ("REUSE_WARP_FACES", True, "reuse_warp_faces"),
+    ("KNN_IMPL", "listed", "knn_impl"), ("KNN_IMPL", "pruned", "knn_impl"),
+])
+def test_ported_settings_are_accepted(key, value, field):
+    cfg = slice_cfg(get_cfg_defaults)
+    cfg.MODEL[key] = value
+    assert getattr(RenderSettings.from_cfg(cfg), field) == value
 
 
 @pytest.mark.parametrize("novel", [False, True])
