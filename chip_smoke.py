@@ -27,7 +27,18 @@ Phases (any failure exits non-zero, before the last line is printed):
    every leg with its config's search, then the exact legs again with
    `KNN_IMPL: "pruned"` and with `"listed"` under `DSNERF_KNN_SLIM=1`, so
    that every kernel is launched on a render path;
-6. prints the `kernels` JSON line, the card line, and as the last line
+6. holds the fused SpaceNet kernels (forward and backward, density-only and
+   with color) against their plain versions at the training step's shapes
+   (352,000 and 88,000 canonical points of the train batch, and a ragged
+   count), and times kernel, plain version, the card's bound and the
+   unfused chain (SpaceNet + autograd normal, and its double backward);
+7. trains: `training.make_train_step` on `bench.py`'s train workload (the
+   512x512 train item, 5500 rays x 64 samples, the trained fixture, Adam at
+   5e-4) on four paths, production or exact with `FUSED_MLP` on or off, from
+   the same weights and the same draws: launch counts per step, s_per_step,
+   rays/s, device ms per step, peak memory; every loss finite, and the fused
+   and unfused gradients of the first step held to each other;
+8. prints the `kernels` JSON line, the card line, and as the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -44,7 +55,12 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
-from dual_space_nerf_tpu_torch.data import SyntheticDataset, item_to_mesh, iter_ray_chunks
+from dual_space_nerf_tpu_torch.data import (
+    SyntheticDataset,
+    item_to_mesh,
+    item_to_train_batch,
+    iter_ray_chunks,
+)
 from dual_space_nerf_tpu_torch.evaluation import ImageRenderer, psnr
 from dual_space_nerf_tpu_torch.evaluation.golden import (
     GOLDEN_NPZ,
@@ -52,10 +68,13 @@ from dual_space_nerf_tpu_torch.evaluation.golden import (
     production_cfg,
     render_golden,
     slice_cfg,
+    train_cfg,
     trained_model,
 )
 from dual_space_nerf_tpu_torch.geometry import sample_along_rays, stratified_z
 from dual_space_nerf_tpu_torch.ops import (
+    FUSED_BWD_KERNEL,
+    FUSED_FWD_KERNEL,
     GG_KERNEL,
     KERNELS,
     LISTED_KERNEL,
@@ -72,10 +91,16 @@ from dual_space_nerf_tpu_torch.ops import (
     pruned_search_listed,
     pruned_search_presorted,
 )
-from dual_space_nerf_tpu_torch.ops import pruned_knn
+from dual_space_nerf_tpu_torch.ops import fused_mlp, posenc, pruned_knn
 from dual_space_nerf_tpu_torch.ops.cuda_build import build_all
-from dual_space_nerf_tpu_torch.renderer import LightState, RenderSettings, render_rays
+from dual_space_nerf_tpu_torch.renderer import (
+    LightState,
+    RenderSettings,
+    render_rays,
+    warp_world_to_canonical,
+)
 from dual_space_nerf_tpu_torch.renderer.pipeline import _block_layout
+from dual_space_nerf_tpu_torch.training import create_train_state, draw_randoms, make_train_step
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 operations/s
 # outside the tensor cores, an FMA counted as two operations
@@ -84,6 +109,10 @@ PEAK_FP32_PER_S = 67e12
 H = W = 512
 N_TIMED_RENDERS = 3
 PAIR_OPS = 9.0  # 3 sub, 3 mul, 2 add, 1 compare per point-centroid pair
+TRAIN_RAYS = 5500          # bench.py's train workload
+N_TIMED_STEPS = 3
+FWD_TOL, BWD_TOL = 1e-5, 2e-5  # the CPU tests' bands against the JAX package
+KINK = 1e-6                # see fused_mlp.kink_distance
 
 
 def log(msg: str) -> None:
@@ -357,14 +386,14 @@ def sweep_granularity(pts, cents, mesh) -> dict:
     return out
 
 
-def profile_chunk(model, rays, mesh, settings, light) -> dict:
-    """Device time of one render chunk by kernel family (torch.profiler)."""
+def profile_device(fn) -> dict:
+    """Device time of one call of ``fn`` by kernel family (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        render_rays(model, rays, mesh, settings, light, device="cuda")
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     fam: dict[str, float] = {}
@@ -383,6 +412,8 @@ def profile_chunk(model, rays, mesh, settings, light) -> dict:
             k = "listed plan kernel"
         elif "listed_kernel" in name or "pruned_kernel" in name:
             k = "tile-pruned search kernel"
+        elif "fused_mlp" in name:
+            k = "fused SpaceNet kernels"
         elif "gemm" in name or "cutlass" in name or "xmma" in name:
             k = "matrix products (cuBLAS)"
         elif "index" in name or "gather" in name or "scatter" in name:
@@ -401,6 +432,11 @@ def profile_chunk(model, rays, mesh, settings, light) -> dict:
         "by_family_ms": dict(sorted(fam.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"name": n[:90], "ms": t, "calls": c} for n, t, c in top],
     }
+
+
+def profile_chunk(model, rays, mesh, settings, light) -> dict:
+    """Device time of one render chunk by kernel family."""
+    return profile_device(lambda: render_rays(model, rays, mesh, settings, light, device="cuda"))
 
 
 def reset_launches() -> None:
@@ -462,6 +498,243 @@ def render_path(label, cfg, model, ds, item, rays0, mesh, expect: dict, n_timed:
         prof["device_busy_share_est"] = prof["device_ms"] * render["chunks"] / (s_img * 1e3)
     log(f"profile_chunk {label}: " + json.dumps(prof))
     return out, launches
+
+
+# ---- the fused SpaceNet kernels -------------------------------------------
+FUSED_SIZES = (352_000, 88_000, 100_003)  # density pass, color pass, a ragged count
+
+
+def fused_macs(with_color: bool, backward: bool) -> float:
+    """Multiply-adds per point of the fused chain's algebra (`ops/fused_mlp.py`)."""
+    w, pe, x, e = 256, 63, 87, 128
+    backbone = x * w + 3 * w * w + (w * w + pe * w) + 2 * w * w       # h1..h7
+    u_chain = 6 * w * w + 2 * pe * w                                   # u6..u1, gpe
+    heads = w * e + e * 3                                              # e1, essence
+    if not backward:
+        return backbone + w + (heads + u_chain if with_color else 0)
+    n = backbone + (6 * w * w + x * w + pe * w)                        # dz6..dz1, xbar
+    n += x * w + 6 * w * w + pe * w + w                                # k1..k8 gradients
+    if with_color:
+        n += 3 * w * e + 6 * e                                         # e1, de1, k9/k10, dh7
+        n += u_chain                                                   # u-chain, gpe
+        n += 6 * w * w + 2 * pe * w                                    # gb1..gb7
+        n += 6 * w * w + 2 * pe * w + w                                # second-order gradients
+    return n
+
+
+def fused_bound(n: int, with_color: bool, backward: bool) -> tuple[float, str]:
+    per_point = (87 + 1 + (66 if with_color else 0)) if not backward else (
+        87 + 1 + 87 + ((3 + 63 + 63) if with_color else 0))
+    n_bytes = 4.0 * (n * per_point + fused_mlp.W_FLOATS + (fused_mlp.G_FLOATS if backward else 0))
+    return bound_ms(n_bytes, 2.0 * fused_macs(with_color, backward) * n)
+
+
+def fused_check_inputs(model, batch, mesh, settings):
+    """352,000 canonical points of the train batch (GG, jittered z, the warp)
+    and their kernel input x = [pe | code | pose]."""
+    dev = torch.device("cuda")
+    with torch.no_grad():
+        rays = batch.rays
+        near, far = gg_near_far_cuda(rays.ray_o, rays.ray_d, rays.near, rays.far,
+                                     mesh.verts_world, settings.gg_gamma)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        u = torch.rand((near.shape[0], settings.n_samples), generator=gen, device=dev)
+        z = stratified_z(near, far, settings.n_samples, u)
+        pts_w = sample_along_rays(rays.ray_o, rays.ray_d, z).reshape(-1, 3).contiguous()
+        cents = face_centroids(mesh.verts_world, mesh.faces)
+        pts_c, _, _ = warp_world_to_canonical(pts_w, mesh, cents, settings)
+        code = model.frame_code(rays.frame)
+        pf = model.pose_feature(rays.body_pose)
+        n = pts_c.shape[0]
+        x = fused_mlp.build_x(posenc(pts_c, 10),
+                              torch.cat([code.expand(n, 8), pf.expand(n, 16)], dim=1))
+    return pts_c.contiguous(), code, pf, x
+
+
+def _rel_err(got, want, keep=None) -> tuple[float, float]:
+    if keep is not None:
+        got, want = got[keep], want[keep]
+    err = float((got - want).abs().max())
+    return err, err / (float(want.abs().max()) + 1e-30)
+
+
+def unfused_chain(model, pts_c, code, pf, with_color: bool, cots=None):
+    """The unfused SpaceNet chain (cuBLAS + autograd): forward with the
+    autograd normal; with ``cots`` also the (double) backward of a loss on
+    its outputs."""
+    n = pts_c.shape[0]
+    with torch.enable_grad():
+        pc = pts_c.detach().requires_grad_(True)
+        ess, dens = model.sigma_essence(pc, code, pf.expand(n, 16), 1.0, density_only=not with_color)
+        outs = [dens[:, 0]]
+        if with_color:
+            (normal,) = torch.autograd.grad(dens.sum(), pc, create_graph=cots is not None)
+            outs += [ess, normal]
+        if cots is not None:
+            model.zero_grad(set_to_none=True)
+            sum((o * c).sum() for o, c in zip(outs, cots)).backward()
+
+
+def fused_chain(model, pts_c, code, pf, with_color: bool, cots):
+    """The same through the fused kernels' autograd functions."""
+    n = pts_c.shape[0]
+    with torch.enable_grad():
+        pc = pts_c.detach().requires_grad_(True)
+        pe = posenc(pc, 10)
+        cp = torch.cat([code.expand(n, 8), pf.expand(n, 16)], dim=1)
+        params = fused_mlp.nerf_params(model.nerf)
+        if with_color:
+            outs = fused_mlp.fused_sigma_essence_normal(params, pe, cp)
+        else:
+            outs = (fused_mlp.fused_sigma(params, pe, cp),)
+        model.zero_grad(set_to_none=True)
+        sum((o * c).sum() for o, c in zip(outs, cots)).backward()
+
+
+def check_fused(model, pts_c, code, pf, x_all) -> tuple[dict, dict]:
+    """Both fused kernels in both variants against their plain versions at
+    the training step's shapes, and timed. Points within KINK of a ReLU's
+    kink are left out of the mask-dependent outputs and their cotangents
+    zeroed (`fused_mlp.kink_distance`); everything else is held to the bands.
+    Returns the forward and backward kernel rows (their numbers per
+    production step: the density pass over 352,000 points plus the color
+    pass over 88,000)."""
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w = {k: v.detach() for k, v in fused_mlp.pack(fused_mlp.nerf_params(model.nerf)).items()}
+    wflat = fused_mlp.flat_weights(w)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    variants = []
+    for with_color in (False, True):
+        for n in FUSED_SIZES:
+            x = x_all[:n].contiguous()
+            keep = fused_mlp.kink_distance(w, x) > KINK
+            v = {"with_color": with_color, "points": n, "kink_points_left_out": int((~keep).sum()),
+                 "kink_share_left_out": float((~keep).float().mean())}
+            got = fused_mlp.fused_fwd(w, x, with_color, wflat)
+            want = fused_mlp.fused_fwd_plain(w, x, with_color)
+            torch.cuda.synchronize()
+            errs = [_rel_err(got[0], want[0])]
+            if with_color:
+                errs += [_rel_err(got[1], want[1]), _rel_err(got[2], want[2], keep)]
+            v["fwd_max_abs_err"], v["fwd_max_rel_err"] = max(e[0] for e in errs), max(e[1] for e in errs)
+            rnd = lambda *sh: torch.randn(*sh, dtype=torch.float32, device=dev, generator=gen)
+            sbar = rnd(n) * keep
+            ebar, gbar = (rnd(n, 3) * keep[:, None], rnd(n, 63) * keep[:, None]) if with_color else (None, None)
+            xb, gp, gr = fused_mlp.fused_bwd(w, x, sbar, ebar, gbar, with_color, wflat)
+            xb_p, gp_p, gr_p = fused_mlp.fused_bwd_plain(w, x, sbar, ebar, gbar, with_color)
+            torch.cuda.synchronize()
+            errs = [_rel_err(xb, xb_p, keep)] + [_rel_err(gr[k].reshape(t.shape), t) for k, t in gr_p.items()]
+            if with_color:
+                errs.append(_rel_err(gp, gp_p, keep))
+            v["bwd_max_abs_err"], v["bwd_max_rel_err"] = max(e[0] for e in errs), max(e[1] for e in errs)
+            if v["fwd_max_rel_err"] > FWD_TOL or v["bwd_max_rel_err"] > BWD_TOL:
+                raise AssertionError(f"fused kernels differ from their plain versions: {v}")
+            if n != FUSED_SIZES[2]:
+                v["fwd_ms"] = time_ms(lambda: fused_mlp.fused_fwd(w, x, with_color, wflat), reps=5)
+                v["fwd_plain_ms"] = time_ms(lambda: fused_mlp.fused_fwd_plain(w, x, with_color), reps=3)
+                v["bwd_ms"] = time_ms(lambda: fused_mlp.fused_bwd(w, x, sbar, ebar, gbar, with_color, wflat),
+                                      reps=3)
+                v["bwd_plain_ms"] = time_ms(lambda: fused_mlp.fused_bwd_plain(w, x, sbar, ebar, gbar, with_color),
+                                            reps=3)
+                v["fwd_bound_ms"], v["fwd_bound_by"] = fused_bound(n, with_color, False)
+                v["bwd_bound_ms"], v["bwd_bound_by"] = fused_bound(n, with_color, True)
+                pc = pts_c[:n]
+                cots = [sbar] + ([ebar, rnd(n, 3)] if with_color else [])
+                v["unfused_fwd_ms"] = time_ms(lambda: unfused_chain(model, pc, code, pf, with_color), reps=3)
+                v["unfused_fwd_bwd_ms"] = time_ms(
+                    lambda: unfused_chain(model, pc, code, pf, with_color, cots), reps=3)
+                v["fused_fwd_bwd_ms"] = time_ms(lambda: fused_chain(model, pc, code, pf, with_color, cots),
+                                                reps=3)
+            variants.append(v)
+            log("fused: " + json.dumps(v))
+    model.zero_grad(set_to_none=True)
+    step = [v for v in variants if (v["points"], v["with_color"]) in ((352_000, False), (88_000, True))]
+    rows = {}
+    for kernel, tag, replaces in ((FUSED_FWD_KERNEL, "fwd", "294"), (FUSED_BWD_KERNEL, "bwd", "311")):
+        bounds = [v[f"{tag}_bound_ms"] for v in step]
+        rows[tag] = {
+            "name": kernel.name, "route": "cuda",
+            "source": f"dual_space_nerf_tpu_torch/csrc/{kernel.source}",
+            "replaces": f"dual_space_nerf_tpu/ops/fused_mlp.py:{replaces}",
+            "max_abs_err": max(v[f"{tag}_max_abs_err"] for v in variants),
+            "max_rel_err": max(v[f"{tag}_max_rel_err"] for v in variants),
+            "ms": sum(v[f"{tag}_ms"] for v in step),
+            "plain_ms": sum(v[f"{tag}_plain_ms"] for v in step),
+            "bound_ms": sum(bounds), "bound_by": step[0][f"{tag}_bound_by"],
+            "library_ms": None,
+            "unfused_chain_ms": sum(v["unfused_fwd_ms" if tag == "fwd" else "unfused_fwd_bwd_ms"] for v in step),
+            "note": "per production step: density-only at 352,000 points + with color at 88,000",
+        }
+    return rows["fwd"], rows["bwd"]
+
+
+# ---- the training step -------------------------------------------------------
+def train_path(label, production: bool, fused: bool, batch, mesh, expect: dict) -> tuple:
+    """`make_train_step` on one path from the fixture's weights and the same
+    draws: a counted first step (launches asserted against ``expect``, its
+    gradients kept), timed steps, a profiled step. Returns (report, grads)."""
+    dev = torch.device("cuda")
+    cfg = train_cfg(production, fused)
+    settings = RenderSettings.from_cfg(cfg)
+    model = trained_model(cfg.MODEL.MAX_FRAMES).to(dev)
+    state = create_train_state(model, cfg)
+    step = make_train_step(settings, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    draws = [draw_randoms(TRAIN_RAYS, settings.n_samples, gen, dev) for _ in range(N_TIMED_STEPS + 2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    m = step(state, batch, mesh, randoms=draws[0])  # this path's counted run
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = launches_now()
+    if launches != expect:
+        raise AssertionError(f"train {label}: launches per step {launches}, expected {expect}")
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    losses = [float(m["loss"])]
+    times = []
+    for i in range(N_TIMED_STEPS):
+        t0 = time.perf_counter()
+        m = step(state, batch, mesh, randoms=draws[1 + i])
+        losses.append(float(m["loss"]))  # a host copy: the step has ended
+        times.append(time.perf_counter() - t0)
+    prof = profile_device(lambda: step(state, batch, mesh, randoms=draws[-1]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train {label}: non-finite loss {losses}")
+    s_step = statistics.median(times)
+    report = {
+        "path": label, "rays": TRAIN_RAYS, "points": TRAIN_RAYS * settings.n_samples,
+        "launches_per_step": launches, "first_step_s": first_s,
+        "s_per_step": s_step, "s_per_step_runs": times, "rays_per_s": TRAIN_RAYS / s_step,
+        "losses": losses, "psnr_last": float(m["psnr"]),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "device_ms_per_step": prof["device_ms"],
+        "device_busy_share_est": (prof["device_ms"] / (s_step * 1e3)
+                                  if isinstance(prof["device_ms"], float) else "not measured"),
+        "profile": prof,
+    }
+    log(f"train {label}: " + json.dumps(report))
+    return report, grads
+
+
+def compare_grads(label, g_fused: dict, g_plain: dict) -> dict:
+    """Per tensor max |fused - unfused| over the unfused max: the worst is
+    reported; a NaN or a ratio above 1e-3 fails the run."""
+    ratios = {}
+    for n, b in g_plain.items():
+        a = g_fused[n]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"train {label}: non-finite gradient in {n}")
+        ratios[n] = float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+    worst = max(ratios, key=ratios.get)
+    out = {"path": label, "worst_tensor": worst, "worst_ratio": ratios[worst],
+           "tensors_beyond_2e-5": sorted(k for k, r in ratios.items() if r > BWD_TOL)}
+    log("grads fused vs unfused: " + json.dumps(out))
+    if ratios[worst] > 1e-3:
+        raise AssertionError(f"train {label}: fused and unfused gradients differ: {out}")
+    return out
 
 
 def golden_leg(label, golden, model, expect: dict, **kwargs) -> dict:
@@ -566,18 +839,53 @@ def main() -> int:
     finally:
         del os.environ["DSNERF_KNN_SLIM"]
 
-    # ---- 6. results ------------------------------------------------------
-    # each kernel's launches on the render path that is its own
+    # ---- 6. the fused SpaceNet kernels at the training step's shapes ------
+    tds = SyntheticDataset(split="train", nrays=TRAIN_RAYS, n_frames=1, n_views=1, h=H, w=W)
+    titem = tds[0]
+    tbatch = item_to_train_batch(titem, TRAIN_RAYS, dev)
+    tmesh = item_to_mesh(titem, tds.faces, tds.canonical_vertex, dev)
+    fmodel = trained_model(cfg.MODEL.MAX_FRAMES).to(dev)
+    pts_c, fcode, fpf, x_all = fused_check_inputs(fmodel, tbatch, tmesh, settings)
+    fwd_row, bwd_row = check_fused(fmodel, pts_c, fcode, fpf, x_all)
+    kernels += [fwd_row, bwd_row]
+    for k in (fwd_row, bwd_row):
+        log("kernel: " + json.dumps({key: k[key] for key in k if key not in ("route", "source", "replaces")}))
+    del fmodel, pts_c, x_all
+
+    # ---- 7. one training step on four paths ------------------------------
+    base = {GG_KERNEL.name: 1}
+    prod_base = {**zero, **base, LISTED_PLAN_KERNEL.name: 1, LISTED_KERNEL.name: 1}
+    exact_base = {**zero, **base, NEAREST_KERNEL.name: 2}
+    train, grads = {}, {}
+    for label, production, fused, expect in (
+        ("production", True, False, prod_base),
+        ("production fused", True, True,
+         {**prod_base, FUSED_FWD_KERNEL.name: 2, FUSED_BWD_KERNEL.name: 2}),
+        ("exact", False, False, exact_base),
+        ("exact fused", False, True, {**exact_base, FUSED_FWD_KERNEL.name: 1, FUSED_BWD_KERNEL.name: 1}),
+    ):
+        train[label], grads[label] = train_path(label, production, fused, tbatch, tmesh, expect)
+        torch.cuda.empty_cache()
+    compared = [compare_grads(path, grads[f"{path} fused"], grads[path])
+                for path in ("production", "exact")]
+    log("train summary: " + json.dumps({
+        label: {k: r[k] for k in ("s_per_step", "rays_per_s", "device_ms_per_step", "peak_mem_gb")}
+        for label, r in train.items()} | {"grads": compared}))
+
+    # ---- 8. results ------------------------------------------------------
+    # each kernel's launches on the path that is its own
     on_path = {
         GG_KERNEL.name: launches_exact, NEAREST_KERNEL.name: launches_exact,
         LISTED_PLAN_KERNEL.name: launches_prod, LISTED_KERNEL.name: launches_prod,
         LISTED_SLIM_KERNEL.name: launches_slim,
         PRUNED_KERNEL.name: launches_pruned,
+        FUSED_FWD_KERNEL.name: train["production fused"]["launches_per_step"],
+        FUSED_BWD_KERNEL.name: train["production fused"]["launches_per_step"],
     }
     for k in kernels:
         k["launches"] = on_path[k["name"]][k["name"]]
         if k["launches"] < 1:
-            raise AssertionError(f"{k['name']}: no launch on its render path")
+            raise AssertionError(f"{k['name']}: no launch on its path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))

@@ -1,6 +1,10 @@
 """Host item dict -> tensors on the renderer's device, with the mesh
 tables of the tile-pruned nearest-face searches.
 
+Train items become one fixed-size `TrainBatch`: the sampled rays sorted by
+pixel locality (the searches' blocks are then tight) and padded to `nrays`
+by wrapping, as in the JAX package's `data/batching.py`.
+
 Eval images render in fixed-size chunks: `iter_ray_chunks` pads the tail
 chunk by repeating its last ray, and the caller keeps the valid prefix.
 """
@@ -15,6 +19,7 @@ import torch
 
 from ..ops import build_face_clusters, build_face_tiles, face_centroids, listed_tables
 from ..renderer import MeshBundle, RayBatch
+from ..training import TrainBatch
 
 
 #: per (canonical mesh content, device): (faces, verts_cano, face_perm,
@@ -77,6 +82,43 @@ def item_to_mesh(item: dict, faces: np.ndarray, verts_cano: np.ndarray,
         cano_tables=cano_tables,
         world_tables=listed_tables(face_centroids(verts_world, faces_dev), tile_table),
     )
+
+
+def _wrap_pad(x: np.ndarray, n: int) -> np.ndarray:
+    """Pad to n rows by repeating the rows from the start."""
+    if x.shape[0] == n:
+        return x
+    reps = -(-n // x.shape[0])
+    return np.concatenate([x] * reps, axis=0)[:n]
+
+
+def _spatial_ray_order(item: dict) -> np.ndarray:
+    """Sampled rays in 16x16 pixel-tile order (row-major tiles, stable)."""
+    coord = np.asarray(item["coord"])
+    n_tile_cols = int(coord[:, 1].max()) // 16 + 1
+    key = (coord[:, 0] // 16) * (n_tile_cols * 16) + (coord[:, 1] // 16) * 16 + (coord[:, 0] % 16)
+    return np.argsort(key, kind="stable")
+
+
+def item_to_train_batch(item: dict, nrays: int, device: torch.device) -> TrainBatch:
+    """A train item as a `TrainBatch` of exactly ``nrays`` rays on ``device``."""
+    if "coord" in item and len(item["coord"]) == len(item["ray_o"]):
+        order = _spatial_ray_order(item)
+        item = dict(item)
+        for k in ("ray_o", "ray_d", "near", "far", "rgb", "occupancy", "coord"):
+            if k in item:
+                item[k] = np.asarray(item[k])[order]
+
+    def dev(k):
+        return torch.as_tensor(np.ascontiguousarray(_wrap_pad(np.asarray(item[k], np.float32), nrays)),
+                               device=device)
+
+    rays = RayBatch(
+        ray_o=dev("ray_o"), ray_d=dev("ray_d"), near=dev("near"), far=dev("far"),
+        frame=int(item["frame"]),
+        body_pose=torch.as_tensor(np.asarray(item["poses"][1:24], np.float32), device=device),
+    )
+    return TrainBatch(rays=rays, rgb=dev("rgb"), occupancy=dev("occupancy"))
 
 
 def iter_ray_chunks(

@@ -1,9 +1,11 @@
-"""Dataset API around the synthetic capsule scene: the val split.
+"""Dataset API around the synthetic capsule scene.
 
 Items have the schema of the JAX package's `data/synthetic_dataset.py`
 (itself the ZJU schema). Ground-truth images are rendered by z-buffered
 vertex splatting with colors from the canonical emission field. The train
-split's importance sampler comes with the training slice.
+split importance-samples `nrays` rays per item (`data/rays.py::sample_rays`)
+from the dataset's numpy generator, or from a per-(epoch, item) generator
+when `deterministic_items` is set, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import os
 
 import numpy as np
 
-from .rays import sample_rays
+from .rays import SamplePools, build_sample_pools, sample_rays
 from .synthetic import SyntheticScene, emission_color, make_scene
 
 
@@ -57,15 +59,18 @@ def splat_image(scene: SyntheticScene, h: int, w: int, radius: int = 2,
 
 
 class SyntheticDataset:
-    """n_frames poses x n_views cameras of the capsule avatar (val split)."""
+    """n_frames poses x n_views cameras of the capsule avatar."""
 
-    def __init__(self, split="val", n_frames=2, n_views=3, h=96, w=96, seed=0,
+    def __init__(self, split="train", nrays=1024, n_frames=2, n_views=3, h=96, w=96, seed=0,
                  view_offset=0.0, essence="smooth"):
-        if split == "train":
-            raise NotImplementedError("the train split's ray sampler comes with the training slice")
         self.split = split
+        self.nrays = nrays if split == "train" else -1
         self.h, self.w = h, w
         self.essence = essence
+        self.rng = np.random.default_rng(seed)
+        self.item_seed = 0 if seed is None else int(seed)
+        self.deterministic_items = False
+        self._epoch = 0
         self.items = []
         for f in range(n_frames):
             for v in range(n_views):
@@ -80,9 +85,18 @@ class SyntheticDataset:
         self.faces = self.items[0][2].faces
         self.cache_images = cache_images_enabled()
         self._image_cache: dict[int, tuple] = {}
+        self._pools_cache: dict[int, object] = {}
 
     def __len__(self):
         return len(self.items)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = int(epoch)
+
+    def _item_rng(self, i: int):
+        if self.deterministic_items:
+            return np.random.default_rng([self.item_seed, self._epoch, int(i)])
+        return self.rng
 
     def _rendered_frame(self, idx):
         hit = self._image_cache.get(idx)
@@ -97,8 +111,17 @@ class SyntheticDataset:
     def __getitem__(self, idx):
         frame, view, scene = self.items[idx]
         img, mask = self._rendered_frame(idx)
-        rgb, ray_o, ray_d, near, far, coord, mask_at_box = sample_rays(
-            img, scene.K, scene.R, scene.T, scene.bounds, nrays=-1,
+        pools = self._pools_cache.get(idx)
+        if self.nrays <= 0:
+            pools = SamplePools(None, None, None, None)  # the whole image: no raster needed
+        elif pools is None:
+            pools = build_sample_pools(self.h, self.w, scene.K, scene.R, scene.T, scene.bounds,
+                                       mask=mask, face_mask=None, coords=self.nrays > 0)
+            if self.cache_images:
+                self._pools_cache[idx] = pools
+        rgb, ray_o, ray_d, near, far, coord, mask_at_box, _ = sample_rays(
+            img, scene.K, scene.R, scene.T, scene.bounds, mask=mask, nrays=self.nrays,
+            rng=self._item_rng(idx), pools=pools,
         )
         occupancy = mask[coord[:, 0], coord[:, 1]]
         return {

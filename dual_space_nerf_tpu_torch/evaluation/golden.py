@@ -60,6 +60,27 @@ def production_cfg():
     return cfg
 
 
+def train_cfg(production: bool, fused: bool):
+    """One training step's config, as `bench.py`'s train workload runs it:
+    `production_cfg` (313_tpu.yml semantics, the listed search) or
+    `slice_cfg` (313.yml, brute force), with 313.yml's SOLVER block (Adam at
+    5e-4, no weight decay, the reference schedule), 5500 rays per step, L2
+    loss, and `MODEL.FUSED_MLP` "on" or "off"."""
+    cfg = production_cfg() if production else slice_cfg()
+    cfg.MODEL.FUSED_MLP = "on" if fused else "off"
+    cfg.MODEL.LOSS = "L2"
+    cfg.MODEL.LOSSwMask = False
+    cfg.SOLVER.OPTIMIZER_NAME = "Adam"
+    cfg.SOLVER.BASE_LR = 0.0005
+    cfg.SOLVER.WEIGHT_DECAY = 0.0
+    cfg.SOLVER.START_ITERS = 3000
+    cfg.SOLVER.END_ITERS = 60000
+    cfg.SOLVER.LR_SCALE = 0.09
+    cfg.SOLVER.WARMUP_ITERS = 1000
+    cfg.SOLVER.TRAIN_NRAYS = 5500
+    return cfg
+
+
 def trained_model(max_frames: int = 16):
     """DualSpaceNeRF carrying the trained fixture's weights (on the CPU)."""
     from ..models import DualSpaceNeRF, load_flax_npz

@@ -1,4 +1,7 @@
 from .clustered_knn import build_face_clusters
+from .fused_mlp import BWD_KERNEL as FUSED_BWD_KERNEL
+from .fused_mlp import FWD_KERNEL as FUSED_FWD_KERNEL
+from .fused_mlp import fused_sigma, fused_sigma_essence_normal, nerf_params
 from .gg_cuda import GG_KERNEL, gg_near_far_cuda, gg_near_far_plain
 from .nearest_face import (
     NEAREST_KERNEL,
@@ -23,9 +26,11 @@ from .pruned_knn import (
 
 #: every CUDA kernel of the port, for builds and launch counts
 KERNELS = (GG_KERNEL, NEAREST_KERNEL, LISTED_PLAN_KERNEL, LISTED_KERNEL, LISTED_SLIM_KERNEL,
-           PRUNED_KERNEL)
+           PRUNED_KERNEL, FUSED_FWD_KERNEL, FUSED_BWD_KERNEL)
 
 __all__ = [
+    "FUSED_BWD_KERNEL",
+    "FUSED_FWD_KERNEL",
     "GG_KERNEL",
     "KERNELS",
     "LISTED_KERNEL",
@@ -36,6 +41,8 @@ __all__ = [
     "build_face_clusters",
     "build_face_tiles",
     "face_centroids",
+    "fused_sigma",
+    "fused_sigma_essence_normal",
     "gg_near_far_cuda",
     "gg_near_far_plain",
     "listed_tables",
@@ -43,6 +50,7 @@ __all__ = [
     "nearest_face_cuda",
     "nearest_face_plain",
     "nearest_face_pruned",
+    "nerf_params",
     "posenc",
     "posenc_dim",
     "pruned_search_listed",

@@ -60,6 +60,7 @@ class CudaKernel:
         self.launches = 0
         self.build_log = ""
         self._fn = None
+        self._extra = {}
 
     @property
     def name(self) -> str:
@@ -105,6 +106,17 @@ class CudaKernel:
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
+
+    def extra_function(self, symbol: str, argtypes: list):
+        """Another C function of the same library that launches nothing (an
+        occupancy or size query); returns an int. Its calls count nothing."""
+        self._function()
+        if symbol not in self._extra:
+            fn = getattr(ctypes.CDLL(self.library_path()), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            self._extra[symbol] = fn
+        return self._extra[symbol]
 
     def launch(self, *args) -> None:
         err = self._function()(*args)

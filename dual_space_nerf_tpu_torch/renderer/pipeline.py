@@ -22,9 +22,21 @@ list-driven ("listed") and sphere-pruned ("pruned") kernels of
 (`_block_layout`). "listed" exchanges tile-slot ids between the stages and
 gathers from a slot-ordered face table.
 
-Not ported yet, and refused when asked for: the fused SpaceNet kernels
-(FUSED_MLP), hierarchical sampling (FINE_RAY_SAMPLING), the grouped,
-clustered and xla searches, bf16 matrix products.
+`MODEL.FUSED_MLP: "on"` runs SpaceNet's density, essence and normal chain
+through the fused kernels of `ops/fused_mlp.py` (hand-derived second-order
+backward): the density pass over all samples in one call, the color pass in
+one call. "auto" is off, as in the JAX package.
+
+Training (`render_rays(train=True, randoms=...)`) builds the autograd graph:
+z is stratified with the passed-in uniforms, the passed-in normal noise
+(scaled by raw_noise_std) is added to sigma before compositing, the normal
+keeps its graph (second order), and the selection weights of the gated path
+are detached.
+
+Not ported yet, and refused when asked for: hierarchical sampling
+(FINE_RAY_SAMPLING), the grouped, clustered and xla searches, bf16 matrix
+products and the fused kernels' bf16 feeds (FUSED_FAST). REMAT is resolved
+as in the JAX package but does not rematerialize here.
 """
 
 from __future__ import annotations
@@ -46,7 +58,11 @@ from ..geometry import (
 from ..ops import (
     face_centroids,
     gg_near_far_cuda,
+    fused_sigma,
+    fused_sigma_essence_normal,
     nearest_face,
+    nerf_params,
+    posenc,
     pruned_search_listed,
     slot_perm_from_tiles,
 )
@@ -117,16 +133,29 @@ def resolve_mlp_chunk(cfg_value: int, shade_topk: int) -> int:
     return 16384 if 0 < shade_topk <= 8 else 8192
 
 
-def _fused_requested(cfg_value) -> bool:
-    """MODEL.FUSED_MLP as the JAX package resolves it ("auto" is off)."""
+def _resolve_switch(key: str, cfg_value, auto: bool) -> bool:
+    """An auto/on/off config value, with "auto" resolving to ``auto``."""
     if isinstance(cfg_value, str):
         v = cfg_value.lower()
-        if v in ("auto", "off", "false", "0"):
-            return False
+        if v == "auto":
+            return auto
         if v in ("on", "true", "1"):
             return True
-        raise ValueError(f"MODEL.FUSED_MLP={cfg_value!r}: expected auto/on/off")
+        if v in ("off", "false", "0"):
+            return False
+        raise ValueError(f"MODEL.{key}={cfg_value!r}: expected auto/on/off")
     return bool(cfg_value)
+
+
+def resolve_fused(cfg_value) -> bool:
+    """MODEL.FUSED_MLP as the JAX package resolves it: "auto" is off."""
+    return _resolve_switch("FUSED_MLP", cfg_value, False)
+
+
+def resolve_remat(cfg_value, shade_topk: int) -> bool:
+    """MODEL.REMAT as the JAX package resolves it: "auto" is on for full
+    shading and for gating of more than 8 samples."""
+    return _resolve_switch("REMAT", cfg_value, shade_topk <= 0 or shade_topk > 8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +177,18 @@ class RenderSettings:
     # consecutive samples of a ray kept adjacent in the block-coherent point
     # layout of the listed and pruned searches
     block_sc: int = 32
+    # training: stratified z (perturb > 0) and sigma noise of this standard
+    # deviation; both draw on the randoms passed to render_rays
+    perturb: float = 1.0
+    raw_noise_std: float = 1.0
+    # SpaceNet through the fused kernels (ops/fused_mlp.py)
+    fused_mlp: bool = False
+    # the JAX package's grid block of the fused TPU kernels; carried for the
+    # config's sake, the CUDA kernels tile by 32 points whatever it says
+    fused_block: int = 512
+    # the JAX package's rematerialization switch, resolved the same way; the
+    # port keeps the whole graph (ROADMAP.md lists rematerialization)
+    remat: bool = False
 
     def __post_init__(self):
         if self.mlp_chunk < 1:
@@ -161,6 +202,8 @@ class RenderSettings:
             raise ValueError(f"RenderSettings.shade_topk={self.shade_topk}: expected >= 0")
         if self.block_sc < 1:
             raise ValueError(f"RenderSettings.block_sc={self.block_sc}: expected >= 1")
+        if self.fused_block < 1:
+            raise ValueError(f"RenderSettings.fused_block={self.fused_block}: expected >= 1")
         check_knn_impl(self.knn_impl)
 
     @classmethod
@@ -168,8 +211,8 @@ class RenderSettings:
         """Settings from a config tree. Raises NotImplementedError for the
         options whose code paths are not ported yet (see ROADMAP.md)."""
         shade_topk = max(cfg.MODEL.SHADE_TOPK, 0)
-        if _fused_requested(cfg.MODEL.FUSED_MLP):
-            raise NotImplementedError("MODEL.FUSED_MLP (fused SpaceNet kernels) is not ported yet")
+        if cfg.MODEL.FUSED_FAST:
+            raise NotImplementedError("MODEL.FUSED_FAST (bf16 feeds of the fused kernels) is not ported yet")
         if cfg.MODEL.FINE_RAY_SAMPLING > 0:
             raise NotImplementedError("MODEL.FINE_RAY_SAMPLING > 0 (hierarchical pass) is not ported yet")
         if cfg.MODEL.MATMUL_PRECISION != "f32":
@@ -181,6 +224,11 @@ class RenderSettings:
             knn_impl=cfg.MODEL.KNN_IMPL,
             shade_topk=shade_topk,
             reuse_warp_faces=bool(cfg.MODEL.REUSE_WARP_FACES),
+            perturb=float(cfg.MODEL.perturb),
+            raw_noise_std=float(cfg.MODEL.raw_noise_std),
+            fused_mlp=resolve_fused(cfg.MODEL.FUSED_MLP),
+            fused_block=int(cfg.MODEL.FUSED_BLOCK),
+            remat=resolve_remat(cfg.MODEL.REMAT, shade_topk),
         )
 
 
@@ -283,20 +331,45 @@ def normal_canonical_to_world(
     )
 
 
-def _point_network(model, pts_w, pts_c, dir_w, code, pose_feat, code_scale,
+def _use_fused(settings: RenderSettings, model) -> bool:
+    """The fused kernels serve exactly the default SpaceNet (code 8, width
+    256, essence 3, 10 posenc frequencies); other models take the plain
+    chain, as in the JAX package."""
+    nerf = model.nerf
+    return (settings.fused_mlp and model.code_dim == 8 and nerf.pe_freqs == 10
+            and nerf.stage1[0].out_features == 256 and nerf.rgb_net[3].out_features == 3)
+
+
+def _fused_inputs(pts_c, code, pose_feat, code_scale):
+    """pe (n, 63) and cp (n, 24) = [code * code_scale | pose feature]."""
+    n = pts_c.shape[0]
+    cp = torch.cat([(code * code_scale).expand(n, 8), pose_feat.expand(n, pose_feat.shape[-1])],
+                   dim=-1)
+    return posenc(pts_c, 10), cp
+
+
+def _point_network(model, settings, pts_w, pts_c, dir_w, code, pose_feat, code_scale,
                    tris_c2, tris_w2):
     """color (n, 3), sigma (n,) for one slice of points.
 
-    The normal is d(sum sigma)/d(pts_c), one autograd backward over the
-    slice; at eval it builds no second-order graph."""
-    with torch.enable_grad():
-        pc = pts_c.detach().requires_grad_(True)
-        essence, density = model.sigma_essence(pc, code, pose_feat, code_scale)
-        (normal_local,) = torch.autograd.grad(density.sum(), pc)
-    essence = essence.detach()
+    The normal is d(sum sigma)/d(pts_c): one autograd backward over the
+    slice (with its graph when gradients are on, for the second-order
+    training backward), or the fused kernels' gpe."""
+    if _use_fused(settings, model):
+        pe, cp = _fused_inputs(pts_c, code, pose_feat, code_scale)
+        sigma, essence, normal_local = fused_sigma_essence_normal(nerf_params(model.nerf), pe, cp)
+    else:
+        train = torch.is_grad_enabled()
+        with torch.enable_grad():
+            pc = pts_c.detach().requires_grad_(True)
+            essence, density = model.sigma_essence(pc, code, pose_feat, code_scale)
+            (normal_local,) = torch.autograd.grad(density.sum(), pc, create_graph=train)
+        sigma = density[:, 0]
+        if not train:
+            essence, sigma = essence.detach(), sigma.detach()
     normal_w = _transport_normal(pts_c, normal_local, tris_c2, tris_w2)
     color = model.lighting(normal_w, pts_w, dir_w, essence)
-    return color, density.detach()[:, 0]
+    return color, sigma
 
 
 def _light_space(pts_w: torch.Tensor, light: LightState) -> torch.Tensor:
@@ -308,21 +381,24 @@ def _light_space(pts_w: torch.Tensor, light: LightState) -> torch.Tensor:
 
 def _color_pass(model, settings: RenderSettings, light: LightState, pts_w, pts_c, dir_w,
                 code, pose_feat, tris_c2, tris_w2):
-    """`_point_network` over slices of mlp_chunk points: color (n, 3),
-    sigma (n,) (before the transparent mask)."""
+    """`_point_network` over slices of mlp_chunk points (one call under the
+    fused kernels, which hold no activation of the slice in device memory):
+    color (n, 3), sigma (n,) (before the transparent mask)."""
     n = pts_w.shape[0]
+    chunk = max(n, 1) if _use_fused(settings, model) else settings.mlp_chunk
     pts_w_light = _light_space(pts_w, light)
-    color = torch.empty((n, 3), dtype=pts_w.dtype, device=pts_w.device)
-    sigma = torch.empty((n,), dtype=pts_w.dtype, device=pts_w.device)
-    for a in range(0, n, settings.mlp_chunk):
-        sl = slice(a, a + settings.mlp_chunk)
+    colors, sigmas = [], []
+    for a in range(0, n, chunk):
+        sl = slice(a, a + chunk)
         m = pts_w[sl].shape[0]
-        color[sl], sigma[sl] = _point_network(
-            model, pts_w_light[sl], pts_c[sl], dir_w[sl], code,
+        c, s = _point_network(
+            model, settings, pts_w_light[sl], pts_c[sl], dir_w[sl], code,
             pose_feat.expand(m, pose_feat.shape[-1]), light.code_scale,
             tris_c2[sl], tris_w2[sl],
         )
-    return color, sigma
+        colors.append(c)
+        sigmas.append(s)
+    return torch.cat(colors), torch.cat(sigmas)
 
 
 def _block_layout(r: int, s: int, block_sc: int):
@@ -378,7 +454,6 @@ def _check_devices(device: torch.device, model, *tensors) -> None:
         raise ValueError(f"render_rays: the model is on {p.device}, expected {device}")
 
 
-@torch.no_grad()
 def render_rays(
     model,
     batch: RayBatch,
@@ -386,8 +461,17 @@ def render_rays(
     settings: RenderSettings,
     light: LightState,
     device: str | torch.device | None = None,
+    train: bool = False,
+    randoms: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Render one chunk of rays (eval: no perturbation, no noise).
+    """Render one chunk of rays.
+
+    Eval (the default) builds no autograd graph: no perturbation, no noise.
+    ``train=True`` builds the graph of the loss and takes ``randoms`` =
+    (uniforms (R, S) in [0, 1), standard normals (R, S)): the uniforms
+    stratify z when settings.perturb > 0, the normals times
+    settings.raw_noise_std are added to sigma when raw_noise_std > 0 (the JAX
+    package draws them from `fold_in(rng, step)`, `pipeline.py:573-594`).
 
     Runs on CUDA unless ``device`` says otherwise; every input and the model
     must already be on that device. Returns color (R, 3), disp_map/acc_map/
@@ -396,19 +480,33 @@ def render_rays(
     _check_devices(dev, model, batch.ray_o, batch.ray_d, batch.near, batch.far,
                    batch.body_pose, mesh.verts_world, mesh.verts_cano, mesh.faces,
                    light.rot)
-    near, far = batch.near, batch.far
-    if settings.sample_mode == "GG":
-        near, far = gg_near_far_cuda(
-            batch.ray_o, batch.ray_d, near, far, mesh.verts_world, settings.gg_gamma
-        )
-    z_vals = stratified_z(near, far, settings.n_samples)
-    return _render_with_z(model, batch, mesh, settings, light, z_vals)
+    t_rand = noise = None
+    if train:
+        if randoms is None:
+            raise ValueError("render_rays(train=True) needs randoms=(uniforms, normals)")
+        r, s = batch.ray_o.shape[0], settings.n_samples
+        for t in randoms:
+            if tuple(t.shape) != (r, s) or t.device != dev:
+                raise ValueError(f"render_rays: randoms must be ({r}, {s}) on {dev}")
+        if settings.perturb > 0:
+            t_rand = randoms[0]
+        if settings.raw_noise_std > 0:
+            noise = randoms[1] * settings.raw_noise_std
+    with torch.set_grad_enabled(train):
+        near, far = batch.near, batch.far
+        if settings.sample_mode == "GG":
+            near, far = gg_near_far_cuda(
+                batch.ray_o, batch.ray_d, near, far, mesh.verts_world, settings.gg_gamma
+            )
+        z_vals = stratified_z(near, far, settings.n_samples, t_rand)
+        return _render_with_z(model, batch, mesh, settings, light, z_vals, noise)
 
 
 def _render_with_z(model, batch: RayBatch, mesh: MeshBundle,
                    settings: RenderSettings, light: LightState,
-                   z_vals: torch.Tensor) -> dict[str, torch.Tensor]:
-    """warp + networks + composite for given per-ray z values (R, S)."""
+                   z_vals: torch.Tensor, noise: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+    """warp + networks + composite for given per-ray z values (R, S) and
+    the sigma noise (R, S) of a training step, if any."""
     r, s = z_vals.shape
     n = r * s
     pts_w = sample_along_rays(batch.ray_o, batch.ray_d, z_vals)     # (R, S, 3)
@@ -443,7 +541,7 @@ def _render_with_z(model, batch: RayBatch, mesh: MeshBundle,
     if 0 < settings.shade_topk < s:
         return _gated_shading(model, batch, mesh, settings, light, z_vals, pts_w,
                               pts_w_flat, fidx_w, faces_wc, centroids_c, code, pose_feat,
-                              from_blocked, use_slots)
+                              from_blocked, use_slots, noise)
 
     pts_c, tmask, _, _ = _warp_chunk(pts_w_flat, fidx_w, faces_wc)
     if settings.reuse_warp_faces:
@@ -458,8 +556,8 @@ def _render_with_z(model, batch: RayBatch, mesh: MeshBundle,
     sigma = torch.where(tmask, 0.0, sigma)
     if blocked:
         color, sigma = from_blocked(color), from_blocked(sigma)
-    return _outputs(composite(color.reshape(r, s, 3), sigma.reshape(r, s), z_vals, batch.ray_d),
-                    z_vals)
+    return _outputs(composite(color.reshape(r, s, 3), sigma.reshape(r, s), z_vals, batch.ray_d,
+                              noise), z_vals)
 
 
 def _outputs(out, z_vals: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -475,7 +573,8 @@ def _outputs(out, z_vals: torch.Tensor) -> dict[str, torch.Tensor]:
 
 def _gated_shading(model, batch: RayBatch, mesh: MeshBundle, settings: RenderSettings,
                    light: LightState, z_vals, pts_w, pts_w_flat, fidx_flat, faces_wc,
-                   centroids_c, code, pose_feat, from_blocked, use_slots: bool):
+                   centroids_c, code, pose_feat, from_blocked, use_slots: bool,
+                   noise: torch.Tensor | None = None):
     """Importance-gated shading: density everywhere, color on the top-K
     samples of each ray.
 
@@ -492,16 +591,24 @@ def _gated_shading(model, batch: RayBatch, mesh: MeshBundle, settings: RenderSet
     k = settings.shade_topk
     pf_dim = pose_feat.shape[-1]
 
-    # ---- density pass over all samples: forward only, no autograd graph ----
-    sigma_flat = torch.empty((n,), dtype=pts_w.dtype, device=pts_w.device)
-    for a in range(0, n, settings.mlp_chunk):
-        sl = slice(a, a + settings.mlp_chunk)
+    # ---- density pass over all samples (density only: no normal) ----
+    # Under the fused kernels it is one call; otherwise slices of mlp_chunk
+    # points. At eval it builds no autograd graph; in training its graph
+    # carries the density gradient of every sample.
+    fused = _use_fused(settings, model)
+    chunk = max(n, 1) if fused else settings.mlp_chunk
+    sigmas = []
+    for a in range(0, n, chunk):
+        sl = slice(a, a + chunk)
         pc, tmask, _, _ = _warp_chunk(pts_w_flat[sl], fidx_flat[sl], faces_wc)
-        _, density = model.sigma_essence(
-            pc, code, pose_feat.expand(pc.shape[0], pf_dim), light.code_scale,
-            density_only=True,
-        )
-        sigma_flat[sl] = torch.where(tmask, 0.0, density[:, 0])
+        pf = pose_feat.expand(pc.shape[0], pf_dim)
+        if fused:
+            density = fused_sigma(nerf_params(model.nerf),
+                                  *_fused_inputs(pc, code, pf, light.code_scale))
+        else:
+            density = model.sigma_essence(pc, code, pf, light.code_scale, density_only=True)[1][:, 0]
+        sigmas.append(torch.where(tmask, 0.0, density))
+    sigma_flat = torch.cat(sigmas)
     if from_blocked is not None:
         sigma_flat = from_blocked(sigma_flat)
         fidx_flat = from_blocked(fidx_flat)
@@ -509,9 +616,10 @@ def _gated_shading(model, batch: RayBatch, mesh: MeshBundle, settings: RenderSet
 
     # ---- the K samples per ray that carry the weight mass ----
     # selection and the final composite go through the one `composite`, so
-    # they see the same weights (and, in training, the same noise)
+    # they see the same weights (and, in training, the same noise); the
+    # selection weights are detached, as the JAX package's stop_gradient does
     zero_rgb = torch.zeros((r, s, 3), dtype=sigma.dtype, device=sigma.device)
-    w_sel = composite(zero_rgb, sigma, z_vals, batch.ray_d).weights
+    w_sel = composite(zero_rgb, sigma.detach(), z_vals, batch.ray_d, noise).weights
     top_idx = topk_first(w_sel, k)                                   # (R, K)
     pw_sel = torch.take_along_dim(pts_w, top_idx[..., None], dim=1).reshape(r * k, 3)
     fi_sel = torch.take_along_dim(fidx_flat.reshape(r, s), top_idx, dim=1).reshape(r * k)
@@ -538,4 +646,4 @@ def _gated_shading(model, batch: RayBatch, mesh: MeshBundle, settings: RenderSet
     # weight tail adds about its true color and not black
     nearest = nearest_selected(top_idx, s)                           # (R, S)
     color = torch.take_along_dim(color_sel.reshape(r, k, 3), nearest[..., None], dim=1)
-    return _outputs(composite(color, sigma, z_vals, batch.ray_d), z_vals)
+    return _outputs(composite(color, sigma, z_vals, batch.ray_d, noise), z_vals)

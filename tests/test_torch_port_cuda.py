@@ -172,3 +172,65 @@ def test_kernels_reject_what_they_do_not_take(dev, scene):
         pruned_knn.pruned_search_presorted(spts, cents, perm, block_p=48)
     with pytest.raises(ValueError):
         pruned_knn.pruned_search_presorted(spts, cents, perm, block_f=256)
+
+
+def _fused_inputs(n, dev, seed=0):
+    """A randomly initialised SpaceNet's packed weights and seeded inputs on
+    the card: pe of points near the origin, cp, and the three cotangents."""
+    from dual_space_nerf_tpu_torch.models import DualSpaceNeRF
+    from dual_space_nerf_tpu_torch.ops import fused_mlp as fm
+    from dual_space_nerf_tpu_torch.ops.posenc import posenc
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full FP32
+    model = DualSpaceNeRF(max_frames=4, generator=torch.Generator().manual_seed(seed)).to(dev)
+    w = {k: v.detach() for k, v in fm.pack(fm.nerf_params(model.nerf)).items()}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, dtype=torch.float32, device=dev, generator=g)
+    x = fm.build_x(posenc(0.3 * rand(n, 3), 10), rand(n, 24))
+    return fm, w, x, rand(n), rand(n, 3), rand(n, fm.PE)
+
+
+def _close(got, want, tol, keep=None):
+    if keep is not None:
+        got, want = got[keep], want[keep]
+    return float((got - want).abs().max()) <= tol * (float(want.abs().max()) + 1e-12)
+
+
+@pytest.mark.parametrize("n", [1, 100, 88_000])
+@pytest.mark.parametrize("with_color", [True, False])
+def test_fused_kernels_match_plain(dev, n, with_color):
+    """Forward within 1e-5 and backward within 2e-5 of the reference's
+    max-abs scale (the bands of the CPU tests against the JAX package).
+    Points with a pre-activation within 1e-6 of a ReLU's kink (relative to
+    the layer's largest) may take the mask the other way in either order of
+    the sums: their mask-dependent outputs are left out and their
+    cotangents zeroed, so that they add nothing to the gradients."""
+    fm, w, x, sbar, ebar, gbar = _fused_inputs(n, dev)
+    keep = fm.kink_distance(w, x) > 1e-6
+    assert float(keep.float().mean()) > 0.8
+    got = fm.fused_fwd(w, x, with_color)
+    want = fm.fused_fwd_plain(w, x, with_color)
+    torch.cuda.synchronize()
+    assert _close(got[0], want[0], 1e-5)  # sigma and essence are continuous
+    if with_color:
+        assert _close(got[1], want[1], 1e-5)
+        assert _close(got[2], want[2], 1e-5, keep)
+    sbar = sbar * keep
+    eb, gb = (ebar * keep[:, None], gbar * keep[:, None]) if with_color else (None, None)
+    xbar, gpe, grads = fm.fused_bwd(w, x, sbar, eb, gb, with_color)
+    xbar_p, gpe_p, grads_p = fm.fused_bwd_plain(w, x, sbar, eb, gb, with_color)
+    torch.cuda.synchronize()
+    assert _close(xbar, xbar_p, 2e-5, keep)
+    if with_color:
+        assert _close(gpe, gpe_p, 2e-5, keep)
+    for k, v in grads_p.items():
+        assert _close(grads[k].reshape(v.shape), v, 2e-5), k
+
+
+def test_fused_backward_is_deterministic(dev):
+    fm, w, x, sbar, ebar, gbar = _fused_inputs(5000, dev, seed=1)
+    a = fm.fused_bwd(w, x, sbar, ebar, gbar, True)
+    b = fm.fused_bwd(w, x, sbar, ebar, gbar, True)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(a[2][k], b[2][k]) for k in a[2])

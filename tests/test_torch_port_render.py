@@ -142,7 +142,7 @@ def test_render_item_novel_pose_light_matches_jax(item, renderers, identity_rend
 
 def test_unported_settings_raise():
     cfg = slice_cfg(get_cfg_defaults)
-    for key, value in (("FUSED_MLP", "on"), ("FINE_RAY_SAMPLING", 8), ("KNN_IMPL", "grouped"),
+    for key, value in (("FUSED_FAST", True), ("FINE_RAY_SAMPLING", 8), ("KNN_IMPL", "grouped"),
                        ("KNN_IMPL", "clustered"), ("KNN_IMPL", "xla")):
         bad = cfg.clone()
         bad.MODEL[key] = value
@@ -153,11 +153,13 @@ def test_unported_settings_raise():
 @pytest.mark.parametrize("key,value,field", [
     ("SHADE_TOPK", 16, "shade_topk"), ("REUSE_WARP_FACES", True, "reuse_warp_faces"),
     ("KNN_IMPL", "listed", "knn_impl"), ("KNN_IMPL", "pruned", "knn_impl"),
+    ("FUSED_MLP", "on", "fused_mlp"),
 ])
 def test_ported_settings_are_accepted(key, value, field):
     cfg = slice_cfg(get_cfg_defaults)
     cfg.MODEL[key] = value
-    assert getattr(RenderSettings.from_cfg(cfg), field) == value
+    want = True if (key, value) == ("FUSED_MLP", "on") else value
+    assert getattr(RenderSettings.from_cfg(cfg), field) == want
 
 
 @pytest.mark.parametrize("novel", [False, True])
@@ -233,3 +235,37 @@ def test_warp_and_normal_transport_match_jax(item):
     close = np.abs(n_t.numpy() - np.asarray(n_j)).max(1) <= 1e-4
     assert close.mean() >= 0.99, close.mean()
     np.testing.assert_allclose(np.linalg.norm(n_t.numpy(), axis=1), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("production", [False, True], ids=["exact", "production"])
+def test_fused_render_matches_jax_fused_render(item, production):
+    """`MODEL.FUSED_MLP: "on"` on both sides (the JAX package's Pallas pair in
+    interpret mode, the port's fused functions' plain versions), the same z
+    from the JAX GG near/far: every ray within the bands, on the exact path
+    and on the gated path (K=8, face reuse)."""
+    jitem, titem = item
+    ds = SyntheticDataset(split="val", n_frames=1, n_views=1, h=H, w=W)
+    jm, jp = jax_model_and_params()
+    jmesh = jax_item_to_mesh(jitem, np.asarray(ds.faces), ds.canonical_vertex)
+    tmesh = item_to_mesh(titem, ds.faces, ds.canonical_vertex, torch.device("cpu"))
+    near, far = jax_gg(*(jnp.asarray(jitem[k]) for k in ("ray_o", "ray_d", "near", "far")),
+                       jmesh.verts_world, 0.05)
+    jrays = JaxRays(jnp.asarray(jitem["ray_o"]), jnp.asarray(jitem["ray_d"]), near, far,
+                    jnp.asarray(0, jnp.int32), jnp.asarray(jitem["poses"][1:24]))
+    trays = RayBatch(torch.from_numpy(titem["ray_o"]), torch.from_numpy(titem["ray_d"]),
+                     torch.from_numpy(np.array(near)), torch.from_numpy(np.array(far)),
+                     0, torch.from_numpy(titem["poses"][1:24]))
+    extra = dict(shade_topk=8, reuse_warp_faces=True) if production else {}
+    js = dataclasses.replace(JaxSettings.from_cfg(slice_cfg(jax_defaults, N_SAMPLES)),
+                             sample_mode="uniform", fused_mlp=True, **extra)
+    ts = dataclasses.replace(RenderSettings.from_cfg(slice_cfg(get_cfg_defaults, N_SAMPLES)),
+                             sample_mode="uniform", fused_mlp=True, **extra)
+    oj = jax.device_get(jax_render_rays(jp, jm, jrays, jmesh, js, JaxLight.identity(), None,
+                                        train=False))
+    ot = render_rays(torch_model(), trays, tmesh, ts, LightState.identity(), device="cpu")
+    names = {"color": "color", "acc": "acc_map", "depth": "depth_map", "disp": "disp_map"}
+    err = _ray_errors({k: ot[v].numpy() for k, v in names.items()},
+                      {k: np.asarray(oj[v]) for k, v in names.items()},
+                      np.ones(trays.ray_o.shape[0], bool))
+    for k, e in err.items():
+        assert e.max() <= 1.0, (k, e.max())

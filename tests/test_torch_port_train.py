@@ -1,0 +1,300 @@
+"""The training slice on the CPU against the JAX package: the cv2-free
+raster, the importance sampler and the train batch, the optimizer and its
+schedule, and one whole training step (loss and every parameter gradient).
+
+The step runs on a small train item of the synthetic scene with the full
+SMPL-sized mesh and the trained fixture: 32x32 image, 64 rays, 16 samples,
+the color chain on K=4 of them on the production-shaped path. Both sides get
+the same rays, the JAX package's GG near/far with uniform sampling (GG
+rounds differently in the two frameworks, see test_torch_port_gg.py), and
+JAX's own draws for the z jitter and the sigma noise (`fold_in(key, step)`,
+`split`, `uniform`, `normal`), handed to the port's step as tensors.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dual_space_nerf_tpu.data import SyntheticDataset as JaxDataset
+from dual_space_nerf_tpu.data.batching import item_to_mesh as jax_item_to_mesh
+from dual_space_nerf_tpu.data.batching import item_to_train_batch as jax_item_to_train_batch
+from dual_space_nerf_tpu.data.rays import get_bound_2d_mask as jax_bound_mask
+from dual_space_nerf_tpu.geometry import gg_near_far as jax_gg
+from dual_space_nerf_tpu.renderer import LightState as JaxLight
+from dual_space_nerf_tpu.renderer import RenderSettings as JaxSettings
+from dual_space_nerf_tpu.renderer import render_rays as jax_render_rays
+from dual_space_nerf_tpu.training.loss import make_loss as jax_make_loss
+from dual_space_nerf_tpu.training.optim import make_optimizer as jax_make_optimizer
+from dual_space_nerf_tpu_torch.data import SyntheticDataset, item_to_mesh, item_to_train_batch
+from dual_space_nerf_tpu_torch.data.rays import get_bound_2d_mask
+from dual_space_nerf_tpu_torch.data.synthetic import make_scene
+from dual_space_nerf_tpu_torch.evaluation.golden import train_cfg
+from dual_space_nerf_tpu_torch.models import state_dict_from_flax
+from dual_space_nerf_tpu_torch.renderer import RayBatch, RenderSettings
+from dual_space_nerf_tpu_torch.training import (
+    TrainBatch,
+    create_train_state,
+    make_optimizer,
+    make_train_step,
+)
+from torch_port_common import jax_model_and_params, torch_model
+
+H = W = 32
+NRAYS = 64
+N_SAMPLES = 16
+TOPK = 4
+CPU = torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# data
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("size", [32, 96, 512])
+def test_bound_mask_equals_cv2_raster(size):
+    """The projected-box mask, pixel for pixel, on the synthetic cameras."""
+    for view in range(3):
+        scene = make_scene(cam_angle=2 * np.pi * view / 3, h=size, w=size)
+        pose = np.concatenate([scene.R, scene.T], axis=1)
+        want = jax_bound_mask(scene.bounds, scene.K, pose, size, size)
+        got = get_bound_2d_mask(scene.bounds, scene.K, pose, size, size)
+        assert want.sum() > 0
+        np.testing.assert_array_equal(got, want)
+
+
+def test_fill_poly_equals_cv2_on_random_polygons():
+    """The raster rule itself, on random polygons (convex or not) whose
+    vertices lie inside the image."""
+    import cv2
+
+    from dual_space_nerf_tpu_torch.data.rays import fill_poly
+
+    rng = np.random.default_rng(0)
+    for _ in range(300):
+        pts = rng.integers(0, 48, (int(rng.integers(3, 7)), 2))
+        want = np.zeros((48, 48), np.uint8)
+        cv2.fillPoly(want, [pts], 1)
+        got = np.zeros((48, 48), np.uint8)
+        fill_poly(got, pts)
+        np.testing.assert_array_equal(got, want, err_msg=str(pts.tolist()))
+
+
+@pytest.fixture(scope="module")
+def items():
+    """Item 0 of the train split of both packages, same seed."""
+    kw = dict(split="train", nrays=NRAYS, n_frames=1, n_views=1, h=H, w=W)
+    return JaxDataset(**kw)[0], SyntheticDataset(**kw)[0]
+
+
+def test_sample_rays_matches_jax(items):
+    jitem, titem = items
+    assert titem["ray_o"].shape == (NRAYS, 3)
+    for k in ("img", "coord", "rgb", "occupancy", "ray_o", "ray_d", "near", "far", "mask_at_box",
+              "poses", "xyz"):
+        np.testing.assert_array_equal(np.asarray(titem[k]), np.asarray(jitem[k]), err_msg=k)
+
+
+def test_sample_rays_matches_jax_per_item_rng():
+    """deterministic_items: the per-(epoch, item) generator of both."""
+    kw = dict(split="train", nrays=100, n_frames=1, n_views=2, h=48, w=48)
+    jds, tds = JaxDataset(**kw), SyntheticDataset(**kw)
+    for ds in (jds, tds):
+        ds.deterministic_items = True
+        ds.set_epoch(3)
+    for i in range(2):
+        np.testing.assert_array_equal(tds[i]["coord"], jds[i]["coord"])
+
+
+@pytest.mark.parametrize("nrays", [NRAYS, NRAYS + 37])
+def test_train_batch_matches_jax(items, nrays):
+    """Spatial order and wrap padding (nrays above the item's count)."""
+    jitem, titem = items
+    jb = jax_item_to_train_batch(jitem, nrays)
+    tb = item_to_train_batch(titem, nrays, CPU)
+    for name in ("ray_o", "ray_d", "near", "far"):
+        np.testing.assert_array_equal(getattr(tb.rays, name).numpy(),
+                                      np.asarray(getattr(jb.rays, name)), err_msg=name)
+    np.testing.assert_array_equal(tb.rgb.numpy(), np.asarray(jb.rgb))
+    np.testing.assert_array_equal(tb.occupancy.numpy(), np.asarray(jb.occupancy))
+    np.testing.assert_array_equal(tb.rays.body_pose.numpy(), np.asarray(jb.rays.body_pose))
+    assert tb.rays.frame == int(jb.rays.frame)
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("warmup,start,end,wd", [
+    (5, 100, 200, 0.0),    # warmup throughout
+    (1, 2, 6, 0.0),        # warmup, then the decay
+    (1, 2, 6, 0.01),       # the same with coupled weight decay
+])
+def test_optimizer_matches_optax(warmup, start, end, wd):
+    """Three updates on identical gradients: the learning rate of each
+    update, and the parameters after it within 1e-6 relative (the two
+    compute Adam's arithmetic in another order)."""
+    cfg = train_cfg(False, False)
+    cfg.SOLVER.WARMUP_ITERS, cfg.SOLVER.START_ITERS, cfg.SOLVER.END_ITERS = warmup, start, end
+    cfg.SOLVER.WEIGHT_DECAY = wd
+    rng = np.random.default_rng(0)
+    p0 = {"a": rng.standard_normal((4, 5)).astype(np.float32),
+          "b": rng.standard_normal(7).astype(np.float32)}
+    grads = [{k: rng.standard_normal(v.shape).astype(np.float32) for k, v in p0.items()}
+             for _ in range(3)]
+
+    tx, lr = jax_make_optimizer(cfg)
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    opt_state = tx.init(jp)
+    tp = [torch.nn.Parameter(torch.from_numpy(p0[k].copy())) for k in ("a", "b")]
+    opt, sched = make_optimizer(tp, cfg)
+    for i, g in enumerate(grads):
+        assert opt.param_groups[0]["lr"] == pytest.approx(float(lr(i)), rel=1e-6)
+        updates, opt_state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, opt_state, jp)
+        jp = jax.tree.map(lambda p, u: p + u, jp, updates)
+        for p, k in zip(tp, ("a", "b")):
+            p.grad = torch.from_numpy(g[k].copy())
+        opt.step()
+        sched.step()
+        for p, k in zip(tp, ("a", "b")):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# one training step
+# ---------------------------------------------------------------------------
+def _flat_grads(tree) -> dict:
+    flat = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        flat["/".join(str(p.key) for p in path)] = np.array(leaf)
+    return flat
+
+
+@pytest.fixture(scope="module")
+def step_inputs(items):
+    """Both packages' batch and mesh for the same rays, near/far held at the
+    JAX package's GG result, and JAX's draws of step 0 of key 5."""
+    jitem, titem = items
+    ds = SyntheticDataset(split="val", n_frames=1, n_views=1, h=8, w=8)
+    jb = jax_item_to_train_batch(jitem, NRAYS)
+    jmesh = jax_item_to_mesh(jitem, np.asarray(ds.faces), ds.canonical_vertex)
+    near, far = jax_gg(jb.rays.ray_o, jb.rays.ray_d, jb.rays.near, jb.rays.far,
+                       jmesh.verts_world, 0.05)
+    jb = jb._replace(rays=jb.rays._replace(near=near, far=far))
+    tb = item_to_train_batch(titem, NRAYS, CPU)
+    tb = TrainBatch(tb.rays._replace(near=torch.from_numpy(np.array(near)),
+                                     far=torch.from_numpy(np.array(far))), tb.rgb, tb.occupancy)
+    tmesh = item_to_mesh(titem, ds.faces, ds.canonical_vertex, CPU)
+    rng = jax.random.fold_in(jax.random.key(5), 0)
+    rz, rn = jax.random.split(rng)
+    randoms = (torch.from_numpy(np.array(jax.random.uniform(rz, (NRAYS, N_SAMPLES)))),
+               torch.from_numpy(np.array(jax.random.normal(rn, (NRAYS, N_SAMPLES)))))
+    return jb, jmesh, rng, tb, tmesh, randoms
+
+
+def _settings(production: bool, fused: bool, draws: bool):
+    cfg = train_cfg(production, fused)
+    cfg.MODEL.COARSE_RAY_SAMPLING = N_SAMPLES
+    if production:
+        cfg.MODEL.SHADE_TOPK = TOPK
+    if not draws:
+        cfg.MODEL.perturb = 0.0
+        cfg.MODEL.raw_noise_std = 0.0
+    js = dataclasses.replace(JaxSettings.from_cfg(cfg), sample_mode="uniform")
+    if not production:  # the JAX package's brute-force Pallas search runs on a TPU only
+        js = dataclasses.replace(js, knn_impl="auto")
+    ts = dataclasses.replace(RenderSettings.from_cfg(cfg), sample_mode="uniform")
+    return cfg, js, ts
+
+
+#: (loss, each gradient tensor) tolerances, relative to the reference's
+#: loss and to the tensor's largest entry, without and with the draws
+TOLS = {False: (1e-6, 2e-3), True: (5e-5, 5e-2)}
+
+
+@pytest.mark.parametrize("draws", [False, True], ids=["no-draws", "draws"])
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("production", [True, False], ids=["production", "exact"])
+def test_train_step_matches_jax(step_inputs, production, fused, draws):
+    """Loss and the gradient of every parameter against `jax.value_and_grad`
+    of the JAX package's step loss (`training/state.py::compute_loss`), the
+    second-order normal terms included.
+
+    Tolerances (TOLS). Without the draws (perturb and raw_noise_std 0, still
+    the training graph) the two float32 computations agree to the rounding
+    of the sums: loss 1e-6 relative, every gradient within 2e-3 of its
+    largest entry (measured: loss 3e-7, worst gradient 3e-4, the pose MLP's).
+    With JAX's draws on, the float32 gradient of this step is itself
+    ill-conditioned: both packages' float32 gradients sit percents away from
+    the float64 one (`test_draws_make_the_float32_gradient_ill_conditioned`).
+    So: loss within 5e-5, every gradient within 5e-2 (measured 1.1e-5 and
+    2.5e-2)."""
+    jb, jmesh, rng, tb, tmesh, randoms = step_inputs
+    cfg, js, ts = _settings(production, fused, draws)
+    jm, jp = jax_model_and_params()
+    loss_fn = jax_make_loss("L2", False)
+
+    def compute_loss(params):
+        out = jax_render_rays(params, jm, jb.rays, jmesh, js, JaxLight.identity(), rng, train=True)
+        return sum(loss_fn(out, jb.rgb, jb.occupancy).values())
+
+    loss_j, grads_j = jax.jit(jax.value_and_grad(compute_loss))(jp)
+    want = state_dict_from_flax(_flat_grads(grads_j))
+
+    model = torch_model()
+    state = create_train_state(model, cfg)
+    metrics = make_train_step(ts, device="cpu")(state, tb, tmesh, randoms=randoms)
+    loss_rel = abs(float(metrics["loss"]) - float(loss_j)) / abs(float(loss_j))
+    ratios = {}
+    for name, p in model.named_parameters():
+        g, w = p.grad.numpy(), want[name].numpy()
+        ratios[name] = np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)
+    worst = max(ratios, key=ratios.get)
+    loss_tol, grad_tol = TOLS[draws]
+    assert loss_rel <= loss_tol, loss_rel
+    assert ratios[worst] <= grad_tol, (worst, ratios[worst])
+    assert state.step == 1
+
+
+def test_draws_make_the_float32_gradient_ill_conditioned(step_inputs):
+    """Why the band above is wide with the draws: on the exact path with
+    JAX's draws, the port's float32 gradient and the JAX package's are both
+    more than 1e-3 of the worst tensor's max away from the port's float64
+    gradient of the same step, and within 5e-2 of it; the two float32
+    gradients are no farther from each other than that (measured ~1.5e-2,
+    ~1.9e-2 and ~2.5e-2, all on `nerf.stage2.2.weight` or its neighbours).
+    The fused and unfused float32 steps of the port agree to 1e-5."""
+    jb, jmesh, rng, tb, tmesh, randoms = step_inputs
+    cfg, js, ts = _settings(False, False, True)
+
+    def port(dtype, settings):
+        cast = lambda t: t.to(dtype) if torch.is_tensor(t) and t.is_floating_point() else t
+        model = torch_model().to(dtype)
+        batch = TrainBatch(RayBatch(*map(cast, tb.rays)), cast(tb.rgb), cast(tb.occupancy))
+        mesh = type(tmesh)(*map(cast, tmesh))
+        state = create_train_state(model, cfg)
+        make_train_step(settings, device="cpu")(state, batch, mesh,
+                                                randoms=tuple(map(cast, randoms)))
+        return {n: p.grad.double().numpy() for n, p in model.named_parameters()}
+
+    def worst(a, b):
+        return max(np.abs(a[n] - b[n]).max() / max(np.abs(b[n]).max(), 1e-30) for n in b)
+
+    g64 = port(torch.float64, ts)
+    g32 = port(torch.float32, ts)
+    g32_fused = port(torch.float32, dataclasses.replace(ts, fused_mlp=True))
+    jm, jp = jax_model_and_params()
+    loss_fn = jax_make_loss("L2", False)
+
+    def compute_loss(params):
+        out = jax_render_rays(params, jm, jb.rays, jmesh, js, JaxLight.identity(), rng, train=True)
+        return sum(loss_fn(out, jb.rgb, jb.occupancy).values())
+
+    want = state_dict_from_flax(_flat_grads(jax.jit(jax.grad(compute_loss))(jp)))
+    gj = {n: t.double().numpy() for n, t in want.items()}
+    port_err, jax_err = worst(g32, g64), worst(gj, g64)
+    assert 1e-3 < port_err < 5e-2, port_err
+    assert 1e-3 < jax_err < 5e-2, jax_err
+    assert worst(g32, gj) < 5e-2
+    assert worst(g32_fused, g32) < 1e-5
