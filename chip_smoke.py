@@ -32,6 +32,8 @@ Phases (any failure exits non-zero, before the last line is printed):
    (352,000 and 88,000 canonical points of the train batch, and a ragged
    count), and times kernel, plain version, the card's bound and the
    unfused chain (SpaceNet + autograd normal, and its double backward);
+   reports where kernel and plain version part at ReLU kinks, also for a
+   randomly initialised SpaceNet;
 7. trains: `training.make_train_step` on `bench.py`'s train workload (the
    512x512 train item, 5500 rays x 64 samples, the trained fixture, Adam at
    5e-4) on four paths, production or exact with `FUSED_MLP` on or off, from
@@ -72,6 +74,7 @@ from dual_space_nerf_tpu_torch.evaluation.golden import (
     trained_model,
 )
 from dual_space_nerf_tpu_torch.geometry import sample_along_rays, stratified_z
+from dual_space_nerf_tpu_torch.models import DualSpaceNeRF
 from dual_space_nerf_tpu_torch.ops import (
     FUSED_BWD_KERNEL,
     FUSED_FWD_KERNEL,
@@ -97,9 +100,10 @@ from dual_space_nerf_tpu_torch.renderer import (
     LightState,
     RenderSettings,
     render_rays,
+    sample_z,
     warp_world_to_canonical,
 )
-from dual_space_nerf_tpu_torch.renderer.pipeline import _block_layout
+from dual_space_nerf_tpu_torch.renderer.pipeline import _block_layout, _fused_inputs
 from dual_space_nerf_tpu_torch.training import create_train_state, draw_randoms, make_train_step
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 operations/s
@@ -112,7 +116,7 @@ PAIR_OPS = 9.0  # 3 sub, 3 mul, 2 add, 1 compare per point-centroid pair
 TRAIN_RAYS = 5500          # bench.py's train workload
 N_TIMED_STEPS = 3
 FWD_TOL, BWD_TOL = 1e-5, 2e-5  # the CPU tests' bands against the JAX package
-KINK = 1e-6                # see fused_mlp.kink_distance
+KINK = 1e-6                # see fused_mlp.kink_distances
 
 
 def log(msg: str) -> None:
@@ -530,24 +534,20 @@ def fused_bound(n: int, with_color: bool, backward: bool) -> tuple[float, str]:
 
 
 def fused_check_inputs(model, batch, mesh, settings):
-    """352,000 canonical points of the train batch (GG, jittered z, the warp)
-    and their kernel input x = [pe | code | pose]."""
+    """352,000 canonical points of the train batch, formed by the pipeline's
+    own steps (GG and jittered z, the world search and the warp), and their
+    kernel input x = [pe | code | pose]."""
     dev = torch.device("cuda")
     with torch.no_grad():
         rays = batch.rays
-        near, far = gg_near_far_cuda(rays.ray_o, rays.ray_d, rays.near, rays.far,
-                                     mesh.verts_world, settings.gg_gamma)
         gen = torch.Generator(device=dev).manual_seed(7)
-        u = torch.rand((near.shape[0], settings.n_samples), generator=gen, device=dev)
-        z = stratified_z(near, far, settings.n_samples, u)
+        u, _ = draw_randoms(rays.ray_o.shape[0], settings.n_samples, gen, dev)
+        z = sample_z(rays, mesh, settings, u)
         pts_w = sample_along_rays(rays.ray_o, rays.ray_d, z).reshape(-1, 3).contiguous()
-        cents = face_centroids(mesh.verts_world, mesh.faces)
-        pts_c, _, _ = warp_world_to_canonical(pts_w, mesh, cents, settings)
-        code = model.frame_code(rays.frame)
-        pf = model.pose_feature(rays.body_pose)
-        n = pts_c.shape[0]
-        x = fused_mlp.build_x(posenc(pts_c, 10),
-                              torch.cat([code.expand(n, 8), pf.expand(n, 16)], dim=1))
+        pts_c, _, _ = warp_world_to_canonical(pts_w, mesh, face_centroids(mesh.verts_world, mesh.faces),
+                                              settings)
+        code, pf = model.frame_code(rays.frame), model.pose_feature(rays.body_pose)
+        x = fused_mlp.build_x(*_fused_inputs(pts_c, code, pf, 1.0))
     return pts_c.contiguous(), code, pf, x
 
 
@@ -577,11 +577,9 @@ def unfused_chain(model, pts_c, code, pf, with_color: bool, cots=None):
 
 def fused_chain(model, pts_c, code, pf, with_color: bool, cots):
     """The same through the fused kernels' autograd functions."""
-    n = pts_c.shape[0]
     with torch.enable_grad():
         pc = pts_c.detach().requires_grad_(True)
-        pe = posenc(pc, 10)
-        cp = torch.cat([code.expand(n, 8), pf.expand(n, 16)], dim=1)
+        pe, cp = _fused_inputs(pc, code, pf, 1.0)
         params = fused_mlp.nerf_params(model.nerf)
         if with_color:
             outs = fused_mlp.fused_sigma_essence_normal(params, pe, cp)
@@ -591,14 +589,85 @@ def fused_chain(model, pts_c, code, pf, with_color: bool, cots):
         sum((o * c).sum() for o, c in zip(outs, cots)).backward()
 
 
+def flip_report(got, want, band: float, kinks) -> dict:
+    """Where a mask-dependent output of a kernel and of its plain version
+    part by more than ``band`` of the reference's max-abs scale, over all
+    points (kinks: `fused_mlp.kink_distances`, (N, 8)): how many points,
+    how many of them the check keeps (must be 0), their largest distance
+    from a kink over all eight ReLUs and over the backbone's seven, and the
+    largest error on the points the check leaves out."""
+    err = (got - want).abs().reshape(got.shape[0], -1).amax(1)
+    scale = float(want.abs().max()) + 1e-30
+    beyond = err > band * scale
+    near = kinks.amin(1) <= KINK
+    some = bool(beyond.any())
+    return {
+        "beyond_band_points": int(beyond.sum()),
+        "beyond_band_kept": int((beyond & ~near).sum()),
+        "kink_of_beyond_band_max": float(kinks[beyond].amin(1).max()) if some else None,
+        "backbone_kink_of_beyond_band_max": float(kinks[beyond, :7].amin(1).max()) if some else None,
+        "left_out_max_rel_err": float(err[near].max()) / scale if bool(near.any()) else 0.0,
+    }
+
+
+def fused_variant(w, wflat, x, with_color: bool, gen) -> tuple[dict, tuple]:
+    """One variant of the fused pair against its plain versions on ``x``.
+    Points within KINK of a ReLU's kink are left out of the mask-dependent
+    outputs (gpe, xbar) and, for the weight gradients, their cotangents are
+    zeroed; everything else is held to the bands. A second backward with
+    every cotangent reports what the left-out points do (`flip_report`).
+    Returns the report and the cotangents the check used."""
+    dev = x.device
+    n = x.shape[0]
+    kinks = fused_mlp.kink_distances(w, x)
+    keep = kinks.amin(1) > KINK
+    v = {"with_color": with_color, "points": n, "kink_points_left_out": int((~keep).sum()),
+         "kink_share_left_out": float((~keep).float().mean())}
+    got = fused_mlp.fused_fwd(w, x, with_color, wflat)
+    want = fused_mlp.fused_fwd_plain(w, x, with_color)
+    errs = [_rel_err(got[0], want[0])]
+    if with_color:
+        errs += [_rel_err(got[1], want[1]), _rel_err(got[2], want[2], keep)]
+        v["gpe_flips"] = flip_report(got[2], want[2], FWD_TOL, kinks)
+    v["fwd_max_abs_err"], v["fwd_max_rel_err"] = max(e[0] for e in errs), max(e[1] for e in errs)
+    rnd = lambda *sh: torch.randn(*sh, dtype=torch.float32, device=dev, generator=gen)
+    cots = (rnd(n), rnd(n, 3), rnd(n, 63)) if with_color else (rnd(n), None, None)
+    xb, _, gr = fused_mlp.fused_bwd(w, x, *cots, with_color, wflat)
+    xb_p, _, gr_p = fused_mlp.fused_bwd_plain(w, x, *cots, with_color)
+    v["xbar_flips"] = flip_report(xb, xb_p, BWD_TOL, kinks)
+    v["grads_all_cotangents_max_rel_err"] = max(_rel_err(gr[k].reshape(t.shape), t)[1] for k, t in gr_p.items())
+    kept = tuple(c * (keep if c.dim() == 1 else keep[:, None]) if c is not None else None for c in cots)
+    xb, gp, gr = fused_mlp.fused_bwd(w, x, *kept, with_color, wflat)
+    xb_p, gp_p, gr_p = fused_mlp.fused_bwd_plain(w, x, *kept, with_color)
+    errs = [_rel_err(xb, xb_p, keep)] + [_rel_err(gr[k].reshape(t.shape), t) for k, t in gr_p.items()]
+    if with_color:
+        errs.append(_rel_err(gp, gp_p, keep))
+    v["bwd_max_abs_err"], v["bwd_max_rel_err"] = max(e[0] for e in errs), max(e[1] for e in errs)
+    torch.cuda.synchronize()
+    if v["fwd_max_rel_err"] > FWD_TOL or v["bwd_max_rel_err"] > BWD_TOL:
+        raise AssertionError(f"fused kernels differ from their plain versions: {v}")
+    return v, kept
+
+
+def check_fused_random(n: int = 352_000) -> None:
+    """The same check on a randomly initialised SpaceNet and seeded inputs
+    (as `tests/test_torch_port_cuda.py` makes them), both variants."""
+    dev = torch.device("cuda")
+    model = DualSpaceNeRF(max_frames=4, generator=torch.Generator().manual_seed(0)).to(dev)
+    w = {k: v.detach() for k, v in fused_mlp.pack(fused_mlp.nerf_params(model.nerf)).items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = fused_mlp.build_x(posenc(0.3 * torch.randn(n, 3, device=dev, generator=gen), 10),
+                          torch.randn(n, 24, device=dev, generator=gen))
+    for with_color in (False, True):
+        v, _ = fused_variant(w, fused_mlp.flat_weights(w), x, with_color, gen)
+        log("fused random weights: " + json.dumps(v))
+
+
 def check_fused(model, pts_c, code, pf, x_all) -> tuple[dict, dict]:
     """Both fused kernels in both variants against their plain versions at
-    the training step's shapes, and timed. Points within KINK of a ReLU's
-    kink are left out of the mask-dependent outputs and their cotangents
-    zeroed (`fused_mlp.kink_distance`); everything else is held to the bands.
-    Returns the forward and backward kernel rows (their numbers per
-    production step: the density pass over 352,000 points plus the color
-    pass over 88,000)."""
+    the training step's shapes (`fused_variant`), and timed. Returns the
+    forward and backward kernel rows (their numbers per production step:
+    the density pass over 352,000 points plus the color pass over 88,000)."""
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     w = {k: v.detach() for k, v in fused_mlp.pack(fused_mlp.nerf_params(model.nerf)).items()}
@@ -608,28 +677,7 @@ def check_fused(model, pts_c, code, pf, x_all) -> tuple[dict, dict]:
     for with_color in (False, True):
         for n in FUSED_SIZES:
             x = x_all[:n].contiguous()
-            keep = fused_mlp.kink_distance(w, x) > KINK
-            v = {"with_color": with_color, "points": n, "kink_points_left_out": int((~keep).sum()),
-                 "kink_share_left_out": float((~keep).float().mean())}
-            got = fused_mlp.fused_fwd(w, x, with_color, wflat)
-            want = fused_mlp.fused_fwd_plain(w, x, with_color)
-            torch.cuda.synchronize()
-            errs = [_rel_err(got[0], want[0])]
-            if with_color:
-                errs += [_rel_err(got[1], want[1]), _rel_err(got[2], want[2], keep)]
-            v["fwd_max_abs_err"], v["fwd_max_rel_err"] = max(e[0] for e in errs), max(e[1] for e in errs)
-            rnd = lambda *sh: torch.randn(*sh, dtype=torch.float32, device=dev, generator=gen)
-            sbar = rnd(n) * keep
-            ebar, gbar = (rnd(n, 3) * keep[:, None], rnd(n, 63) * keep[:, None]) if with_color else (None, None)
-            xb, gp, gr = fused_mlp.fused_bwd(w, x, sbar, ebar, gbar, with_color, wflat)
-            xb_p, gp_p, gr_p = fused_mlp.fused_bwd_plain(w, x, sbar, ebar, gbar, with_color)
-            torch.cuda.synchronize()
-            errs = [_rel_err(xb, xb_p, keep)] + [_rel_err(gr[k].reshape(t.shape), t) for k, t in gr_p.items()]
-            if with_color:
-                errs.append(_rel_err(gp, gp_p, keep))
-            v["bwd_max_abs_err"], v["bwd_max_rel_err"] = max(e[0] for e in errs), max(e[1] for e in errs)
-            if v["fwd_max_rel_err"] > FWD_TOL or v["bwd_max_rel_err"] > BWD_TOL:
-                raise AssertionError(f"fused kernels differ from their plain versions: {v}")
+            v, (sbar, ebar, gbar) = fused_variant(w, wflat, x, with_color, gen)
             if n != FUSED_SIZES[2]:
                 v["fwd_ms"] = time_ms(lambda: fused_mlp.fused_fwd(w, x, with_color, wflat), reps=5)
                 v["fwd_plain_ms"] = time_ms(lambda: fused_mlp.fused_fwd_plain(w, x, with_color), reps=3)
@@ -640,7 +688,7 @@ def check_fused(model, pts_c, code, pf, x_all) -> tuple[dict, dict]:
                 v["fwd_bound_ms"], v["fwd_bound_by"] = fused_bound(n, with_color, False)
                 v["bwd_bound_ms"], v["bwd_bound_by"] = fused_bound(n, with_color, True)
                 pc = pts_c[:n]
-                cots = [sbar] + ([ebar, rnd(n, 3)] if with_color else [])
+                cots = [sbar] + ([ebar, torch.randn(n, 3, device=dev, generator=gen)] if with_color else [])
                 v["unfused_fwd_ms"] = time_ms(lambda: unfused_chain(model, pc, code, pf, with_color), reps=3)
                 v["unfused_fwd_bwd_ms"] = time_ms(
                     lambda: unfused_chain(model, pc, code, pf, with_color, cots), reps=3)
@@ -847,6 +895,7 @@ def main() -> int:
     fmodel = trained_model(cfg.MODEL.MAX_FRAMES).to(dev)
     pts_c, fcode, fpf, x_all = fused_check_inputs(fmodel, tbatch, tmesh, settings)
     fwd_row, bwd_row = check_fused(fmodel, pts_c, fcode, fpf, x_all)
+    check_fused_random()
     kernels += [fwd_row, bwd_row]
     for k in (fwd_row, bwd_row):
         log("kernel: " + json.dumps({key: k[key] for key in k if key not in ("route", "source", "replaces")}))

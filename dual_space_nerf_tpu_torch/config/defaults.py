@@ -2,10 +2,11 @@
 
 The same keys and default values as the JAX package's tree
 (`dual_space_nerf_tpu/config/defaults.py`), so every YAML under `configs/`
-merges into both and dumps the same. Knobs that steer TPU-only code paths
-(fused Pallas MLP, remat, listed/pruned searches) keep their keys here; the
-port's renderer refuses the settings it does not implement rather than
-ignoring them (see `renderer.pipeline.RenderSettings.from_cfg`).
+merges into both and dumps the same. The port's renderer refuses the
+settings it does not implement rather than ignoring them (see
+`renderer.pipeline.RenderSettings.from_cfg`); it does not read REMAT and
+FUSED_BLOCK, the JAX package's memory and TPU-tiling knobs, which change no
+number.
 """
 
 from .node import CfgNode as CN
@@ -50,7 +51,7 @@ _C.MODEL.SHADE_TOPK = 0
 _C.MODEL.REUSE_WARP_FACES = False
 # Fused SpaceNet kernels of the JAX package; "auto" resolves to off.
 _C.MODEL.FUSED_MLP = "auto"
-_C.MODEL.FUSED_BLOCK = 512
+_C.MODEL.FUSED_BLOCK = 512         # points per TPU grid block (JAX package only)
 _C.MODEL.FUSED_FAST = False
 
 # ----------------------------------------------------------------------------

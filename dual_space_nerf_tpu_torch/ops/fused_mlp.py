@@ -290,24 +290,27 @@ def fused_bwd_plain(w: dict, x, sbar, ebar, gbar, with_color: bool):
     return xbar, gpe, g
 
 
-def kink_distance(w: dict, x: torch.Tensor) -> torch.Tensor:
-    """(N,) per point, the smallest |z| / max|z| over the pre-activations of
-    the eight ReLUs (h1..h7 and the essence head), each layer's max taken
-    over the batch. Where it is within rounding of 0, two correct float32
-    orders of the same sums can take the ReLU's mask either way, and the
-    mask-dependent outputs (gpe, xbar, the gradients) jump there: a check of
-    the kernels against their plain versions leaves those points out."""
-    out = torch.full((x.shape[0],), float("inf"), dtype=F32, device=x.device)
+def kink_distances(w: dict, x: torch.Tensor) -> torch.Tensor:
+    """(N, 8) per point and ReLU (h1..h7, then the essence head), the
+    smallest |z| / max|z| over the ReLU's pre-activations, each layer's max
+    taken over the batch. Where a point's smallest is within rounding of 0,
+    two correct float32 orders of the same sums can take that ReLU's mask
+    either way, and the mask-dependent outputs (gpe, xbar, the gradients)
+    jump there: a check of the kernels against their plain versions leaves
+    those points out. The essence head's mask reaches only the with-color
+    outputs through the essence cotangent."""
+    cols = []
     h = x
     for i in range(1, 8):
         if i == 5:
             z = h @ w["k5a"] + x[:, :PE] @ w["k5b"] + w["b5"]
         else:
             z = h @ w[f"k{i}"] + w[f"b{i}"]
-        out = torch.minimum(out, z.abs().amin(1) / z.abs().max().clamp_min(1e-30))
+        cols.append(z.abs().amin(1) / z.abs().max().clamp_min(1e-30))
         h = torch.relu(z)
     z = h @ w["k9"] + w["b9"]
-    return torch.minimum(out, z.abs().amin(1) / z.abs().max().clamp_min(1e-30))
+    cols.append(z.abs().amin(1) / z.abs().max().clamp_min(1e-30))
+    return torch.stack(cols, dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,7 @@ from .pipeline import (
     normal_canonical_to_world,
     render_rays,
     resolve_mlp_chunk,
+    sample_z,
     warp_world_to_canonical,
 )
 
@@ -17,5 +18,6 @@ __all__ = [
     "normal_canonical_to_world",
     "render_rays",
     "resolve_mlp_chunk",
+    "sample_z",
     "warp_world_to_canonical",
 ]

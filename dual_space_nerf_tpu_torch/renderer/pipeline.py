@@ -35,8 +35,10 @@ are detached.
 
 Not ported yet, and refused when asked for: hierarchical sampling
 (FINE_RAY_SAMPLING), the grouped, clustered and xla searches, bf16 matrix
-products and the fused kernels' bf16 feeds (FUSED_FAST). REMAT is resolved
-as in the JAX package but does not rematerialize here.
+products and the fused kernels' bf16 feeds (FUSED_FAST). The JAX package's
+REMAT (rematerialization) and FUSED_BLOCK (the TPU kernels' grid block)
+change no number; the port does not read them: it keeps the whole graph, and
+its fused kernels tile by 32 points.
 """
 
 from __future__ import annotations
@@ -133,29 +135,16 @@ def resolve_mlp_chunk(cfg_value: int, shade_topk: int) -> int:
     return 16384 if 0 < shade_topk <= 8 else 8192
 
 
-def _resolve_switch(key: str, cfg_value, auto: bool) -> bool:
-    """An auto/on/off config value, with "auto" resolving to ``auto``."""
+def resolve_fused(cfg_value) -> bool:
+    """MODEL.FUSED_MLP as the JAX package resolves it ("auto" is off)."""
     if isinstance(cfg_value, str):
         v = cfg_value.lower()
-        if v == "auto":
-            return auto
+        if v in ("auto", "off", "false", "0"):
+            return False
         if v in ("on", "true", "1"):
             return True
-        if v in ("off", "false", "0"):
-            return False
-        raise ValueError(f"MODEL.{key}={cfg_value!r}: expected auto/on/off")
+        raise ValueError(f"MODEL.FUSED_MLP={cfg_value!r}: expected auto/on/off")
     return bool(cfg_value)
-
-
-def resolve_fused(cfg_value) -> bool:
-    """MODEL.FUSED_MLP as the JAX package resolves it: "auto" is off."""
-    return _resolve_switch("FUSED_MLP", cfg_value, False)
-
-
-def resolve_remat(cfg_value, shade_topk: int) -> bool:
-    """MODEL.REMAT as the JAX package resolves it: "auto" is on for full
-    shading and for gating of more than 8 samples."""
-    return _resolve_switch("REMAT", cfg_value, shade_topk <= 0 or shade_topk > 8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,12 +172,6 @@ class RenderSettings:
     raw_noise_std: float = 1.0
     # SpaceNet through the fused kernels (ops/fused_mlp.py)
     fused_mlp: bool = False
-    # the JAX package's grid block of the fused TPU kernels; carried for the
-    # config's sake, the CUDA kernels tile by 32 points whatever it says
-    fused_block: int = 512
-    # the JAX package's rematerialization switch, resolved the same way; the
-    # port keeps the whole graph (ROADMAP.md lists rematerialization)
-    remat: bool = False
 
     def __post_init__(self):
         if self.mlp_chunk < 1:
@@ -202,8 +185,6 @@ class RenderSettings:
             raise ValueError(f"RenderSettings.shade_topk={self.shade_topk}: expected >= 0")
         if self.block_sc < 1:
             raise ValueError(f"RenderSettings.block_sc={self.block_sc}: expected >= 1")
-        if self.fused_block < 1:
-            raise ValueError(f"RenderSettings.fused_block={self.fused_block}: expected >= 1")
         check_knn_impl(self.knn_impl)
 
     @classmethod
@@ -227,8 +208,6 @@ class RenderSettings:
             perturb=float(cfg.MODEL.perturb),
             raw_noise_std=float(cfg.MODEL.raw_noise_std),
             fused_mlp=resolve_fused(cfg.MODEL.FUSED_MLP),
-            fused_block=int(cfg.MODEL.FUSED_BLOCK),
-            remat=resolve_remat(cfg.MODEL.REMAT, shade_topk),
         )
 
 
@@ -493,13 +472,21 @@ def render_rays(
         if settings.raw_noise_std > 0:
             noise = randoms[1] * settings.raw_noise_std
     with torch.set_grad_enabled(train):
-        near, far = batch.near, batch.far
-        if settings.sample_mode == "GG":
-            near, far = gg_near_far_cuda(
-                batch.ray_o, batch.ray_d, near, far, mesh.verts_world, settings.gg_gamma
-            )
-        z_vals = stratified_z(near, far, settings.n_samples, t_rand)
+        z_vals = sample_z(batch, mesh, settings, t_rand)
         return _render_with_z(model, batch, mesh, settings, light, z_vals, noise)
+
+
+def sample_z(batch: RayBatch, mesh: MeshBundle, settings: RenderSettings,
+             t_rand: torch.Tensor | None = None) -> torch.Tensor:
+    """z (R, S) of a chunk: between the GG near/far of the posed mesh
+    (sample_mode "GG") or the batch's own, evenly spaced, or stratified by
+    the uniforms t_rand (R, S) when given."""
+    near, far = batch.near, batch.far
+    if settings.sample_mode == "GG":
+        near, far = gg_near_far_cuda(
+            batch.ray_o, batch.ray_d, near, far, mesh.verts_world, settings.gg_gamma
+        )
+    return stratified_z(near, far, settings.n_samples, t_rand)
 
 
 def _render_with_z(model, batch: RayBatch, mesh: MeshBundle,

@@ -3,8 +3,9 @@
 backward (through the second-order normal graph) -> Adam update.
 
 The JAX step draws its randomness from `fold_in(rng, step)`; torch cannot
-give the same numbers, so the port's step takes a `torch.Generator` (or the
-uniforms and normals themselves, as the tests hand it JAX's draws).
+give the same numbers, so the port's step takes the uniforms and normals
+themselves: `draw_randoms` makes them from a `torch.Generator`, and the tests
+hand in JAX's draws.
 """
 
 from __future__ import annotations
@@ -51,24 +52,19 @@ def draw_randoms(r: int, s: int, generator: torch.Generator, device) -> tuple:
 
 def make_train_step(settings: RenderSettings, loss_type: str = "L2", loss_with_mask: bool = False,
                     device: str | torch.device | None = None):
-    """step(state, batch, mesh, generator=None, randoms=None) -> metrics.
+    """step(state, batch, mesh, randoms) -> metrics.
 
     One update on ``device`` (CUDA unless asked otherwise; the model, batch
     and mesh must be there). ``randoms`` = (uniforms, normals) of shape
-    (R, S), else drawn from ``generator``. Every parameter that the loss does
+    (R, S), as `draw_randoms` makes them. Every parameter that the loss does
     not reach gets a zero gradient, so that Adam steps every parameter with
     one count, as optax does. After the step each parameter's ``.grad`` holds
     its gradient. Metrics: loss, psnr and each loss term, as 0-d tensors."""
     loss_fn = make_loss(loss_type, loss_with_mask)
     dev = resolve_device(device)
 
-    def step(state: TrainState, batch: TrainBatch, mesh: MeshBundle,
-             generator: torch.Generator | None = None, randoms: tuple | None = None) -> dict:
+    def step(state: TrainState, batch: TrainBatch, mesh: MeshBundle, randoms: tuple) -> dict:
         model = state.model
-        if randoms is None:
-            if generator is None:
-                raise ValueError("train step: pass a generator or the randoms")
-            randoms = draw_randoms(batch.rays.ray_o.shape[0], settings.n_samples, generator, dev)
         state.optimizer.zero_grad(set_to_none=True)
         dtype = next(model.parameters()).dtype  # float32; float64 for conditioning checks
         light = LightState(*(t.to(dtype) for t in LightState.identity(dev)))
