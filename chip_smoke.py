@@ -31,9 +31,11 @@ Phases (any failure exits non-zero, before the last line is printed):
    with color) against their plain versions at the training step's shapes
    (352,000 and 88,000 canonical points of the train batch, and a ragged
    count), and times kernel, plain version, the card's bound and the
-   unfused chain (SpaceNet + autograd normal, and its double backward);
-   reports where kernel and plain version part at ReLU kinks, also for a
-   randomly initialised SpaceNet;
+   unfused chain (SpaceNet + autograd normal, and its double backward; the
+   backward and the unfused chain in turns, median and range); reports
+   where kernel and plain version part at ReLU kinks, also for a randomly
+   initialised SpaceNet, and the backward's registers, spills, shared
+   memory, blocks per SM and share of its bound;
 7. trains: `training.make_train_step` on `bench.py`'s train workload (the
    512x512 train item, 5500 rays x 64 samples, the trained fixture, Adam at
    5e-4) on four paths, production or exact with `FUSED_MLP` on or off, from
@@ -46,8 +48,10 @@ Phases (any failure exits non-zero, before the last line is printed):
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -145,6 +149,24 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def alternate_ms(fns: dict, rounds: int) -> dict:
+    """The functions of ``fns`` timed in turns (a, b, a, b, ...) after one
+    warm-up each, CUDA events: {name: (median ms, [min, max])}."""
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: (statistics.median(t), [min(t), max(t)]) for name, t in times.items()}
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -681,8 +703,6 @@ def check_fused(model, pts_c, code, pf, x_all) -> tuple[dict, dict]:
             if n != FUSED_SIZES[2]:
                 v["fwd_ms"] = time_ms(lambda: fused_mlp.fused_fwd(w, x, with_color, wflat), reps=5)
                 v["fwd_plain_ms"] = time_ms(lambda: fused_mlp.fused_fwd_plain(w, x, with_color), reps=3)
-                v["bwd_ms"] = time_ms(lambda: fused_mlp.fused_bwd(w, x, sbar, ebar, gbar, with_color, wflat),
-                                      reps=3)
                 v["bwd_plain_ms"] = time_ms(lambda: fused_mlp.fused_bwd_plain(w, x, sbar, ebar, gbar, with_color),
                                             reps=3)
                 v["fwd_bound_ms"], v["fwd_bound_by"] = fused_bound(n, with_color, False)
@@ -690,14 +710,32 @@ def check_fused(model, pts_c, code, pf, x_all) -> tuple[dict, dict]:
                 pc = pts_c[:n]
                 cots = [sbar] + ([ebar, torch.randn(n, 3, device=dev, generator=gen)] if with_color else [])
                 v["unfused_fwd_ms"] = time_ms(lambda: unfused_chain(model, pc, code, pf, with_color), reps=3)
-                v["unfused_fwd_bwd_ms"] = time_ms(
-                    lambda: unfused_chain(model, pc, code, pf, with_color, cots), reps=3)
+                # the kernel and the unfused chain in turns, in this call
+                alt = alternate_ms({
+                    "bwd": lambda: fused_mlp.fused_bwd(w, x, sbar, ebar, gbar, with_color, wflat),
+                    "unfused_fwd_bwd": lambda: unfused_chain(model, pc, code, pf, with_color, cots),
+                }, rounds=5)
+                for key, (med, spread) in alt.items():
+                    v[f"{key}_ms"], v[f"{key}_ms_range"] = med, spread
+                v["bwd_bound_share"] = v["bwd_bound_ms"] / v["bwd_ms"]
                 v["fused_fwd_bwd_ms"] = time_ms(lambda: fused_chain(model, pc, code, pf, with_color, cots),
                                                 reps=3)
             variants.append(v)
             log("fused: " + json.dumps(v))
     model.zero_grad(set_to_none=True)
     step = [v for v in variants if (v["points"], v["with_color"]) in ((352_000, False), (88_000, True))]
+    exact = next(v for v in variants if (v["points"], v["with_color"]) == (352_000, True))
+    log("fused_bwd: " + json.dumps({
+        **fused_bwd_resources(),
+        "production_step": {key: sum(v[key] for v in step) for key in
+                             ("bwd_ms", "bwd_bound_ms", "unfused_fwd_bwd_ms")},
+        "exact_step": {key: exact[key] for key in ("bwd_ms", "bwd_bound_ms", "unfused_fwd_bwd_ms")},
+        "production_bound_share": sum(v["bwd_bound_ms"] for v in step) / sum(v["bwd_ms"] for v in step),
+        "exact_bound_share": exact["bwd_bound_share"],
+        "ranges_ms": {f"{v['points']} {'color' if v['with_color'] else 'density'}":
+                      {"bwd": v["bwd_ms_range"], "unfused_fwd_bwd": v["unfused_fwd_bwd_ms_range"]}
+                      for v in variants if "bwd_ms_range" in v},
+    }))
     rows = {}
     for kernel, tag, replaces in ((FUSED_FWD_KERNEL, "fwd", "294"), (FUSED_BWD_KERNEL, "bwd", "311")):
         bounds = [v[f"{tag}_bound_ms"] for v in step]
@@ -711,10 +749,45 @@ def check_fused(model, pts_c, code, pf, x_all) -> tuple[dict, dict]:
             "plain_ms": sum(v[f"{tag}_plain_ms"] for v in step),
             "bound_ms": sum(bounds), "bound_by": step[0][f"{tag}_bound_by"],
             "library_ms": None,
+            "bound_share": sum(bounds) / sum(v[f"{tag}_ms"] for v in step),
             "unfused_chain_ms": sum(v["unfused_fwd_ms" if tag == "fwd" else "unfused_fwd_bwd_ms"] for v in step),
             "note": "per production step: density-only at 352,000 points + with color at 88,000",
         }
     return rows["fwd"], rows["bwd"]
+
+
+def fused_bwd_resources() -> dict:
+    """The backward kernel's registers and spilled bytes (stores + loads)
+    per variant from its `ptxas -v` lines in this run's build: the kernel's
+    own, then the sum over the device functions listed after it (the
+    product routines it calls); its dynamic shared memory and resident
+    blocks per SM (the occupancy query the wrapper sizes its grid by) and
+    its tile."""
+    dev = torch.device("cuda")
+    kernel = FUSED_BWD_KERNEL
+    out, cur, key = {}, None, None
+    for line in kernel.build_log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"fused_mlp_bwd_kernelILb([01])E", line)
+            cur = ("with_color" if m[1] == "1" else "density") if m else None
+            key = "kernel_spill_bytes"
+        elif cur and "spill" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            v = out.setdefault(cur, {})
+            v[key] = v.get(key, 0) + int(m[1]) + int(m[2])
+        elif cur and "Used" in line:
+            out.setdefault(cur, {})["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+            key = "functions_spill_bytes"
+    if not out:
+        out = {"registers": "not measured (no build in this run)"}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, color in (("density", False), ("with_color", True)):
+        blocks = fused_mlp._blocks(kernel, "fused_mlp_bwd_blocks", dev, color)
+        out.setdefault(label, {})["blocks_per_sm"] = blocks / sms
+    query = lambda sym: kernel.extra_function(sym, [ctypes.c_int])(0)
+    out["dynamic_smem_bytes"] = query("fused_mlp_bwd_smem")
+    out["tile_points"] = query("fused_mlp_bwd_tile")
+    return out
 
 
 # ---- the training step -------------------------------------------------------

@@ -7,21 +7,75 @@
 // (pallas_call at :507): recompute of the backbone, first-order backprop of
 // sbar and ebar, then the second-order vjp of the g-recursion driven by gbar
 // (the derivation is in ops/fused_mlp.py). The plain version is
-// ops/fused_mlp.py::fused_bwd_plain.
+// ops/fused_mlp.py::fused_bwd_plain. The products run on the tiled core of
+// fused_mlp_tiled.cuh (shared-memory slabs, 8 x 8 register micro-tiles).
 //
 // Bound on the H100: FP32 operations, ~1.3 M multiply-adds per point for
-// sigma alone and ~2.7 M with color, of which ~0.9 M are the weight
-// gradients' sums over the points. The TPU kernel carries the weight
-// gradients from one grid step to the next in VMEM; here blocks run in
-// parallel, so each block of the persistent grid adds its tiles' sums into
-// its own slice of `partials` (2 MB, L2-resident while the block works on
-// it) and a second kernel adds the slices in block order: two runs give the
-// same bits, and no atomics are used. Per layer the first- and second-order
-// terms go into one pass: Kbar_l += h_{l-1}^T dz_l + gb_{l-1}^T u_l.
-#include "fused_mlp.cuh"
+// sigma alone and ~2.7 M with color, of which ~0.45 M / ~0.9 M are the
+// weight gradients' sums over the points; the inputs and outputs move
+// 0.7-1.2 KB per point. The TPU kernel carries the weight gradients from
+// one grid step to the next in VMEM; here blocks run in parallel, so each
+// block of the persistent grid adds its tiles' sums into its own 1.87 MB
+// slice of `partials`, and a second kernel adds the slices in block order:
+// two runs give the same bits, and no atomics are used. Per layer the first-
+// and second-order terms go into one pass: Kbar_l += h_{l-1}^T dz_l +
+// gb_{l-1}^T u_l.
+//
+// Traffic per tile of 64 points beside the FMAs, in device memory or L2:
+// - the slice's read-modify-write, 2 x 1.7-1.9 MB (27-29 KB per point and
+//   direction: the larger the tile, the less);
+// - the scratch rows: each layer product writes its 256 output rows (64 KB)
+//   once and reads its input rows and its mask rows once; each weight
+//   gradient reads its operands twice (two 128-row sub-tiles per side), and
+//   with color both pairs: ~4 MB per tile without color, ~8.5 MB with
+//   (~65 / ~135 KB per point);
+// - the weights, 2.1 MB (3.6 MB with the transposes) from L2.
+#include "fused_mlp_tiled.cuh"
 
-using namespace fmlp;
+using namespace fmlp_tiled;
+using fmlp::O_B1;
+using fmlp::O_B10;
+using fmlp::O_B8;
+using fmlp::O_B9;
+using fmlp::O_K1;
+using fmlp::O_K10;
+using fmlp::O_K10T;
+using fmlp::O_K1T;
+using fmlp::O_K5A;
+using fmlp::O_K5AT;
+using fmlp::O_K5B;
+using fmlp::O_K5BT;
+using fmlp::O_K8;
+using fmlp::O_K9;
+using fmlp::O_K9T;
+using fmlp::G_FLOATS;
+using fmlp::k_off;
+using fmlp::kt_off;
 
+namespace {
+
+// no operand pair: a product of no rows
+__device__ __forceinline__ Src none() { return {nullptr, nullptr, 0, 0, 0}; }
+
+// a layer product's operand pair with a (K, W) weight of row stride W
+__device__ __forceinline__ Src wide(const float* in, int K, const float* M) {
+  return {in, M, K, W, W};
+}
+
+// a masked step of a chain: out = m (in M), M = K_l or its transpose
+__device__ __forceinline__ void masked(float* sm, float* out, const float* in, const float* M,
+                                       const float* mask) {
+  layer<MASK, true>(sm, out, W, wide(in, W, M), none(), nullptr, mask, nullptr, nullptr);
+}
+
+// K_l (l = 2..7, K5a for 5) and its packed transpose
+__device__ __forceinline__ int kw(int l) { return l == 5 ? O_K5A : k_off(l); }
+__device__ __forceinline__ int ktw(int l) { return l == 5 ? O_K5AT : kt_off(l); }
+
+}  // namespace
+
+// Every routine of the tiled core ends on a barrier; the barriers here order
+// the per-thread loops between them.
 template <bool COLOR>
 __global__ void __launch_bounds__(NT, 2)
 fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sbar,
@@ -29,11 +83,12 @@ fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sbar
                      const float* __restrict__ w, float* __restrict__ xbar,
                      float* __restrict__ gpe, float* __restrict__ partials,
                      float* __restrict__ scratch, int n) {
+  extern __shared__ __align__(16) float sm[];
   float* s = scratch + (size_t)blockIdx.x * SCRATCH_FLOATS;
   float* G = partials + (size_t)blockIdx.x * G_FLOATS;
   const int ntiles = (n + P - 1) / P;
-  // gbar's rows 63..87 stay zero: K1's gradient takes gbar as an 87-row operand
-  for (int i = threadIdx.x; i < (88 - PE) * LD; i += NT) row(s, R_GBAR + PE)[i] = 0.f;
+  // gbar's rows 63..86 stay zero: K1's gradient takes gbar as an 87-row operand
+  for (int i = threadIdx.x; i < (88 - PE) * P; i += NT) row(s, R_GBAR + PE)[i] = 0.f;
 
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const int t0 = t * P;
@@ -44,102 +99,106 @@ fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sbar
       load_rows(row(s, R_GBAR), gbar, PE, t0, n);
     }
     __syncthreads();
-    backbone(s, w);
+    // h1..h7; the skip layer adds pe (x's first 63 rows) K5b
+    layer<BIAS | RELU, true>(sm, hrow(s, 1), W, wide(row(s, R_X), IN, w + O_K1), none(), w + O_B1,
+                             nullptr, nullptr, nullptr);
+    for (int l = 2; l <= 7; ++l)
+      layer<BIAS | RELU, true>(sm, hrow(s, l), W, wide(hrow(s, l - 1), W, w + kw(l)),
+                               l == 5 ? wide(row(s, R_X), PE, w + O_K5B) : none(),
+                               w + O_B1 + (l - 1) * W, nullptr, nullptr, nullptr);
 
     // ---- first order: the sigma and essence cotangents ----
     if (COLOR) {
-      layer<BIAS | RELU>(row(s, R_E1), E, hrow(s, 7), W, w + O_K9, E, nullptr, 0, nullptr, 0, 0,
-                         w + O_B9, nullptr, nullptr, nullptr);
+      // e1 = relu(h7 K9 + b9); K9 sits at an odd offset: 4-byte copies
+      layer<BIAS | RELU, false, E>(sm, row(s, R_E1), E, {hrow(s, 7), w + O_K9, W, E, E}, none(),
+                                   w + O_B9, nullptr, nullptr, nullptr);
+      // the narrow essence head, per thread: de1 = (ebar K10^T) * (z9 > 0),
+      // and z9 > 0 exactly where e1 > 0
+      for (int i = threadIdx.x; i < E * P; i += NT) {
+        const int j = i / P, p = i - j * P;
+        float z = 0.f;
+        for (int k = 0; k < 3; ++k) z = fmaf(row(s, R_EB + k)[p], __ldg(w + O_K10T + k * E + j), z);
+        row(s, R_DE1)[i] = row(s, R_E1)[i] > 0.f ? z : 0.f;
+      }
+      // K10 (E, 3) and b10: one owner thread per element
+      for (int i = threadIdx.x; i < E * 3 + 3; i += NT) {
+        const float* a = i < E * 3 ? row(s, R_E1 + i / 3) : nullptr;
+        const float* b = row(s, R_EB + (i < E * 3 ? i % 3 : i - E * 3));
+        float acc = 0.f;
+        for (int p = 0; p < P; ++p) acc = a != nullptr ? fmaf(a[p], b[p], acc) : acc + b[p];
+        G[i < E * 3 ? O_K10 + i : O_B10 + i - E * 3] += acc;
+      }
       __syncthreads();
-      // de1 = (ebar K10^T) * (z9 > 0), and z9 > 0 exactly where e1 > 0
-      layer<MASK>(row(s, R_DE1), E, row(s, R_EB), 3, w + O_K10T, E, nullptr, 0, nullptr, 0, 0,
-                  nullptr, row(s, R_E1), nullptr, nullptr);
-      __syncthreads();
-      wgrad<false>(G + O_K10, E, 3, row(s, R_E1), row(s, R_EB), nullptr, nullptr, G + O_B10);
-      wgrad<false>(G + O_K9, W, E, hrow(s, 7), row(s, R_DE1), nullptr, nullptr, G + O_B9);
+      wgrad<false>(sm, G + O_K9, W, E, hrow(s, 7), row(s, R_DE1), nullptr, nullptr, G + O_B9);
     }
     // dz7 = m7 * (sbar k8 + de1 K9^T)
-    layer<RANK1 | MASK>(dzrow(s, 7), W, COLOR ? row(s, R_DE1) : nullptr, E, w + O_K9T, W, nullptr,
-                        0, nullptr, 0, 0, nullptr, hrow(s, 7), row(s, R_SB), w + O_K8);
-    // k8 and b8: sums of sbar h7 and of sbar over the tile
-    wgrad<false>(G + O_K8, 1, W, row(s, R_SB), hrow(s, 7), nullptr, nullptr, nullptr);
+    layer<RANK1 | MASK, true>(sm, dzrow(s, 7), W,
+                              COLOR ? wide(row(s, R_DE1), E, w + O_K9T) : none(), none(), nullptr,
+                              hrow(s, 7), row(s, R_SB), w + O_K8);
+    // k8 and b8: sums of sbar h7 and of sbar over the tile, one owner each
+    for (int j = threadIdx.x; j < W; j += NT) {
+      const float* h7 = hrow(s, 7) + j * P;
+      float acc = 0.f;
+      for (int p = 0; p < P; ++p) acc = fmaf(row(s, R_SB)[p], h7[p], acc);
+      G[O_K8 + j] += acc;
+    }
     if (threadIdx.x == 0) {
       float sb = 0.f;
       for (int p = 0; p < P; ++p) sb += row(s, R_SB)[p];
       G[O_B8] += sb;
     }
-    __syncthreads();
-    for (int l = 7; l >= 6; --l) {
-      layer<MASK>(dzrow(s, l - 1), W, dzrow(s, l), W, w + kt_off(l), W, nullptr, 0, nullptr, 0, 0,
-                  nullptr, hrow(s, l - 1), nullptr, nullptr);
-      __syncthreads();
-    }
-    layer<MASK>(dzrow(s, 4), W, dzrow(s, 5), W, w + O_K5AT, W, nullptr, 0, nullptr, 0, 0, nullptr,
-                hrow(s, 4), nullptr, nullptr);
-    __syncthreads();
-    for (int l = 4; l >= 2; --l) {
-      layer<MASK>(dzrow(s, l - 1), W, dzrow(s, l), W, w + kt_off(l), W, nullptr, 0, nullptr, 0, 0,
-                  nullptr, hrow(s, l - 1), nullptr, nullptr);
-      __syncthreads();
-    }
-    // xbar = dz1 K1^T, plus dz5 K5b^T on the pe lanes (the skip layer)
-    layer<0>(row(s, R_OUT), IN, dzrow(s, 1), W, w + O_K1T, IN, dzrow(s, 5), W, w + O_K5BT, PE, PE,
-             nullptr, nullptr, nullptr, nullptr);
-    __syncthreads();
+    // dz6 = m6 (dz7 K7^T), ..., dz4 = m4 (dz5 K5a^T), ..., dz1
+    for (int l = 7; l >= 2; --l) masked(sm, dzrow(s, l - 1), dzrow(s, l), w + ktw(l), hrow(s, l - 1));
+    // xbar = dz1 K1^T, plus dz5 K5b^T on the pe lanes (the skip layer); the
+    // transposes' rows are 87 and 63 floats: 4-byte copies
+    layer<0, false, 128>(sm, row(s, R_OUT), IN, {dzrow(s, 1), w + O_K1T, W, IN, IN},
+                         {dzrow(s, 5), w + O_K5BT, W, PE, PE}, nullptr, nullptr, nullptr, nullptr);
     store_rows(xbar, row(s, R_OUT), IN, t0, n);
 
-    if (!COLOR) {
-      wgrad<false>(G + O_K1, IN, W, row(s, R_X), dzrow(s, 1), nullptr, nullptr, G + O_B1);
-      for (int l = 2; l <= 4; ++l)
-        wgrad<false>(G + k_off(l), W, W, hrow(s, l - 1), dzrow(s, l), nullptr, nullptr,
-                     G + O_B1 + (l - 1) * W);
-      wgrad<false>(G + O_K5A, W, W, hrow(s, 4), dzrow(s, 5), nullptr, nullptr, G + O_B1 + 4 * W);
-      wgrad<false>(G + O_K5B, PE, W, row(s, R_X), dzrow(s, 5), nullptr, nullptr, nullptr);
-      for (int l = 6; l <= 7; ++l)
-        wgrad<false>(G + k_off(l), W, W, hrow(s, l - 1), dzrow(s, l), nullptr, nullptr,
-                     G + O_B1 + (l - 1) * W);
-      __syncthreads();  // the next tile overwrites the scratch
-      continue;
-    }
-
-    // ---- second order: the vjp of the g-recursion, driven by gbar ----
-    g_recursion(s, w, row(s, R_OUT2));
-    store_rows(gpe, row(s, R_OUT2), PE, t0, n);
+    // ---- second order: the g-recursion (u7..u1, gpe) and the start of its
+    // vjp, gb1 = m1 (gbar K1[:63]) ----
     float* gb = row(s, R_GB);
     float* gb_next = row(s, R_GB + W);
-    // gb1 = m1 (gbar K1[:63])
-    layer<MASK>(gb, W, row(s, R_GBAR), PE, w + O_K1, W, nullptr, 0, nullptr, 0, 0, nullptr,
-                hrow(s, 1), nullptr, nullptr);
-    __syncthreads();
-    wgrad<true>(G + O_K1, IN, W, row(s, R_X), dzrow(s, 1), row(s, R_GBAR), urow(s, 1), G + O_B1);
-    for (int l = 2; l <= 4; ++l) {
-      wgrad<true>(G + k_off(l), W, W, hrow(s, l - 1), dzrow(s, l), gb, urow(s, l),
-                  G + O_B1 + (l - 1) * W);
-      layer<MASK>(gb_next, W, gb, W, w + k_off(l), W, nullptr, 0, nullptr, 0, 0, nullptr,
-                  hrow(s, l), nullptr, nullptr);
+    if (COLOR) {
+      for (int i = threadIdx.x; i < W * P; i += NT)
+        urow(s, 7)[i] = hrow(s, 7)[i] > 0.f ? __ldg(w + O_K8 + i / P) : 0.f;
       __syncthreads();
-      float* tmp = gb; gb = gb_next; gb_next = tmp;
+      for (int l = 7; l >= 2; --l) masked(sm, urow(s, l - 1), urow(s, l), w + ktw(l), hrow(s, l - 1));
+      // gpe = (u1 K1^T)[:, :63] + u5 K5b^T
+      layer<0, false, 128>(sm, row(s, R_OUT2), PE, {urow(s, 1), w + O_K1T, W, IN, PE},
+                           {urow(s, 5), w + O_K5BT, W, PE, PE}, nullptr, nullptr, nullptr,
+                           nullptr);
+      store_rows(gpe, row(s, R_OUT2), PE, t0, n);
+      layer<MASK, true>(sm, gb, W, wide(row(s, R_GBAR), PE, w + O_K1), none(), nullptr,
+                        hrow(s, 1), nullptr, nullptr);
     }
-    wgrad<true>(G + O_K5A, W, W, hrow(s, 4), dzrow(s, 5), gb, urow(s, 5), G + O_B1 + 4 * W);
-    wgrad<true>(G + O_K5B, PE, W, row(s, R_X), dzrow(s, 5), row(s, R_GBAR), urow(s, 5), nullptr);
-    // gb5 = m5 (gb4 K5a + gbar K5b)
-    layer<MASK>(gb_next, W, gb, W, w + O_K5A, W, row(s, R_GBAR), PE, w + O_K5B, W, W, nullptr,
-                hrow(s, 5), nullptr, nullptr);
-    __syncthreads();
-    { float* tmp = gb; gb = gb_next; gb_next = tmp; }
-    for (int l = 6; l <= 7; ++l) {
-      wgrad<true>(G + k_off(l), W, W, hrow(s, l - 1), dzrow(s, l), gb, urow(s, l),
-                  G + O_B1 + (l - 1) * W);
-      layer<MASK>(gb_next, W, gb, W, w + k_off(l), W, nullptr, 0, nullptr, 0, 0, nullptr,
-                  hrow(s, l), nullptr, nullptr);
-      __syncthreads();
-      float* tmp = gb; gb = gb_next; gb_next = tmp;
+
+    // ---- the weight gradients: Kbar_l += h_{l-1}^T dz_l (+ gb_{l-1}^T u_l
+    // with color, gb running up the chain: gb_l = m_l (gb_{l-1} K_l), gb5 =
+    // m5 (gb4 K5a + gbar K5b)) ----
+    wgrad<COLOR>(sm, G + O_K1, IN, W, row(s, R_X), dzrow(s, 1), row(s, R_GBAR), urow(s, 1),
+                 G + O_B1);
+    for (int l = 2; l <= 7; ++l) {
+      wgrad<COLOR>(sm, G + kw(l), W, W, hrow(s, l - 1), dzrow(s, l), gb, urow(s, l),
+                   G + O_B1 + (l - 1) * W);
+      if (l == 5)
+        wgrad<COLOR>(sm, G + O_K5B, PE, W, row(s, R_X), dzrow(s, 5), row(s, R_GBAR), urow(s, 5),
+                     nullptr);
+      if (COLOR) {
+        layer<MASK, true>(sm, gb_next, W, wide(gb, W, w + kw(l)),
+                          l == 5 ? wide(row(s, R_GBAR), PE, w + O_K5B) : none(), nullptr,
+                          hrow(s, l), nullptr, nullptr);
+        float* tmp = gb; gb = gb_next; gb_next = tmp;
+      }
     }
-    // k8 += sum over the points of gb7 (the same thread owns k8[j] as above)
-    for (int j = threadIdx.x; j < W; j += NT) {
-      float acc = 0.f;
-      for (int p = 0; p < P; ++p) acc += gb[j * LD + p];
-      G[O_K8 + j] += acc;
+    // k8 += the sum of gb7 over the points (the owner of k8[j] as above)
+    if (COLOR) {
+      for (int j = threadIdx.x; j < W; j += NT) {
+        const float* g7 = gb + j * P;
+        float acc = 0.f;
+        for (int p = 0; p < P; ++p) acc += g7[p];
+        G[O_K8 + j] += acc;
+      }
     }
     __syncthreads();  // the next tile overwrites the scratch
   }
@@ -155,18 +214,35 @@ __global__ void fused_mlp_reduce_kernel(const float* __restrict__ partials, int 
   out[e] = acc;
 }
 
+// the dynamic shared memory of both variants on the current device (before
+// the occupancy query and the launch)
+static cudaError_t allow_smem() {
+  cudaError_t e = cudaFuncSetAttribute(fused_mlp_bwd_kernel<true>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fused_mlp_bwd_kernel<false>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+}
+
 extern "C" int fused_mlp_bwd_blocks(int with_color) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return -1;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return -1;
+  if (allow_smem() != cudaSuccess) return -1;
   cudaError_t err = with_color
-      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_bwd_kernel<true>, NT, 0)
-      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_bwd_kernel<false>, NT, 0);
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_bwd_kernel<true>, NT,
+                                                      SMEM_BYTES)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_bwd_kernel<false>, NT,
+                                                      SMEM_BYTES);
   if (err != cudaSuccess) return -1;
   return sms * per_sm;
 }
 
 extern "C" int fused_mlp_bwd_scratch(int) { return SCRATCH_FLOATS; }
+
+// the tile size, the dynamic shared bytes of a block
+extern "C" int fused_mlp_bwd_tile(int) { return P; }
+extern "C" int fused_mlp_bwd_smem(int) { return SMEM_BYTES; }
 
 // x (n, 87), sbar (n,), ebar (n, 3), gbar (n, 63) (the last two with color);
 // w the flat weights; out: xbar (n, 87), gpe (n, 63) (with color), grads
@@ -179,15 +255,17 @@ extern "C" int fused_mlp_bwd_launch(const float* x, const float* sbar, const flo
   const int ntiles = (n + P - 1) / P;
   const int grid = blocks < ntiles ? blocks : ntiles;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return (int)err;
   if (grid > 0) {
     if (with_color) {
-      fused_mlp_bwd_kernel<true><<<grid, NT, 0, st>>>(x, sbar, ebar, gbar, w, xbar, gpe, partials,
-                                                      scratch, n);
+      fused_mlp_bwd_kernel<true><<<grid, NT, SMEM_BYTES, st>>>(x, sbar, ebar, gbar, w, xbar, gpe,
+                                                               partials, scratch, n);
     } else {
-      fused_mlp_bwd_kernel<false><<<grid, NT, 0, st>>>(x, sbar, ebar, gbar, w, xbar, gpe,
-                                                       partials, scratch, n);
+      fused_mlp_bwd_kernel<false><<<grid, NT, SMEM_BYTES, st>>>(x, sbar, ebar, gbar, w, xbar, gpe,
+                                                                partials, scratch, n);
     }
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   fused_mlp_reduce_kernel<<<(G_FLOATS + 255) / 256, 256, 0, st>>>(partials, grid > 0 ? grid : 0,

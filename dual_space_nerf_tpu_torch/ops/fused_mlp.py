@@ -27,8 +27,9 @@ Bound on the H100 (FP32, no tensor cores): operations. Per point ~0.43 M
 multiply-adds for the density-only forward, ~0.89 M with color, ~1.3 M and
 ~2.7 M for the backward; the inputs and outputs move 0.3-1 KB per point. The
 kernels keep every activation of a tile of points in the block's own scratch
-(device memory that stays mostly in L1/L2, never a whole-batch activation)
-and read the 2.1 MB of weights from L2; see the sources' headers.
+(device memory, never a whole-batch activation) and read the 2.1 MB of
+weights from L2. The backward runs its products on shared-memory slabs and
+register micro-tiles (`csrc/fused_mlp_tiled.cuh`); see the sources' headers.
 """
 
 from __future__ import annotations
@@ -90,7 +91,7 @@ BWD_KERNEL = CudaKernel(
     # x, sbar, ebar, gbar, weights, xbar, gpe, partials, grads, scratch, n,
     # with_color, blocks, stream
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    includes=("fused_mlp.cuh",),
+    includes=("fused_mlp.cuh", "fused_mlp_tiled.cuh"),
 )
 
 

@@ -7,6 +7,8 @@ with a card and no JAX:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -196,16 +198,22 @@ def _close(got, want, tol, keep=None):
     return float((got - want).abs().max()) <= tol * (float(want.abs().max()) + 1e-12)
 
 
-@pytest.mark.parametrize("n", [1, 100, 88_000])
+_TILE = 64  # the backward kernel's tile of points (`csrc/fused_mlp_tiled.cuh`: P)
+
+
+@pytest.mark.parametrize("n", [1, _TILE - 1, _TILE, _TILE + 1, 100, 100 * _TILE, 88_000])
 @pytest.mark.parametrize("with_color", [True, False])
 def test_fused_kernels_match_plain(dev, n, with_color):
     """Forward within 1e-5 and backward within 2e-5 of the reference's
-    max-abs scale (the bands of the CPU tests against the JAX package).
-    Points with a pre-activation within 1e-6 of a ReLU's kink (relative to
-    the layer's largest) may take the mask the other way in either order of
-    the sums: their mask-dependent outputs are left out and their
-    cotangents zeroed, so that they add nothing to the gradients."""
+    max-abs scale (the bands of the CPU tests against the JAX package), on
+    the backward tile's edges and on fewer tiles (100) than the persistent
+    grid has blocks. Points with a pre-activation within 1e-6 of a ReLU's
+    kink (relative to the layer's largest) may take the mask the other way
+    in either order of the sums: their mask-dependent outputs are left out
+    and their cotangents zeroed, so that they add nothing to the gradients."""
     fm, w, x, sbar, ebar, gbar = _fused_inputs(n, dev)
+    assert fm.BWD_KERNEL.extra_function("fused_mlp_bwd_tile", [ctypes.c_int])(0) == _TILE
+    assert fm._blocks(fm.BWD_KERNEL, "fused_mlp_bwd_blocks", dev, with_color) > 100
     keep = fm.kink_distances(w, x).amin(1) > 1e-6
     assert float(keep.float().mean()) > 0.8
     got = fm.fused_fwd(w, x, with_color)
@@ -227,8 +235,9 @@ def test_fused_kernels_match_plain(dev, n, with_color):
         assert _close(grads[k].reshape(v.shape), v, 2e-5), k
 
 
-def test_fused_backward_is_deterministic(dev):
-    fm, w, x, sbar, ebar, gbar = _fused_inputs(5000, dev, seed=1)
+@pytest.mark.parametrize("n", [5000, 100_003])
+def test_fused_backward_is_deterministic(dev, n):
+    fm, w, x, sbar, ebar, gbar = _fused_inputs(n, dev, seed=1)
     a = fm.fused_bwd(w, x, sbar, ebar, gbar, True)
     b = fm.fused_bwd(w, x, sbar, ebar, gbar, True)
     torch.cuda.synchronize()

@@ -82,6 +82,54 @@ def test_fill_poly_equals_cv2_on_random_polygons():
         np.testing.assert_array_equal(got, want, err_msg=str(pts.tolist()))
 
 
+def _fill_both(pts, h=64, w=64):
+    import cv2
+
+    from dual_space_nerf_tpu_torch.data.rays import fill_poly
+
+    pts = np.asarray(pts)
+    want = np.zeros((h, w), np.uint8)
+    cv2.fillPoly(want, [pts], 1)
+    got = np.zeros((h, w), np.uint8)
+    fill_poly(got, pts)
+    return got, want
+
+
+@pytest.mark.parametrize("pts,n_pixels", [
+    ([[-30, 78], [63, 45], [67, 33]], 494),  # an edge clipped to one point
+    ([[-22, -6], [72, -5], [-37, -33], [-11, -7], [3, 87], [-17, 37]], 64),
+])
+def test_fill_poly_equals_cv2_on_edges_that_leave_the_image(pts, n_pixels):
+    got, want = _fill_both(pts)
+    assert int(want.sum()) == n_pixels
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fill_poly_equals_cv2_on_off_image_polygons(seed):
+    """1,000 random polygons per seed on 64x64, vertices in [-40, 104)."""
+    rng = np.random.default_rng(seed)
+    for _ in range(1000):
+        pts = rng.integers(-40, 104, (int(rng.integers(3, 7)), 2))
+        got, want = _fill_both(pts)
+        np.testing.assert_array_equal(got, want, err_msg=str(pts.tolist()))
+
+
+@pytest.mark.parametrize("shift", [(0.6, 0.0, 0.0), (-0.5, 0.4, 0.0), (0.0, -0.7, 0.3), (0.9, 0.9, 0.0)])
+def test_bound_mask_equals_jax_on_off_image_boxes(shift):
+    """Boxes moved so that some of their projected corners leave the image."""
+    from dual_space_nerf_tpu_torch.data.rays import get_bound_corners, project
+
+    scene = make_scene(h=64, w=64)
+    pose = np.concatenate([scene.R, scene.T], axis=1)
+    bounds = scene.bounds + np.asarray(shift)[None]
+    corners = np.round(project(get_bound_corners(bounds), scene.K, pose))
+    assert ((corners < 0) | (corners >= 64)).any()
+    want = jax_bound_mask(bounds, scene.K, pose, 64, 64)
+    got = get_bound_2d_mask(bounds, scene.K, pose, 64, 64)
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.fixture(scope="module")
 def items():
     """Item 0 of the train split of both packages, same seed."""
