@@ -30,12 +30,13 @@ Phases (any failure exits non-zero, before the last line is printed):
 6. holds the fused SpaceNet kernels (forward and backward, density-only and
    with color) against their plain versions at the training step's shapes
    (352,000 and 88,000 canonical points of the train batch, and a ragged
-   count), and times kernel, plain version, the card's bound and the
-   unfused chain (SpaceNet + autograd normal, and its double backward; the
-   backward and the unfused chain in turns, median and range); reports
-   where kernel and plain version part at ReLU kinks, also for a randomly
-   initialised SpaceNet, and the backward's registers, spills, shared
-   memory, blocks per SM and share of its bound;
+   count), checks that the forward's gpe is the backward's bit for bit,
+   and times kernel, plain version, the card's bound and the unfused chain
+   (SpaceNet + autograd normal for the forward, and its double backward for
+   the backward; each kernel and its chain in turns, median and range);
+   reports where kernel and plain version part at ReLU kinks, also for a
+   randomly initialised SpaceNet, and each kernel's registers, spills,
+   shared memory, scratch, blocks per SM and share of its bound;
 7. trains: `training.make_train_step` on `bench.py`'s train workload (the
    512x512 train item, 5500 rays x 64 samples, the trained fixture, Adam at
    5e-4) on four paths, production or exact with `FUSED_MLP` on or off, from
@@ -654,8 +655,10 @@ def fused_variant(w, wflat, x, with_color: bool, gen) -> tuple[dict, tuple]:
     v["fwd_max_abs_err"], v["fwd_max_rel_err"] = max(e[0] for e in errs), max(e[1] for e in errs)
     rnd = lambda *sh: torch.randn(*sh, dtype=torch.float32, device=dev, generator=gen)
     cots = (rnd(n), rnd(n, 3), rnd(n, 63)) if with_color else (rnd(n), None, None)
-    xb, _, gr = fused_mlp.fused_bwd(w, x, *cots, with_color, wflat)
+    xb, gp, gr = fused_mlp.fused_bwd(w, x, *cots, with_color, wflat)
     xb_p, _, gr_p = fused_mlp.fused_bwd_plain(w, x, *cots, with_color)
+    if with_color and not torch.equal(got[2], gp):  # the same routines on the same rows
+        raise AssertionError("fused kernels: the forward's gpe differs from the backward's")
     v["xbar_flips"] = flip_report(xb, xb_p, BWD_TOL, kinks)
     v["grads_all_cotangents_max_rel_err"] = max(_rel_err(gr[k].reshape(t.shape), t)[1] for k, t in gr_p.items())
     kept = tuple(c * (keep if c.dim() == 1 else keep[:, None]) if c is not None else None for c in cots)
@@ -701,7 +704,6 @@ def check_fused(model, pts_c, code, pf, x_all) -> tuple[dict, dict]:
             x = x_all[:n].contiguous()
             v, (sbar, ebar, gbar) = fused_variant(w, wflat, x, with_color, gen)
             if n != FUSED_SIZES[2]:
-                v["fwd_ms"] = time_ms(lambda: fused_mlp.fused_fwd(w, x, with_color, wflat), reps=5)
                 v["fwd_plain_ms"] = time_ms(lambda: fused_mlp.fused_fwd_plain(w, x, with_color), reps=3)
                 v["bwd_plain_ms"] = time_ms(lambda: fused_mlp.fused_bwd_plain(w, x, sbar, ebar, gbar, with_color),
                                             reps=3)
@@ -709,15 +711,18 @@ def check_fused(model, pts_c, code, pf, x_all) -> tuple[dict, dict]:
                 v["bwd_bound_ms"], v["bwd_bound_by"] = fused_bound(n, with_color, True)
                 pc = pts_c[:n]
                 cots = [sbar] + ([ebar, torch.randn(n, 3, device=dev, generator=gen)] if with_color else [])
-                v["unfused_fwd_ms"] = time_ms(lambda: unfused_chain(model, pc, code, pf, with_color), reps=3)
-                # the kernel and the unfused chain in turns, in this call
-                alt = alternate_ms({
+                # each kernel and its unfused chain in turns, in this call
+                for alt in ({
+                    "fwd": lambda: fused_mlp.fused_fwd(w, x, with_color, wflat),
+                    "unfused_fwd": lambda: unfused_chain(model, pc, code, pf, with_color),
+                }, {
                     "bwd": lambda: fused_mlp.fused_bwd(w, x, sbar, ebar, gbar, with_color, wflat),
                     "unfused_fwd_bwd": lambda: unfused_chain(model, pc, code, pf, with_color, cots),
-                }, rounds=5)
-                for key, (med, spread) in alt.items():
-                    v[f"{key}_ms"], v[f"{key}_ms_range"] = med, spread
-                v["bwd_bound_share"] = v["bwd_bound_ms"] / v["bwd_ms"]
+                }):
+                    for key, (med, spread) in alternate_ms(alt, rounds=5).items():
+                        v[f"{key}_ms"], v[f"{key}_ms_range"] = med, spread
+                for tag in ("fwd", "bwd"):
+                    v[f"{tag}_bound_share"] = v[f"{tag}_bound_ms"] / v[f"{tag}_ms"]
                 v["fused_fwd_bwd_ms"] = time_ms(lambda: fused_chain(model, pc, code, pf, with_color, cots),
                                                 reps=3)
             variants.append(v)
@@ -725,17 +730,19 @@ def check_fused(model, pts_c, code, pf, x_all) -> tuple[dict, dict]:
     model.zero_grad(set_to_none=True)
     step = [v for v in variants if (v["points"], v["with_color"]) in ((352_000, False), (88_000, True))]
     exact = next(v for v in variants if (v["points"], v["with_color"]) == (352_000, True))
-    log("fused_bwd: " + json.dumps({
-        **fused_bwd_resources(),
-        "production_step": {key: sum(v[key] for v in step) for key in
-                             ("bwd_ms", "bwd_bound_ms", "unfused_fwd_bwd_ms")},
-        "exact_step": {key: exact[key] for key in ("bwd_ms", "bwd_bound_ms", "unfused_fwd_bwd_ms")},
-        "production_bound_share": sum(v["bwd_bound_ms"] for v in step) / sum(v["bwd_ms"] for v in step),
-        "exact_bound_share": exact["bwd_bound_share"],
-        "ranges_ms": {f"{v['points']} {'color' if v['with_color'] else 'density'}":
-                      {"bwd": v["bwd_ms_range"], "unfused_fwd_bwd": v["unfused_fwd_bwd_ms_range"]}
-                      for v in variants if "bwd_ms_range" in v},
-    }))
+    for kernel, tag, unfused in ((FUSED_FWD_KERNEL, "fwd", "unfused_fwd"),
+                                 (FUSED_BWD_KERNEL, "bwd", "unfused_fwd_bwd")):
+        keys = (f"{tag}_ms", f"{tag}_bound_ms", f"{unfused}_ms")
+        log(f"fused_{tag}: " + json.dumps({
+            **fused_resources(kernel),
+            "production_step": {key: sum(v[key] for v in step) for key in keys},
+            "exact_step": {key: exact[key] for key in keys},
+            "production_bound_share": sum(v[f"{tag}_bound_ms"] for v in step) / sum(v[f"{tag}_ms"] for v in step),
+            "exact_bound_share": exact[f"{tag}_bound_share"],
+            "ranges_ms": {f"{v['points']} {'color' if v['with_color'] else 'density'}":
+                          {tag: v[f"{tag}_ms_range"], unfused: v[f"{unfused}_ms_range"]}
+                          for v in variants if f"{tag}_ms_range" in v},
+        }))
     rows = {}
     for kernel, tag, replaces in ((FUSED_FWD_KERNEL, "fwd", "294"), (FUSED_BWD_KERNEL, "bwd", "311")):
         bounds = [v[f"{tag}_bound_ms"] for v in step]
@@ -756,19 +763,18 @@ def check_fused(model, pts_c, code, pf, x_all) -> tuple[dict, dict]:
     return rows["fwd"], rows["bwd"]
 
 
-def fused_bwd_resources() -> dict:
-    """The backward kernel's registers and spilled bytes (stores + loads)
-    per variant from its `ptxas -v` lines in this run's build: the kernel's
-    own, then the sum over the device functions listed after it (the
-    product routines it calls); its dynamic shared memory and resident
-    blocks per SM (the occupancy query the wrapper sizes its grid by) and
-    its tile."""
+def fused_resources(kernel) -> dict:
+    """A fused kernel's registers and spilled bytes (stores + loads) per
+    variant from its `ptxas -v` lines in this run's build: the kernel's own,
+    then the sum over the device functions listed after it (the product
+    routines it calls); its dynamic shared memory and resident blocks per SM
+    (the occupancy query the wrapper sizes its grid by), its tile and its
+    scratch per block."""
     dev = torch.device("cuda")
-    kernel = FUSED_BWD_KERNEL
     out, cur, key = {}, None, None
     for line in kernel.build_log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"fused_mlp_bwd_kernelILb([01])E", line)
+            m = re.search(rf"{kernel.name}_kernelILb([01])E", line)
             cur = ("with_color" if m[1] == "1" else "density") if m else None
             key = "kernel_spill_bytes"
         elif cur and "spill" in line:
@@ -781,12 +787,14 @@ def fused_bwd_resources() -> dict:
     if not out:
         out = {"registers": "not measured (no build in this run)"}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    query = lambda sym, color=0: kernel.extra_function(f"{kernel.name}_{sym}", [ctypes.c_int])(color)
     for label, color in (("density", False), ("with_color", True)):
-        blocks = fused_mlp._blocks(kernel, "fused_mlp_bwd_blocks", dev, color)
-        out.setdefault(label, {})["blocks_per_sm"] = blocks / sms
-    query = lambda sym: kernel.extra_function(sym, [ctypes.c_int])(0)
-    out["dynamic_smem_bytes"] = query("fused_mlp_bwd_smem")
-    out["tile_points"] = query("fused_mlp_bwd_tile")
+        blocks = fused_mlp._blocks(kernel, f"{kernel.name}_blocks", dev, color)
+        v = out.setdefault(label, {})
+        v["blocks_per_sm"] = blocks / sms
+        v["scratch_bytes_per_block"] = 4 * query("scratch", int(color))
+    out["dynamic_smem_bytes"] = query("smem")
+    out["tile_points"] = query("tile")
     return out
 
 

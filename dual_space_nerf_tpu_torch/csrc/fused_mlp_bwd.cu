@@ -33,46 +33,12 @@
 #include "fused_mlp_tiled.cuh"
 
 using namespace fmlp_tiled;
-using fmlp::O_B1;
 using fmlp::O_B10;
 using fmlp::O_B8;
-using fmlp::O_B9;
-using fmlp::O_K1;
 using fmlp::O_K10;
 using fmlp::O_K10T;
-using fmlp::O_K1T;
-using fmlp::O_K5A;
-using fmlp::O_K5AT;
-using fmlp::O_K5B;
-using fmlp::O_K5BT;
-using fmlp::O_K8;
-using fmlp::O_K9;
 using fmlp::O_K9T;
 using fmlp::G_FLOATS;
-using fmlp::k_off;
-using fmlp::kt_off;
-
-namespace {
-
-// no operand pair: a product of no rows
-__device__ __forceinline__ Src none() { return {nullptr, nullptr, 0, 0, 0}; }
-
-// a layer product's operand pair with a (K, W) weight of row stride W
-__device__ __forceinline__ Src wide(const float* in, int K, const float* M) {
-  return {in, M, K, W, W};
-}
-
-// a masked step of a chain: out = m (in M), M = K_l or its transpose
-__device__ __forceinline__ void masked(float* sm, float* out, const float* in, const float* M,
-                                       const float* mask) {
-  layer<MASK, true>(sm, out, W, wide(in, W, M), none(), nullptr, mask, nullptr, nullptr);
-}
-
-// K_l (l = 2..7, K5a for 5) and its packed transpose
-__device__ __forceinline__ int kw(int l) { return l == 5 ? O_K5A : k_off(l); }
-__device__ __forceinline__ int ktw(int l) { return l == 5 ? O_K5AT : kt_off(l); }
-
-}  // namespace
 
 // Every routine of the tiled core ends on a barrier; the barriers here order
 // the per-thread loops between them.
@@ -99,19 +65,11 @@ fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sbar
       load_rows(row(s, R_GBAR), gbar, PE, t0, n);
     }
     __syncthreads();
-    // h1..h7; the skip layer adds pe (x's first 63 rows) K5b
-    layer<BIAS | RELU, true>(sm, hrow(s, 1), W, wide(row(s, R_X), IN, w + O_K1), none(), w + O_B1,
-                             nullptr, nullptr, nullptr);
-    for (int l = 2; l <= 7; ++l)
-      layer<BIAS | RELU, true>(sm, hrow(s, l), W, wide(hrow(s, l - 1), W, w + kw(l)),
-                               l == 5 ? wide(row(s, R_X), PE, w + O_K5B) : none(),
-                               w + O_B1 + (l - 1) * W, nullptr, nullptr, nullptr);
+    backbone(sm, s, w);  // h1..h7, the forward's
 
     // ---- first order: the sigma and essence cotangents ----
     if (COLOR) {
-      // e1 = relu(h7 K9 + b9); K9 sits at an odd offset: 4-byte copies
-      layer<BIAS | RELU, false, E>(sm, row(s, R_E1), E, {hrow(s, 7), w + O_K9, W, E, E}, none(),
-                                   w + O_B9, nullptr, nullptr, nullptr);
+      essence_hidden(sm, s, w);  // e1 = relu(h7 K9 + b9), the forward's
       // the narrow essence head, per thread: de1 = (ebar K10^T) * (z9 > 0),
       // and z9 > 0 exactly where e1 > 0
       for (int i = threadIdx.x; i < E * P; i += NT) {
@@ -160,14 +118,7 @@ fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sbar
     float* gb = row(s, R_GB);
     float* gb_next = row(s, R_GB + W);
     if (COLOR) {
-      for (int i = threadIdx.x; i < W * P; i += NT)
-        urow(s, 7)[i] = hrow(s, 7)[i] > 0.f ? __ldg(w + O_K8 + i / P) : 0.f;
-      __syncthreads();
-      for (int l = 7; l >= 2; --l) masked(sm, urow(s, l - 1), urow(s, l), w + ktw(l), hrow(s, l - 1));
-      // gpe = (u1 K1^T)[:, :63] + u5 K5b^T
-      layer<0, false, 128>(sm, row(s, R_OUT2), PE, {urow(s, 1), w + O_K1T, W, IN, PE},
-                           {urow(s, 5), w + O_K5BT, W, PE, PE}, nullptr, nullptr, nullptr,
-                           nullptr);
+      g_chain(sm, s, w);  // u7..u1 and gpe, the forward's
       store_rows(gpe, row(s, R_OUT2), PE, t0, n);
       layer<MASK, true>(sm, gb, W, wide(row(s, R_GBAR), PE, w + O_K1), none(), nullptr,
                         hrow(s, 1), nullptr, nullptr);

@@ -3,65 +3,101 @@
 //
 // Replaces the TPU kernel dual_space_nerf_tpu/ops/fused_mlp.py:_fwd_kernel
 // (pallas_call at :461). The math and the plain version are in
-// ops/fused_mlp.py; the building blocks and the design in fused_mlp.cuh.
+// ops/fused_mlp.py. The products run on the tiled core of
+// fused_mlp_tiled.cuh, through the backbone, essence_hidden and g_chain
+// routines that fused_mlp_bwd.cu also runs: the gpe of this kernel is the
+// backward's recomputed gpe, bit for bit.
 //
 // Bound on the H100: FP32 operations, ~0.43 M multiply-adds per point for
 // sigma alone and ~0.89 M with color, against 0.35-0.6 KB of inputs and
-// outputs per point. What the design does about it: the whole chain runs on
-// one tile of 32 points per block without a round trip of an activation to
-// device memory; each weight is read once per tile from L2 and used for 32
-// points from registers. The TPU kernel's 128-lane pads (k8, k10, b8, b10 and
-// the 128-wide gpe) do not exist here.
-#include "fused_mlp.cuh"
+// outputs per point. What the design does about it: every product is a
+// layer product of the tiled core (shared-memory slabs, 8 x 8 register
+// micro-tiles, 64-point tiles); no activation of a whole batch goes to
+// device memory, only the tile's rows in the block's scratch, laid out as
+// the backward's. The heads too narrow for a micro-tile (sigma: one output, the essence: three)
+// are per-thread dot products, one owner thread per output. The TPU
+// kernel's 128-lane pads (k8, k10, b8, b10 and the 128-wide gpe) do not
+// exist here.
+#include "fused_mlp_tiled.cuh"
 
-using namespace fmlp;
+using namespace fmlp_tiled;
+using fmlp::O_B10;
+using fmlp::O_B8;
+using fmlp::O_K10;
 
+static_assert(NT == 4 * P, "one owner thread per head output: sigma and three essence rows");
+
+// Every routine of the tiled core ends on a barrier; the barriers here order
+// the per-thread loops between them.
 template <bool COLOR>
 __global__ void __launch_bounds__(NT, 2)
 fused_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      float* __restrict__ sigma, float* __restrict__ essence,
                      float* __restrict__ gpe, float* __restrict__ scratch, int n) {
+  extern __shared__ __align__(16) float sm[];
   float* s = scratch + (size_t)blockIdx.x * SCRATCH_FLOATS;
   const int ntiles = (n + P - 1) / P;
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const int t0 = t * P;
     load_rows(row(s, R_X), x, IN, t0, n);
     __syncthreads();
-    backbone(s, w);
-    // sigma = h7 . k8 + b8 (one output row)
-    layer<BIAS>(row(s, R_OUT), 1, hrow(s, 7), W, w + O_K8, 1, nullptr, 0, nullptr, 0, 0,
-                w + O_B8, nullptr, nullptr, nullptr);
-    if (COLOR) {
-      layer<BIAS | RELU>(row(s, R_E1), E, hrow(s, 7), W, w + O_K9, E, nullptr, 0, nullptr, 0, 0,
-                         w + O_B9, nullptr, nullptr, nullptr);
+    backbone(sm, s, w);
+    if (COLOR) essence_hidden(sm, s, w);
+    // the heads, one owner thread per output: threads 0..63 sigma = h7 . k8
+    // + b8 of their point, with color threads 64..255 the essence e1 K10 +
+    // b10, output (i - 64) / 64 of point i % 64
+    if (threadIdx.x < P) {
+      const float* h7 = hrow(s, 7);
+      const int p = threadIdx.x;
+      float z = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < W; ++k) z = fmaf(h7[k * P + p], __ldg(w + O_K8 + k), z);
+      if (t0 + p < n) sigma[t0 + p] = z + __ldg(w + O_B8);
+    } else if (COLOR) {
+      const int j = threadIdx.x / P - 1, p = threadIdx.x % P;
+      const float* e1 = row(s, R_E1);
+      float z = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < E; ++k) z = fmaf(e1[k * P + p], __ldg(w + O_K10 + k * 3 + j), z);
+      if (t0 + p < n) essence[(size_t)(t0 + p) * 3 + j] = z + __ldg(w + O_B10 + j);
     }
-    __syncthreads();
-    store_rows(sigma, row(s, R_OUT), 1, t0, n);
     if (COLOR) {
-      layer<BIAS>(row(s, R_OUT2), 3, row(s, R_E1), E, w + O_K10, 3, nullptr, 0, nullptr, 0, 0,
-                  w + O_B10, nullptr, nullptr, nullptr);
-      __syncthreads();
-      store_rows(essence, row(s, R_OUT2), 3, t0, n);
-      __syncthreads();
-      g_recursion(s, w, row(s, R_OUT2));
+      g_chain(sm, s, w);  // reads h1..h7, writes only the u and gpe rows
       store_rows(gpe, row(s, R_OUT2), PE, t0, n);
     }
     __syncthreads();  // the next tile overwrites the scratch
   }
 }
 
+// the dynamic shared memory of both variants on the current device (before
+// the occupancy query and the launch)
+static cudaError_t allow_smem() {
+  cudaError_t e = cudaFuncSetAttribute(fused_mlp_fwd_kernel<true>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fused_mlp_fwd_kernel<false>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+}
+
 extern "C" int fused_mlp_fwd_blocks(int with_color) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return -1;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return -1;
+  if (allow_smem() != cudaSuccess) return -1;
   cudaError_t err = with_color
-      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_fwd_kernel<true>, NT, 0)
-      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_fwd_kernel<false>, NT, 0);
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_fwd_kernel<true>, NT,
+                                                      SMEM_BYTES)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_fwd_kernel<false>, NT,
+                                                      SMEM_BYTES);
   if (err != cudaSuccess) return -1;
   return sms * per_sm;
 }
 
 extern "C" int fused_mlp_fwd_scratch(int) { return SCRATCH_FLOATS; }
+
+// the tile size, the dynamic shared bytes of a block
+extern "C" int fused_mlp_fwd_tile(int) { return P; }
+extern "C" int fused_mlp_fwd_smem(int) { return SMEM_BYTES; }
 
 // x (n, 87), w the flat weights; sigma (n,), essence (n, 3), gpe (n, 63)
 // (the last two only with color); scratch: blocks * SCRATCH_FLOATS floats.
@@ -72,10 +108,12 @@ extern "C" int fused_mlp_fwd_launch(const float* x, const float* w, float* sigma
   const int grid = blocks < ntiles ? blocks : ntiles;
   if (grid <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return (int)err;
   if (with_color) {
-    fused_mlp_fwd_kernel<true><<<grid, NT, 0, st>>>(x, w, sigma, essence, gpe, scratch, n);
+    fused_mlp_fwd_kernel<true><<<grid, NT, SMEM_BYTES, st>>>(x, w, sigma, essence, gpe, scratch, n);
   } else {
-    fused_mlp_fwd_kernel<false><<<grid, NT, 0, st>>>(x, w, sigma, essence, gpe, scratch, n);
+    fused_mlp_fwd_kernel<false><<<grid, NT, SMEM_BYTES, st>>>(x, w, sigma, essence, gpe, scratch, n);
   }
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,8 @@
 // The fused SpaceNet chain's tiled product core: shared-memory operand slabs
-// and register micro-tiles, FP32 on the CUDA cores. fused_mlp_bwd.cu runs on
-// it; the weight layout and the widths are fused_mlp.cuh's.
+// and register micro-tiles, FP32 on the CUDA cores. fused_mlp_fwd.cu and
+// fused_mlp_bwd.cu run on it, through the same backbone, e1 and g-chain
+// routines (end of this file); the weight layout and the widths are
+// fused_mlp.cuh's.
 //
 // Design:
 // - A persistent grid of 256-thread blocks, two per SM; block b takes the
@@ -34,8 +36,9 @@
 //   launch bounds to itself (inlined into the kernel, the 64 accumulators
 //   and the kernel's own state spilled).
 // - Every sum runs over k (or p) in increasing order with one fmaf per term,
-//   the order of fused_mlp.cuh's core. Rows past K, columns past J and
-//   points past n come in as zeros and add exactly nothing.
+//   then the bias; the kernels' per-thread heads keep the same order. Rows
+//   past K, columns past J and points past n come in as zeros and add
+//   exactly nothing.
 #pragma once
 
 #include "fused_mlp.cuh"
@@ -46,6 +49,18 @@ using fmlp::E;
 using fmlp::IN;
 using fmlp::PE;
 using fmlp::W;
+using fmlp::O_B1;
+using fmlp::O_K1;
+using fmlp::O_K1T;
+using fmlp::O_K5A;
+using fmlp::O_K5AT;
+using fmlp::O_K5B;
+using fmlp::O_K5BT;
+using fmlp::O_K8;
+using fmlp::O_K9;
+using fmlp::O_B9;
+using fmlp::k_off;
+using fmlp::kt_off;
 
 constexpr int P = 64;          // points per tile
 constexpr int NT = 256;        // threads per block: 8 warps x 8 points
@@ -403,6 +418,57 @@ __device__ __noinline__ void wgrad(float* sm, float* G, int K, int J, const floa
       gbias[j] += s;
     }
   }
+}
+
+// ---- the chain's routines, shared by both kernels ----------------------------
+// no operand pair: a product of no rows
+__device__ __forceinline__ Src none() { return {nullptr, nullptr, 0, 0, 0}; }
+
+// a layer product's operand pair with a (K, W) weight of row stride W
+__device__ __forceinline__ Src wide(const float* in, int K, const float* M) {
+  return {in, M, K, W, W};
+}
+
+// a masked step of a chain: out = m (in M), M = K_l or its transpose
+__device__ __forceinline__ void masked(float* sm, float* out, const float* in, const float* M,
+                                       const float* mask) {
+  layer<MASK, true>(sm, out, W, wide(in, W, M), none(), nullptr, mask, nullptr, nullptr);
+}
+
+// K_l (l = 2..7, K5a for 5) and its packed transpose
+__device__ __forceinline__ int kw(int l) { return l == 5 ? O_K5A : k_off(l); }
+__device__ __forceinline__ int ktw(int l) { return l == 5 ? O_K5AT : kt_off(l); }
+
+// h1..h7 of the tile into the R_H rows, from x in the R_X rows; the skip
+// layer adds pe (x's first 63 rows) K5b. Ends on a barrier.
+__device__ __forceinline__ void backbone(float* sm, float* s, const float* __restrict__ w) {
+  layer<BIAS | RELU, true>(sm, hrow(s, 1), W, wide(row(s, R_X), IN, w + O_K1), none(), w + O_B1,
+                           nullptr, nullptr, nullptr);
+  for (int l = 2; l <= 7; ++l)
+    layer<BIAS | RELU, true>(sm, hrow(s, l), W, wide(hrow(s, l - 1), W, w + kw(l)),
+                             l == 5 ? wide(row(s, R_X), PE, w + O_K5B) : none(),
+                             w + O_B1 + (l - 1) * W, nullptr, nullptr, nullptr);
+}
+
+// e1 = relu(h7 K9 + b9) into the R_E1 rows, from all seven h rows (h7 the
+// last); K9 sits at an odd offset: 4-byte copies. Ends on a barrier.
+__device__ __forceinline__ void essence_hidden(float* sm, float* s, const float* __restrict__ w) {
+  layer<BIAS | RELU, false, E>(sm, row(s, R_E1), E, {hrow(s, 7), w + O_K9, W, E, E}, none(),
+                               w + O_B9, nullptr, nullptr, nullptr);
+}
+
+// the g-recursion u7..u1 (the R_U rows; u7 = m7 k8, then one masked
+// product per layer with K7^T..K2^T, K5a^T for u4) and gpe = (u1
+// K1^T)[:, :63] + u5 K5b^T into the R_OUT2 rows, from all seven h rows.
+// The packed transposes' rows are 87 and 63 floats: 4-byte copies. Ends on
+// a barrier.
+__device__ __forceinline__ void g_chain(float* sm, float* s, const float* __restrict__ w) {
+  for (int i = threadIdx.x; i < W * P; i += NT)
+    urow(s, 7)[i] = hrow(s, 7)[i] > 0.f ? __ldg(w + O_K8 + i / P) : 0.f;
+  __syncthreads();
+  for (int l = 7; l >= 2; --l) masked(sm, urow(s, l - 1), urow(s, l), w + ktw(l), hrow(s, l - 1));
+  layer<0, false, 128>(sm, row(s, R_OUT2), PE, {urow(s, 1), w + O_K1T, W, IN, PE},
+                       {urow(s, 5), w + O_K5BT, W, PE, PE}, nullptr, nullptr, nullptr, nullptr);
 }
 
 }  // namespace fmlp_tiled

@@ -28,8 +28,10 @@ multiply-adds for the density-only forward, ~0.89 M with color, ~1.3 M and
 ~2.7 M for the backward; the inputs and outputs move 0.3-1 KB per point. The
 kernels keep every activation of a tile of points in the block's own scratch
 (device memory, never a whole-batch activation) and read the 2.1 MB of
-weights from L2. The backward runs its products on shared-memory slabs and
-register micro-tiles (`csrc/fused_mlp_tiled.cuh`); see the sources' headers.
+weights from L2. Both run their products on one tiled core,
+`csrc/fused_mlp_tiled.cuh` (shared-memory slabs, register micro-tiles), and
+share its backbone and g-recursion routines, so the forward's gpe is the
+backward's recomputed gpe bit for bit; see the sources' headers.
 """
 
 from __future__ import annotations
@@ -84,7 +86,7 @@ FWD_KERNEL = CudaKernel(
     "fused_mlp_fwd.cu", "fused_mlp_fwd_launch",
     # x, weights, sigma, essence, gpe, scratch, n, with_color, blocks, stream
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    includes=("fused_mlp.cuh",),
+    includes=("fused_mlp.cuh", "fused_mlp_tiled.cuh"),
 )
 BWD_KERNEL = CudaKernel(
     "fused_mlp_bwd.cu", "fused_mlp_bwd_launch",

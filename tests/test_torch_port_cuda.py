@@ -198,7 +198,7 @@ def _close(got, want, tol, keep=None):
     return float((got - want).abs().max()) <= tol * (float(want.abs().max()) + 1e-12)
 
 
-_TILE = 64  # the backward kernel's tile of points (`csrc/fused_mlp_tiled.cuh`: P)
+_TILE = 64  # both fused kernels' tile of points (`csrc/fused_mlp_tiled.cuh`: P)
 
 
 @pytest.mark.parametrize("n", [1, _TILE - 1, _TILE, _TILE + 1, 100, 100 * _TILE, 88_000])
@@ -206,13 +206,14 @@ _TILE = 64  # the backward kernel's tile of points (`csrc/fused_mlp_tiled.cuh`: 
 def test_fused_kernels_match_plain(dev, n, with_color):
     """Forward within 1e-5 and backward within 2e-5 of the reference's
     max-abs scale (the bands of the CPU tests against the JAX package), on
-    the backward tile's edges and on fewer tiles (100) than the persistent
+    the kernels' tile edges and on fewer tiles (100) than the persistent
     grid has blocks. Points with a pre-activation within 1e-6 of a ReLU's
     kink (relative to the layer's largest) may take the mask the other way
     in either order of the sums: their mask-dependent outputs are left out
     and their cotangents zeroed, so that they add nothing to the gradients."""
     fm, w, x, sbar, ebar, gbar = _fused_inputs(n, dev)
     assert fm.BWD_KERNEL.extra_function("fused_mlp_bwd_tile", [ctypes.c_int])(0) == _TILE
+    assert fm.FWD_KERNEL.extra_function("fused_mlp_fwd_tile", [ctypes.c_int])(0) == _TILE
     assert fm._blocks(fm.BWD_KERNEL, "fused_mlp_bwd_blocks", dev, with_color) > 100
     keep = fm.kink_distances(w, x).amin(1) > 1e-6
     assert float(keep.float().mean()) > 0.8
@@ -243,3 +244,24 @@ def test_fused_backward_is_deterministic(dev, n):
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0])
     assert all(torch.equal(a[2][k], b[2][k]) for k in a[2])
+
+
+@pytest.mark.parametrize("n", [5000, 100_003])
+@pytest.mark.parametrize("with_color", [True, False])
+def test_fused_forward_is_deterministic(dev, n, with_color):
+    fm, w, x, *_ = _fused_inputs(n, dev, seed=1)
+    a = fm.fused_fwd(w, x, with_color)
+    b = fm.fused_fwd(w, x, with_color)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, b) if u is not None)
+
+
+@pytest.mark.parametrize("n", [5000, 100_003])
+def test_fused_forward_gpe_is_the_backwards(dev, n):
+    """Both kernels compute gpe with the same routines of the tiled core on
+    the same rows: the same bits at every point, kinks included."""
+    fm, w, x, sbar, ebar, gbar = _fused_inputs(n, dev, seed=2)
+    _, _, gpe_f = fm.fused_fwd(w, x, True)
+    _, gpe_b, _ = fm.fused_bwd(w, x, sbar, ebar, gbar, True)
+    torch.cuda.synchronize()
+    assert torch.equal(gpe_f, gpe_b)
