@@ -14,7 +14,11 @@ Phases (any failure exits non-zero, before the last line is printed):
    plain version, the card's bound and, where one PyTorch call computes the
    same function, that call. The three tile-pruned searches are also held
    against the brute-force kernel, with the visit plan (a kernel of its own,
-   held against the plan in plain torch ops bit for bit) timed apart;
+   held against the plan in plain torch ops bit for bit) timed apart. The
+   brute-force search is also held and timed at the training step's 352,000
+   world points; it and the listed searches report their issue floor (9
+   single FP32 instructions per pair, `issue_floor_ms`) and their
+   registers, spills, shared memory and blocks per SM (`search_resources`);
 4. renders the full 512x512 val image of the synthetic SMPL-sized scene with
    the trained fixture through `ImageRenderer.render_item` (the port's eval
    entry point) on two paths: (a) exact full shading with the brute-force
@@ -101,6 +105,7 @@ from dual_space_nerf_tpu_torch.ops import (
 )
 from dual_space_nerf_tpu_torch.ops import fused_mlp, posenc, pruned_knn
 from dual_space_nerf_tpu_torch.ops.cuda_build import build_all
+from dual_space_nerf_tpu_torch.ops.nearest_face import kernel_splits
 from dual_space_nerf_tpu_torch.renderer import (
     LightState,
     RenderSettings,
@@ -115,6 +120,9 @@ from dual_space_nerf_tpu_torch.training import create_train_state, draw_randoms,
 # outside the tensor cores, an FMA counted as two operations
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+# single FP32 instructions issued per second: 132 SMs x 128 lanes x 1.98 GHz
+# (67 TFLOP/s counts an FMA as two operations)
+PEAK_FP32_INSTR_PER_S = 33.5e12
 H = W = 512
 N_TIMED_RENDERS = 3
 PAIR_OPS = 9.0  # 3 sub, 3 mul, 2 add, 1 compare per point-centroid pair
@@ -176,6 +184,12 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def issue_floor_ms(pairs: float) -> float:
+    """The searches' floor: PAIR_OPS single FP32 instructions per pair,
+    none of which may fuse into an FMA (the tie rule)."""
+    return PAIR_OPS * pairs / PEAK_FP32_INSTR_PER_S * 1e3
+
+
 def gg_inside_pairs(ray_o, ray_d, verts, gamma) -> int:
     """(ray, vertex) pairs inside a sphere on these inputs: the only pairs
     that run the kernel's sqrt branch."""
@@ -230,11 +244,16 @@ def random_cloud(n: int, cents: torch.Tensor) -> torch.Tensor:
     return lo + (hi - lo) * torch.rand(n, 3, dtype=torch.float32, device=cents.device, generator=g)
 
 
-def check_nearest_face(pts_path, cents) -> dict:
+def check_nearest_face(pts_path, cents, pts_step, cents_step) -> dict:
+    """The brute-force kernel against its plain version, id for id, on the
+    render chunk's world points, a random cloud of as many and the training
+    step's world points; timed on each, with its bound, its issue floor and
+    its resources."""
     worst, mism = 0, 0
-    for pts in (pts_path, random_cloud(pts_path.shape[0], cents)):
-        ids_k = nearest_face_cuda(pts, cents)
-        ids_p = nearest_face_plain(pts, cents)
+    cloud = random_cloud(pts_path.shape[0], cents)
+    for pts, c in ((pts_path, cents), (cloud, cents), (pts_step, cents_step)):
+        ids_k = nearest_face_cuda(pts, c)
+        ids_p = nearest_face_plain(pts, c)
         torch.cuda.synchronize()
         mism += int((ids_k != ids_p).sum())
         worst = max(worst, int((ids_k.long() - ids_p.long()).abs().max()))
@@ -243,16 +262,24 @@ def check_nearest_face(pts_path, cents) -> dict:
     n, f = pts_path.shape[0], cents.shape[0]
     n_bytes = 4.0 * (n * 3 + f * 3 + n)
     b, by = bound_ms(n_bytes, PAIR_OPS * n * f)
+    ns, fs = pts_step.shape[0], cents_step.shape[0]
     return {
         "name": "nearest_face", "route": "cuda",
         "source": "dual_space_nerf_tpu_torch/csrc/nearest_face.cu",
         "replaces": "dual_space_nerf_tpu/ops/nearest_face.py:66",
         "max_abs_err": float(worst), "mismatches": mism,
         "ms": time_ms(lambda: nearest_face_cuda(pts_path, cents), reps=10),
+        "cloud_ms": time_ms(lambda: nearest_face_cuda(cloud, cents), reps=10),
+        "step_ms": time_ms(lambda: nearest_face_cuda(pts_step, cents_step), reps=10),
         "plain_ms": time_ms(lambda: nearest_face_plain(pts_path, cents), reps=3),
         "bound_ms": b, "bound_by": by,
+        "issue_floor_ms": issue_floor_ms(n * f),
+        "step_bound_ms": bound_ms(4.0 * (ns * 4 + fs * 3), PAIR_OPS * ns * fs)[0],
+        "step_issue_floor_ms": issue_floor_ms(ns * fs),
+        "step_splits": kernel_splits(ns, fs),
         "library_ms": time_ms(lambda: cdist_argmin(pts_path, cents), reps=3),
-        "shape": {"points": n, "centroids": f},
+        "resources": search_resources(NEAREST_KERNEL),
+        "shape": {"points": n, "centroids": f, "step_points": ns},
     }
 
 
@@ -334,12 +361,17 @@ def check_listed(kernel, slim: bool, pts_path, cloud, cents, mesh, brute_ids, li
     n_bytes = 4.0 * (n * 3 + n + cent_t.numel() + order.numel() + lbs.numel() + counts.numel())
     b, by = bound_ms(n_bytes, PAIR_OPS * pairs)
     search = lambda: pruned_knn.listed_search(pts, cent_t, order, counts, lbs, plan_p, slim, False)
+    c_plan = pruned_knn.listed_plan(cloud, tile_c, tile_r, n_tiles, plan_p)
+    c_pairs = float(c_plan[1].sum()) * plan_p * 128
     return {
         "name": name, "route": "cuda",
         "source": f"dual_space_nerf_tpu_torch/csrc/{kernel.source}",
         "replaces": "dual_space_nerf_tpu/ops/pruned_knn.py:" + ("473" if slim else "539"),
         "max_abs_err": 0.0, "mismatches": mism, "near_ties_vs_brute_force": ties,
         "ms": time_ms(search, reps=10),
+        "cloud_ms": time_ms(lambda: pruned_knn.listed_search(cloud, cent_t, *c_plan, plan_p, slim, False), reps=5),
+        "tighten_ms": None if slim else time_ms(
+            lambda: pruned_knn.listed_search(pts, cent_t, order, counts, lbs, plan_p, False, True), reps=10),
         "plan_ms": time_ms(lambda: pruned_knn.listed_plan(pts, tile_c, tile_r, n_tiles, plan_p), reps=5),
         "plan_plain_ms": time_ms(lambda: pruned_knn.listed_plan_plain(pts, tile_c, tile_r, n_tiles, plan_p), reps=3),
         "search_ms": time_ms(lambda: pruned_search_listed(
@@ -347,7 +379,10 @@ def check_listed(kernel, slim: bool, pts_path, cloud, cents, mesh, brute_ids, li
         "plain_ms": time_ms(lambda: pruned_knn.listed_search_plain(
             pts, cent_t, order, counts, lbs, plan_p, slim, False), reps=1, warmup=0),
         "bound_ms": b, "bound_by": by, "library_ms": library_ms, "brute_force_ms": brute_ms,
-        "shape": {"points": n, "tiles": n_tiles, "plan_p": plan_p, "pairs": pairs, **stats},
+        "issue_floor_ms": issue_floor_ms(pairs), "cloud_issue_floor_ms": issue_floor_ms(c_pairs),
+        "resources": search_resources(kernel, row_stride=n_tiles),
+        "shape": {"points": n, "tiles": n_tiles, "plan_p": plan_p, "pairs": pairs,
+                  "cloud_pairs": c_pairs, **stats},
     }
 
 
@@ -437,7 +472,7 @@ def profile_device(fn) -> dict:
             k = "nearest_face kernel"
         elif "listed_plan" in name:
             k = "listed plan kernel"
-        elif "listed_kernel" in name or "pruned_kernel" in name:
+        elif "listed" in name or "pruned_kernel" in name:  # with the listed row order
             k = "tile-pruned search kernel"
         elif "fused_mlp" in name:
             k = "fused SpaceNet kernels"
@@ -556,17 +591,24 @@ def fused_bound(n: int, with_color: bool, backward: bool) -> tuple[float, str]:
     return bound_ms(n_bytes, 2.0 * fused_macs(with_color, backward) * n)
 
 
-def fused_check_inputs(model, batch, mesh, settings):
-    """352,000 canonical points of the train batch, formed by the pipeline's
-    own steps (GG and jittered z, the world search and the warp), and their
-    kernel input x = [pe | code | pose]."""
+def train_world_points(batch, mesh, settings) -> torch.Tensor:
+    """The 352,000 world points of the train batch (5500 rays x 64 samples),
+    formed by the pipeline's own steps: GG and jittered z."""
     dev = torch.device("cuda")
     with torch.no_grad():
         rays = batch.rays
         gen = torch.Generator(device=dev).manual_seed(7)
         u, _ = draw_randoms(rays.ray_o.shape[0], settings.n_samples, gen, dev)
         z = sample_z(rays, mesh, settings, u)
-        pts_w = sample_along_rays(rays.ray_o, rays.ray_d, z).reshape(-1, 3).contiguous()
+        return sample_along_rays(rays.ray_o, rays.ray_d, z).reshape(-1, 3).contiguous()
+
+
+def fused_check_inputs(model, batch, mesh, settings, pts_w):
+    """352,000 canonical points of the train batch (`train_world_points`
+    through the world search and the warp), and their kernel input
+    x = [pe | code | pose]."""
+    with torch.no_grad():
+        rays = batch.rays
         pts_c, _, _ = warp_world_to_canonical(pts_w, mesh, face_centroids(mesh.verts_world, mesh.faces),
                                               settings)
         code, pf = model.frame_code(rays.frame), model.pose_feature(rays.body_pose)
@@ -763,34 +805,76 @@ def check_fused(model, pts_c, code, pf, x_all) -> tuple[dict, dict]:
     return rows["fwd"], rows["bwd"]
 
 
-def fused_resources(kernel) -> dict:
-    """A fused kernel's registers and spilled bytes (stores + loads) per
-    variant from its `ptxas -v` lines in this run's build: the kernel's own,
-    then the sum over the device functions listed after it (the product
-    routines it calls); its dynamic shared memory and resident blocks per SM
-    (the occupancy query the wrapper sizes its grid by), its tile and its
-    scratch per block."""
-    dev = torch.device("cuda")
+def ptxas_entries(kernel) -> dict:
+    """Per entry function of a kernel's library, from its `ptxas -v` lines
+    in this run's build: registers, static shared memory, and spilled bytes
+    (stores + loads) in the entry itself and summed over the device
+    functions listed after it (routines it calls out of line)."""
     out, cur, key = {}, None, None
     for line in kernel.build_log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(rf"{kernel.name}_kernelILb([01])E", line)
-            cur = ("with_color" if m[1] == "1" else "density") if m else None
+            cur = re.search(r"'([^']+)'", line)[1]
+            out[cur] = {"registers": None, "static_smem_bytes": 0,
+                        "kernel_spill_bytes": 0, "functions_spill_bytes": 0}
             key = "kernel_spill_bytes"
         elif cur and "spill" in line:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            v = out.setdefault(cur, {})
-            v[key] = v.get(key, 0) + int(m[1]) + int(m[2])
+            out[cur][key] += int(m[1]) + int(m[2])
         elif cur and "Used" in line:
-            out.setdefault(cur, {})["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+            out[cur]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            out[cur]["static_smem_bytes"] = int(m[1]) if m else 0
             key = "functions_spill_bytes"
-    if not out:
-        out = {"registers": "not measured (no build in this run)"}
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return out
+
+
+def entry_resources(kernel, pattern: str) -> dict:
+    """`ptxas_entries` of the one entry whose name matches ``pattern``."""
+    found = [v for name, v in ptxas_entries(kernel).items() if re.search(pattern, name)]
+    return dict(found[0]) if found else {"registers": "not measured (no build in this run)"}
+
+
+def search_resources(kernel, row_stride: int = 0) -> dict:
+    """A search kernel's resources per variant: `entry_resources`, the
+    dynamic shared memory of a block and the resident blocks per SM (the
+    occupancy query of the library), and the kernel's points per block."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    q = lambda sym, *args: kernel.extra_function(f"{kernel.name}_{sym}", [ctypes.c_int] * len(args))(*args)
+    out = {}
+    if kernel is NEAREST_KERNEL:
+        for label, split in (("whole", 0), ("split", 1)):
+            v = entry_resources(kernel, rf"nearest_face_kernelILb{split}E")
+            v["dynamic_smem_bytes"] = 0
+            v["blocks_per_sm"] = q("blocks_per_sm", split)
+            out[label] = v
+        out["block_points"] = q("block_points", 0)
+    else:
+        wide = kernel is LISTED_KERNEL
+        for label, tighten in ((("wide", 0), ("tighten", 1)) if wide else (("slim", 0),)):
+            v = entry_resources(kernel, rf"listed_kernelILb{int(wide)}ELb{tighten}E")
+            v["dynamic_smem_bytes"] = q("smem", row_stride, tighten)
+            v["blocks_per_sm"] = q("blocks_per_sm", row_stride, tighten)
+            out[label] = v
+        out["block_points"] = pruned_knn.LISTED_BLOCK_P
+    out["sms"] = sms
+    return out
+
+
+def fused_resources(kernel) -> dict:
+    """A fused kernel's registers and spilled bytes (stores + loads) per
+    variant (`entry_resources`); its dynamic shared memory and resident
+    blocks per SM (the occupancy query the wrapper sizes its grid by), its
+    tile and its scratch per block."""
+    dev = torch.device("cuda")
+    out = {}
+    for label, color in (("density", 0), ("with_color", 1)):
+        v = entry_resources(kernel, rf"{kernel.name}_kernelILb{color}E")
+        out[label] = {k: v[k] for k in ("registers", "kernel_spill_bytes", "functions_spill_bytes") if k in v}
     query = lambda sym, color=0: kernel.extra_function(f"{kernel.name}_{sym}", [ctypes.c_int])(color)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, color in (("density", False), ("with_color", True)):
         blocks = fused_mlp._blocks(kernel, f"{kernel.name}_blocks", dev, color)
-        v = out.setdefault(label, {})
+        v = out[label]
         v["blocks_per_sm"] = blocks / sms
         v["scratch_bytes_per_block"] = 4 * query("scratch", int(color))
     out["dynamic_smem_bytes"] = query("smem")
@@ -906,6 +990,12 @@ def main() -> int:
     n_chunks = -(-n_rays // cfg.TEST.RAY_CHUNK)
     mesh = item_to_mesh(item, ds.faces, ds.canonical_vertex, dev)
     rays0, _ = next(iter_ray_chunks(item, cfg.TEST.RAY_CHUNK, dev))
+    # the train item of phases 6-7; its world points feed phase 3 too
+    tds = SyntheticDataset(split="train", nrays=TRAIN_RAYS, n_frames=1, n_views=1, h=H, w=W)
+    titem = tds[0]
+    tbatch = item_to_train_batch(titem, TRAIN_RAYS, dev)
+    tmesh = item_to_mesh(titem, tds.faces, tds.canonical_vertex, dev)
+    tpts_w = train_world_points(tbatch, tmesh, settings)
 
     # ---- 3. kernels against their plain versions, main-path shapes ------
     kernels = [check_gg(rays0, mesh, settings.gg_gamma)]
@@ -915,7 +1005,8 @@ def main() -> int:
     pts_rs = sample_along_rays(rays0.ray_o, rays0.ray_d, z)          # (R, S, 3)
     pts_w = pts_rs.reshape(-1, 3).contiguous()
     cents_w = face_centroids(mesh.verts_world, mesh.faces).contiguous()
-    kernels.append(check_nearest_face(pts_w, cents_w))
+    kernels.append(check_nearest_face(pts_w, cents_w, tpts_w,
+                                      face_centroids(tmesh.verts_world, tmesh.faces).contiguous()))
     # the tile-pruned searches take the render's block-coherent layout
     to_blocked, _ = _block_layout(*z.shape, settings.block_sc)
     pts_blocked = to_blocked(pts_rs).contiguous()
@@ -929,6 +1020,13 @@ def main() -> int:
     kernels.append(check_pruned(pts_blocked, cloud, cents_w, mesh, brute_ids, lib_ms, brute_ms))
     for k in kernels:
         log("kernel: " + json.dumps({key: k[key] for key in k if key not in ("route", "source", "replaces")}))
+    for k in kernels:  # the brute-force and listed searches: time against floor, resources
+        if "issue_floor_ms" not in k:
+            continue
+        log(f"search {k['name']}: " + json.dumps({
+            "ms": k["ms"], "issue_floor_ms": k["issue_floor_ms"], "bound_ms": k["bound_ms"],
+            "issue_floor_share": k["issue_floor_ms"] / k["ms"], "bound_share": k["bound_ms"] / k["ms"],
+            "resources": k["resources"]}))
     log("sweep: " + json.dumps(sweep_granularity(pts_blocked, cents_w, mesh)))
     log("tables: " + json.dumps({
         "listed_tables_ms": time_ms(lambda: listed_tables(cents_w, mesh.tile_table), reps=10),
@@ -969,12 +1067,8 @@ def main() -> int:
         del os.environ["DSNERF_KNN_SLIM"]
 
     # ---- 6. the fused SpaceNet kernels at the training step's shapes ------
-    tds = SyntheticDataset(split="train", nrays=TRAIN_RAYS, n_frames=1, n_views=1, h=H, w=W)
-    titem = tds[0]
-    tbatch = item_to_train_batch(titem, TRAIN_RAYS, dev)
-    tmesh = item_to_mesh(titem, tds.faces, tds.canonical_vertex, dev)
     fmodel = trained_model(cfg.MODEL.MAX_FRAMES).to(dev)
-    pts_c, fcode, fpf, x_all = fused_check_inputs(fmodel, tbatch, tmesh, settings)
+    pts_c, fcode, fpf, x_all = fused_check_inputs(fmodel, tbatch, tmesh, settings, tpts_w)
     fwd_row, bwd_row = check_fused(fmodel, pts_c, fcode, fpf, x_all)
     check_fused_random()
     kernels += [fwd_row, bwd_row]

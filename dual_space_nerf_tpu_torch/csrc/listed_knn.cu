@@ -7,25 +7,31 @@
 
 #include "listed_knn.cuh"
 
-// pts: (n_pts, 3) float32; cent_t: (3, n_slots) float32; order: (rows,
-// row_stride) int32 tile ids; counts: (rows,) int32; lbs: (rows, row_stride)
-// float32 sorted squared lower bounds; out: (n_pts,) int32 slot ids.
-// Contiguous, on the stream's device; n_pts and plan_p multiples of 128,
-// rows = n_pts / plan_p. Returns cudaGetLastError().
+// pts: (n_pts, 3) float32; cent_t: (3, n_slots) float32, 16-byte aligned;
+// order: (rows, row_stride) int32 tile ids; counts: (rows,) int32; lbs:
+// (rows, row_stride) float32 sorted squared lower bounds; row_of_rank:
+// (rows,) int32 scratch (the rows longest list first); out: (n_pts,) int32
+// slot ids. Contiguous, on the stream's device; n_pts and plan_p multiples
+// of 128, rows = n_pts / plan_p, n_slots a multiple of 4. Returns
+// cudaGetLastError().
 extern "C" int listed_knn_launch(const float* pts, const float* cent_t, const int* order,
-                                 const int* counts, const float* lbs, int* out, int n_pts,
-                                 int plan_p, int row_stride, int n_slots, int tighten,
+                                 const int* counts, const float* lbs, int* row_of_rank, int* out,
+                                 int n_pts, int plan_p, int row_stride, int n_slots, int tighten,
                                  void* stream) {
-  if (n_pts > 0) {
-    const int grid = n_pts / listed::kThreads;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (tighten) {
-      listed::listed_kernel<true, true><<<grid, listed::kThreads, 0, s>>>(
-          pts, cent_t, order, counts, lbs, out, plan_p, row_stride, n_slots);
-    } else {
-      listed::listed_kernel<true, false><<<grid, listed::kThreads, 0, s>>>(
-          pts, cent_t, order, counts, lbs, out, plan_p, row_stride, n_slots);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tighten ? listed::launch<true, true>(pts, cent_t, order, counts, lbs, row_of_rank, out,
+                                              n_pts, plan_p, row_stride, n_slots, s)
+                 : listed::launch<true, false>(pts, cent_t, order, counts, lbs, row_of_rank, out,
+                                               n_pts, plan_p, row_stride, n_slots, s);
+}
+
+// Resident blocks per SM (occupancy query, launches nothing).
+extern "C" int listed_knn_blocks_per_sm(int row_stride, int tighten) {
+  return tighten ? listed::blocks_per_sm<true, true>(row_stride)
+                 : listed::blocks_per_sm<true, false>(row_stride);
+}
+
+// Dynamic shared memory of a block, in bytes.
+extern "C" int listed_knn_smem(int row_stride, int tighten) {
+  return static_cast<int>(listed::smem_bytes(row_stride, tighten != 0));
 }

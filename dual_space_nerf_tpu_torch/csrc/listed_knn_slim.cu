@@ -10,13 +10,21 @@
 
 // Arguments as listed_knn_launch (listed_knn.cu), without the threshold.
 extern "C" int listed_knn_slim_launch(const float* pts, const float* cent_t, const int* order,
-                                      const int* counts, const float* lbs, int* out,
-                                      int n_pts, int plan_p, int row_stride, int n_slots,
+                                      const int* counts, const float* lbs, int* row_of_rank,
+                                      int* out, int n_pts, int plan_p, int row_stride, int n_slots,
                                       void* stream) {
-  if (n_pts > 0) {
-    listed::listed_kernel<false, false>
-        <<<n_pts / listed::kThreads, listed::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            pts, cent_t, order, counts, lbs, out, plan_p, row_stride, n_slots);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return listed::launch<false, false>(pts, cent_t, order, counts, lbs, row_of_rank, out, n_pts,
+                                      plan_p, row_stride, n_slots,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// Resident blocks per SM (occupancy query, launches nothing); the second
+// argument is unused, as listed_knn_blocks_per_sm's signature.
+extern "C" int listed_knn_slim_blocks_per_sm(int row_stride, int) {
+  return listed::blocks_per_sm<false, false>(row_stride);
+}
+
+// Dynamic shared memory of a block, in bytes.
+extern "C" int listed_knn_slim_smem(int row_stride, int) {
+  return static_cast<int>(listed::smem_bytes(row_stride, false));
 }

@@ -52,11 +52,13 @@ class CudaKernel:
     reads to show the kernel was on its path.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: list, includes: tuple = ()):
+    def __init__(self, source: str, symbol: str, argtypes: list, includes: tuple = (),
+                 csrc: str = CSRC_DIR):
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
         self.includes = includes  # headers under csrc/ the source includes
+        self.csrc = csrc  # another tree's csrc/ builds its version, to compare
         self.launches = 0
         self.build_log = ""
         self._fn = None
@@ -69,7 +71,7 @@ class CudaKernel:
     def library_path(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         for name in (self.source, *self.includes):
-            with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            with open(os.path.join(self.csrc, name), "rb") as f:
                 h.update(f.read())
         digest = h.hexdigest()
         return os.path.join(BUILD_DIR, f"lib{self.name}_{digest[:16]}.so")
@@ -83,7 +85,7 @@ class CudaKernel:
             return None
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, self.source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(self.csrc, self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         return proc, tmp, out
 
@@ -129,7 +131,11 @@ def build_all(kernels) -> float:
     """Build every kernel's library in parallel (one nvcc each); load them.
     Returns the wall seconds spent."""
     t0 = time.perf_counter()
-    started = [(k, k.start_build()) for k in kernels]
+    started, paths = [], set()
+    for k in kernels:  # one build per library, if two kernels share one
+        path = k.library_path()
+        started.append((k, None if path in paths else k.start_build()))
+        paths.add(path)
     for k, s in started:
         k.finish_build(s)
     for k in kernels:

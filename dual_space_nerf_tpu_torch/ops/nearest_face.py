@@ -7,17 +7,23 @@ Replaces the TPU kernel `dual_space_nerf_tpu/ops/nearest_face.py:_nearest_kernel
 package's `KNN_IMPL: "pallas"` runs and that holds its faster searches to
 exactness. The kernel is `csrc/nearest_face.cu`.
 
-Bound on the H100: operations (7.2e9 point-centroid pairs of ~9 FP32 ops per
-524,288-point search; 6.3 MB moved). One thread per point keeps its best in
-registers while the block streams the centroids through shared memory; see
-the source's header. Kernel and plain version compute the same direct
-difference d2 = (dx*dx + dy*dy) + dz*dz with one rounding per operation and
-the smallest index on a tie, so their ids are equal.
+Bound on the H100: instruction issue. A 524,288-point search is 7.2e9
+point-centroid pairs of 9 FP32 operations that may not fuse into an FMA
+(the tie rule), so its floor is 1.94 ms at 33.5e12 instructions per second,
+twice the 67 TFLOP/s bound; it moves 6.3 MB. The kernel holds 4 points per
+thread against centroid tiles copied into shared memory with `cp.async`,
+takes a chunked `fminf` argmin, and, where the points make too few blocks
+to fill the SMs evenly, splits the faces over the grid and merges with a
+64-bit `atomicMin` (`face_splits`); see the source's header. Kernel and
+plain version compute the same direct difference
+d2 = (dx*dx + dy*dy) + dz*dz with one rounding per operation and the
+smallest index on a tie, so their ids are equal.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,11 +31,16 @@ from .cuda_build import CudaKernel, stream_ptr
 from .pruned_knn import pruned_search_listed, pruned_search_presorted
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 NEAREST_KERNEL = CudaKernel(
     "nearest_face.cu",
     "nearest_face_launch",
-    [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
+    [_P, _P, _P, _P, _I, _I, _I, _P],
 )
+# face ranges of the kernel's grid: at most this many, of at least this
+# many faces each
+_MAX_SPLITS = 8
+_MIN_SPLIT_FACES = 1024
 
 # point-centroid pairs per slice of the plain version: it never holds N x F
 _PLAIN_PAIRS = 1 << 24
@@ -66,6 +77,37 @@ def nearest_face_plain(pts: torch.Tensor, centroids: torch.Tensor) -> torch.Tens
     return out
 
 
+def face_splits(n_pts: int, n_faces: int, sms: int, block_points: int) -> int:
+    """How many face ranges the brute-force kernel splits a search into.
+
+    The kernel's blocks of ``block_points`` points each search one range;
+    with s ranges a block does 1/s of the work. Modelling one block per SM
+    at a time, the search takes ceil(blocks * s / sms) / s block-times. The
+    smallest s that is 5% better than every smaller one is taken, up to
+    `_MAX_SPLITS` ranges of at least `_MIN_SPLIT_FACES` faces. With the
+    kernel's 1024-point blocks, 524,288 points make 512 blocks on 132 SMs:
+    every s gives 4 rounds, so no split; 352,000 points make 344 blocks:
+    3 ranges give 2.67 against 3."""
+    blocks = -(-n_pts // block_points)
+    best_s, best_t = 1, -(-blocks // sms)
+    for s in range(2, min(_MAX_SPLITS, n_faces // _MIN_SPLIT_FACES) + 1):
+        t = -(-blocks * s // sms) / s
+        if t < 0.95 * best_t:
+            best_s, best_t = s, t
+    return best_s
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kernel_splits(n_pts: int, n_faces: int) -> int:
+    """`face_splits` for the kernel's blocks on the current card."""
+    block_points = NEAREST_KERNEL.extra_function("nearest_face_block_points", [_I])(0)
+    return face_splits(n_pts, n_faces, _sm_count(torch.cuda.current_device()), block_points)
+
+
 def nearest_face_cuda(pts: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """Nearest centroid per point: pts (N, 3), centroids (F, 3) float32 ->
     (N,) int32. CPU tensors take the plain version; CUDA tensors launch the
@@ -88,11 +130,24 @@ def nearest_face_cuda(pts: torch.Tensor, centroids: torch.Tensor) -> torch.Tenso
         raise ValueError("nearest_face: no centroids")
     if n * 3 >= 2**31 or f * 3 >= 2**31:
         raise ValueError("nearest_face: the kernel indexes with 32-bit ints")
-    out = torch.empty((n,), dtype=torch.int32, device=pts.device)
-    with torch.cuda.device(pts.device):
+    if centroids.data_ptr() % 16:
+        raise ValueError("nearest_face: centroids must be 16-byte aligned (the kernel copies 16 bytes at a time)")
+    return _nearest_face_launch(pts, centroids, None)
+
+
+def _nearest_face_launch(pts: torch.Tensor, centroids: torch.Tensor, splits: int | None):
+    """Launch the kernel on checked tensors; ``splits`` None takes
+    `face_splits`' choice (a number forces one, for measurements)."""
+    n, f = pts.shape[0], centroids.shape[0]
+    dev = pts.device
+    out = torch.empty((n,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        if splits is None:
+            splits = kernel_splits(n, f)
+        keys = torch.empty((n,), dtype=torch.int64, device=dev) if splits > 1 else None
         NEAREST_KERNEL.launch(
-            pts.data_ptr(), centroids.data_ptr(), out.data_ptr(), n, f,
-            stream_ptr(pts.device),
+            pts.data_ptr(), centroids.data_ptr(), out.data_ptr(),
+            keys.data_ptr() if keys is not None else None, n, f, splits, stream_ptr(dev),
         )
     return out
 

@@ -26,7 +26,16 @@ with bounding spheres (`pruned_tables`); the kernel bounds each block of
 
 Both want spatially coherent consecutive points (the renderer's blocked
 layout, or `morton_order`). All three kernels are bound by operations on the
-H100; the sources' headers say what the designs do about it.
+H100; the sources' headers say what the designs do about it. Each visited
+pair costs 9 FP32 operations that may not fuse into an FMA (the tie rule),
+so the floor is 9 issued instructions a pair at 33.5e12 a second (0.185 ms
+for the render's 6.9e8 listed pairs), twice the 67 TFLOP/s bound. The
+listed kernel (`csrc/listed_knn.cuh`) gives a plan row's 128-point block to
+one warp, 4 points a lane: it reads the row's list into shared memory once,
+copies the listed tiles ahead with `cp.async` into a 2-stage ring, and runs
+a chunked `fminf` so that the tie branch runs only when a chunk reaches the
+running best; the blocks take the rows longest list first (a counting sort
+launched ahead of the search, into scratch the wrapper allocates).
 
 Every search has a plain PyTorch version of the same function (same visit
 lists, same tie rule, same rounding order: d2 = (dx*dx + dy*dy) + dz*dz, one
@@ -60,11 +69,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 LISTED_KERNEL = CudaKernel(
     "listed_knn.cu", "listed_knn_launch",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], includes=("listed_knn.cuh",),
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], includes=("listed_knn.cuh",),
 )
 LISTED_SLIM_KERNEL = CudaKernel(
     "listed_knn_slim.cu", "listed_knn_slim_launch",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], includes=("listed_knn.cuh",),
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], includes=("listed_knn.cuh",),
 )
 LISTED_PLAN_KERNEL = CudaKernel(
     "listed_plan.cu", "listed_plan_launch",
@@ -75,14 +84,16 @@ PRUNED_KERNEL = CudaKernel(
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
 
-# points per thread block of the listed kernels: a plan row is a whole
-# number of them, and the in-kernel threshold is taken over each
-LISTED_THREADS = 128
+# points per thread block of the listed kernels (one warp, 4 points a
+# lane): a plan row is a whole number of them, and the in-kernel threshold
+# is taken over each
+LISTED_BLOCK_P = 128
 _BLOCK_F_LISTED = 128    # slots per kd-leaf tile
 _BLOCK_P_LISTED = 2048   # the tail is padded to a multiple of this
 _PLAN_P_LISTED = 128     # points per plan row (DSNERF_KNN_PLAN_P)
 _TIGHTEN_LISTED = False  # DSNERF_KNN_TIGHTEN
 _SLIM_LISTED = False     # DSNERF_KNN_SLIM
+_LISTED_MAX_TILES = 4096  # tile ids (and lower bounds) a listed block keeps in shared memory
 
 _BLOCK_P = 512           # points per block of the pruned search
 _BLOCK_F = 512           # faces per tile of the pruned search
@@ -358,12 +369,12 @@ def listed_search_plain(pts, cent_t, order, counts, lbs, plan_p: int,
     ended is masked. wide (slim=False): a (points, 128) running minimum per
     lane with the id of the tile that set it first, decoded once at the end,
     the formulation of the JAX package's kernel; ``tighten`` stops the list
-    of each group of `LISTED_THREADS` points once the next lower bound
+    of each group of `LISTED_BLOCK_P` points once the next lower bound
     exceeds every point's best. slim: one running best per point, on a tie
     the smaller slot id."""
     n = pts.shape[0]
     bf = _BLOCK_F_LISTED
-    rows, g = n // plan_p, plan_p // LISTED_THREADS
+    rows, g = n // plan_p, plan_p // LISTED_BLOCK_P
     dev = pts.device
     cents = cent_t.T.reshape(-1, bf, 3)                         # (T, BF, 3)
     lane = torch.arange(bf, dtype=torch.int32, device=dev)
@@ -372,7 +383,7 @@ def listed_search_plain(pts, cent_t, order, counts, lbs, plan_p: int,
     for r0 in range(0, rows, step):
         r1 = min(rows, r0 + step)
         r = r1 - r0
-        p = pts[r0 * plan_p:r1 * plan_p].reshape(r, g, LISTED_THREADS, 1, 3)
+        p = pts[r0 * plan_p:r1 * plan_p].reshape(r, g, LISTED_BLOCK_P, 1, 3)
         cnt = counts[r0:r1]
         alive = torch.ones((r, g), dtype=torch.bool, device=dev)
         best = ids = None
@@ -423,9 +434,14 @@ def _listed_search_cuda(pts, cent_t, order, counts, lbs, plan_p, slim, tighten):
     _check_table(name, "lbs", lbs, (rows, n_tiles), torch.float32, dev)
     if n_tiles * _BLOCK_F_LISTED > n_slots:
         raise ValueError(f"{name}: {n_tiles} tiles do not fit {n_slots} centroid slots")
+    if cent_t.data_ptr() % 16 or n_slots % 4:
+        raise ValueError(f"{name}: cent_t rows must be 16-byte aligned (the kernel copies 16 bytes at a time)")
+    if n_tiles > _LISTED_MAX_TILES:
+        raise ValueError(f"{name}: {n_tiles} tiles exceed the {_LISTED_MAX_TILES} a block lists in shared memory")
     out = torch.empty((n,), dtype=torch.int32, device=dev)
+    row_of_rank = torch.empty((rows,), dtype=torch.int32, device=dev)  # the kernel's row order
     args = (pts.data_ptr(), cent_t.data_ptr(), order.data_ptr(), counts.data_ptr(),
-            lbs.data_ptr(), out.data_ptr(), n, plan_p, n_tiles, n_slots)
+            lbs.data_ptr(), row_of_rank.data_ptr(), out.data_ptr(), n, plan_p, n_tiles, n_slots)
     with torch.cuda.device(dev):
         if slim:
             LISTED_SLIM_KERNEL.launch(*args, stream_ptr(dev))
@@ -437,12 +453,12 @@ def _listed_search_cuda(pts, cent_t, order, counts, lbs, plan_p, slim, tighten):
 def listed_search(pts, cent_t, order, counts, lbs, plan_p: int,
                   slim: bool = False, tighten: bool = False) -> torch.Tensor:
     """Walk a visit plan (`listed_plan`): (N,) int32 slot ids. N is a
-    multiple of plan_p, plan_p of `LISTED_THREADS`. CPU tensors take the
+    multiple of plan_p, plan_p of `LISTED_BLOCK_P`. CPU tensors take the
     plain version; CUDA tensors launch the wide or the slim kernel (or
     raise). The slim kernel has no threshold: ``tighten`` is ignored."""
-    if plan_p % LISTED_THREADS or pts.shape[0] % plan_p:
+    if plan_p % LISTED_BLOCK_P or pts.shape[0] % plan_p:
         raise ValueError(
-            f"listed_search: plan_p={plan_p} must be a multiple of {LISTED_THREADS} "
+            f"listed_search: plan_p={plan_p} must be a multiple of {LISTED_BLOCK_P} "
             f"and divide n={pts.shape[0]}"
         )
     if pts.device.type == "cpu":

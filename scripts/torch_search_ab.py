@@ -1,0 +1,267 @@
+#!/usr/bin/env python3
+"""The port's brute-force and listed search kernels against another tree's,
+in turns, on one NVIDIA card.
+
+    git archive <commit> dual_space_nerf_tpu_torch/csrc | tar -x -C <dir>
+    python3 scripts/torch_search_ab.py --other <dir>/dual_space_nerf_tpu_torch/csrc [--other ...]
+
+Each other tree's `nearest_face.cu`, `listed_knn.cu` and `listed_knn_slim.cu`
+are built beside this tree's (`CudaKernel(csrc=...)`), named by the
+directory two levels above its csrc/ (or the csrc/'s parent). A brute-force
+launcher without the face split has the signature
+`nearest_face_launch(pts, cents, out, n_pts, n_faces, stream)`; the listed
+launchers have this tree's signatures. On the shapes of `chip_smoke.py`
+phase 3 (the render chunk's 524,288 world points, as many blocked points,
+a random cloud, and the training step's 352,000 world points) the script:
+
+1. holds every version's ids equal, id for id, and to the plain versions;
+2. times each kernel and the other trees' in turns (this, other, ...,
+   this, other, ...; CUDA events, median and range over ``--rounds``);
+3. times this tree's brute-force kernel at forced face splits against the
+   split that `face_splits` chooses, in turns.
+
+Prints one JSON line per measurement, the card line, and writes all of it
+to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+from dual_space_nerf_tpu_torch.data import (  # noqa: E402
+    SyntheticDataset,
+    item_to_mesh,
+    item_to_train_batch,
+    iter_ray_chunks,
+)
+from dual_space_nerf_tpu_torch.evaluation.golden import slice_cfg  # noqa: E402
+from dual_space_nerf_tpu_torch.geometry import sample_along_rays, stratified_z  # noqa: E402
+from dual_space_nerf_tpu_torch.ops import (  # noqa: E402
+    LISTED_KERNEL,
+    LISTED_SLIM_KERNEL,
+    NEAREST_KERNEL,
+    face_centroids,
+    gg_near_far_cuda,
+    listed_tables,
+    nearest_face_plain,
+    pruned_knn,
+)
+from dual_space_nerf_tpu_torch.ops.cuda_build import CudaKernel, build_all, stream_ptr  # noqa: E402
+from dual_space_nerf_tpu_torch.ops.nearest_face import kernel_splits  # noqa: E402
+from dual_space_nerf_tpu_torch.renderer import RenderSettings  # noqa: E402
+from dual_space_nerf_tpu_torch.renderer.pipeline import _block_layout  # noqa: E402
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def clock_under_load(fn, launches: int = 400) -> str:
+    """The card's SM clock and power draw (nvidia-smi) while ``fn`` runs
+    ``launches`` times back to back."""
+    for _ in range(launches):
+        fn()
+    time.sleep(0.2)
+    q = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60).stdout.strip()
+    torch.cuda.synchronize()
+    return q
+
+
+def other_kernels(csrc: str) -> dict:
+    with open(os.path.join(csrc, "nearest_face.cu")) as f:
+        split = "void* keys" in f.read()
+    with open(os.path.join(csrc, "listed_knn.cu")) as f:
+        ranked = "row_of_rank" in f.read()
+    nearest_args = NEAREST_KERNEL.argtypes if split else [_P, _P, _P, _I, _I, _P]
+    # a listed launcher without the row order lacks its scratch pointer
+    wide_args, slim_args = LISTED_KERNEL.argtypes, LISTED_SLIM_KERNEL.argtypes
+    if not ranked:
+        wide_args, slim_args = wide_args[:6] + wide_args[7:], slim_args[:6] + slim_args[7:]
+    return {
+        "split": split, "ranked": ranked,
+        "nearest_face": CudaKernel("nearest_face.cu", "nearest_face_launch", nearest_args, csrc=csrc),
+        "listed_knn": CudaKernel("listed_knn.cu", "listed_knn_launch", wide_args,
+                                 includes=("listed_knn.cuh",), csrc=csrc),
+        "listed_knn_slim": CudaKernel("listed_knn_slim.cu", "listed_knn_slim_launch", slim_args,
+                                      includes=("listed_knn.cuh",), csrc=csrc),
+    }
+
+
+def other_nearest(other, pts, cents, splits):
+    out = torch.empty(pts.shape[0], dtype=torch.int32, device=pts.device)
+    head = (pts.data_ptr(), cents.data_ptr(), out.data_ptr())
+    if other["split"]:
+        keys = torch.empty(pts.shape[0], dtype=torch.int64, device=pts.device) if splits > 1 else None
+        other["nearest_face"].launch(*head, keys.data_ptr() if keys is not None else None,
+                                     pts.shape[0], cents.shape[0], splits, stream_ptr(pts.device))
+    else:
+        other["nearest_face"].launch(*head, pts.shape[0], cents.shape[0], stream_ptr(pts.device))
+    return out
+
+
+def other_listed(other, slim, tighten, pts, cent_t, order, counts, lbs, plan_p):
+    out = torch.empty(pts.shape[0], dtype=torch.int32, device=pts.device)
+    args = (pts.data_ptr(), cent_t.data_ptr(), order.data_ptr(), counts.data_ptr(), lbs.data_ptr())
+    if other["ranked"]:
+        args += (torch.empty(counts.shape[0], dtype=torch.int32, device=pts.device).data_ptr(),)
+    args += (out.data_ptr(), pts.shape[0], plan_p, order.shape[1], cent_t.shape[1])
+    if slim:
+        other["listed_knn_slim"].launch(*args, stream_ptr(pts.device))
+    else:
+        other["listed_knn"].launch(*args, int(tighten), stream_ptr(pts.device))
+    return out
+
+
+def inputs(dev):
+    """Phase 3's shapes: the render chunk's world and blocked points, a
+    random cloud, and the training step's world points with its mesh."""
+    cfg = slice_cfg()
+    settings = RenderSettings.from_cfg(cfg)
+    ds = SyntheticDataset(split="val", n_frames=1, n_views=1, h=cs.H, w=cs.W)
+    item = ds[0]
+    mesh = item_to_mesh(item, ds.faces, ds.canonical_vertex, dev)
+    rays0, _ = next(iter_ray_chunks(item, cfg.TEST.RAY_CHUNK, dev))
+    near, far = gg_near_far_cuda(rays0.ray_o, rays0.ray_d, rays0.near, rays0.far,
+                                 mesh.verts_world, settings.gg_gamma)
+    z = stratified_z(near, far, settings.n_samples)
+    pts_rs = sample_along_rays(rays0.ray_o, rays0.ray_d, z)
+    to_blocked, _ = _block_layout(*z.shape, settings.block_sc)
+    cents = face_centroids(mesh.verts_world, mesh.faces).contiguous()
+    tds = SyntheticDataset(split="train", nrays=cs.TRAIN_RAYS, n_frames=1, n_views=1, h=cs.H, w=cs.W)
+    titem = tds[0]
+    tmesh = item_to_mesh(titem, tds.faces, tds.canonical_vertex, dev)
+    tpts = cs.train_world_points(item_to_train_batch(titem, cs.TRAIN_RAYS, dev), tmesh, settings)
+    blocked = to_blocked(pts_rs).contiguous()
+    return {
+        "mesh": mesh, "cents": cents, "world": pts_rs.reshape(-1, 3).contiguous(),
+        "blocked": blocked, "cloud": cs.random_cloud(blocked.shape[0], cents),
+        "step": tpts, "step_cents": face_centroids(tmesh.verts_world, tmesh.faces).contiguous(),
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", required=True, action="append",
+                    help="another tree's dual_space_nerf_tpu_torch/csrc (repeatable)")
+    ap.add_argument("--rounds", type=int, default=11)
+    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "search_ab.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_search_ab: no CUDA device; this script measures only on the card")
+        return 2
+    dev = torch.device("cuda")
+    card = cs.card_line()
+    others = {}
+    for d in args.other:
+        d = os.path.abspath(d)
+        parts = d.rstrip("/").split("/")
+        label = parts[-3] if parts[-1] == "csrc" and parts[-2] == "dual_space_nerf_tpu_torch" else parts[-2]
+        others[label] = other_kernels(d)
+    build_s = build_all([NEAREST_KERNEL, LISTED_KERNEL, LISTED_SLIM_KERNEL, pruned_knn.LISTED_PLAN_KERNEL,
+                         *(k for o in others.values() for n, k in o.items() if n not in ("split", "ranked"))])
+    results = {"card": card, "build_s": build_s, "rounds": args.rounds, "nearest_face": [],
+               "listed": [], "listed_even": [], "listed_order": [], "splits": [], "ptxas": {}}
+    for label, kernels in (("this", {"nearest_face": NEAREST_KERNEL, "listed_knn": LISTED_KERNEL,
+                                     "listed_knn_slim": LISTED_SLIM_KERNEL}), *others.items()):
+        for name, k in kernels.items():
+            if name not in ("split", "ranked"):  # registers, spills and shared memory per entry
+                results["ptxas"][f"{label} {name}"] = cs.ptxas_entries(k)
+    print("ptxas: " + json.dumps(results["ptxas"]), flush=True)
+
+    def report(kind, row):
+        results[kind].append(row)
+        print(f"{kind}: " + json.dumps(row), flush=True)
+
+    mine = {"split": True, "ranked": True, "nearest_face": NEAREST_KERNEL, "listed_knn": LISTED_KERNEL,
+            "listed_knn_slim": LISTED_SLIM_KERNEL}
+    x = inputs(dev)
+
+    def turns(this, that: dict, same) -> dict:
+        """``this`` and every other version: the same ids, then timed in turns."""
+        ids = this()
+        for name, fn in that.items():
+            got = fn()
+            torch.cuda.synchronize()
+            if not torch.equal(ids, got):
+                raise AssertionError(f"{name}: ids differ from this tree's")
+        if not torch.equal(ids, same()):
+            raise AssertionError("this tree's ids differ from the plain version")
+        t = cs.alternate_ms({"this": this, **that}, args.rounds)
+        return {f"{k}_ms": v[0] for k, v in t.items()} | {f"{k}_range": v[1] for k, v in t.items()}
+
+    for label, pts, cents in (("render world 524,288", x["world"], x["cents"]),
+                              ("random cloud 524,288", x["cloud"], x["cents"]),
+                              ("train step 352,000", x["step"], x["step_cents"])):
+        auto = kernel_splits(pts.shape[0], cents.shape[0])
+        # every version through the same bare launch (no wrapper checks)
+        this = lambda: other_nearest(mine, pts, cents, auto)
+        that = {name: (lambda o=o: other_nearest(o, pts, cents, auto)) for name, o in others.items()}
+        report("nearest_face", {"shape": label, "points": pts.shape[0], "faces": cents.shape[0],
+                                "splits": auto, **turns(this, that, lambda: nearest_face_plain(pts, cents)),
+                                "clock_sm_power_under_load": clock_under_load(this)})
+        if label != "random cloud 524,288":
+            splits = {f"splits={s}": (lambda s=s: other_nearest(mine, pts, cents, s)) for s in (1, 2, 3, 4)}
+            t = cs.alternate_ms({"auto": this, **splits}, args.rounds)
+            report("splits", {"shape": label, "auto": auto, **{k: {"ms": v[0], "range": v[1]} for k, v in t.items()}})
+
+    cent_t, tile_c, tile_r, _ = listed_tables(x["cents"], x["mesh"].tile_table)
+    n_tiles = x["mesh"].tile_table.shape[0]
+    plan_p = pruned_knn._PLAN_P_LISTED
+    for label in ("blocked", "cloud"):
+        pts = x[label]
+        plan = pruned_knn.listed_plan(pts, tile_c, tile_r, n_tiles, plan_p)
+        pairs = float(plan[1].sum()) * plan_p * 128
+        for variant, slim, tighten in (("wide", False, False), ("tighten", False, True), ("slim", True, False)):
+            this = lambda: other_listed(mine, slim, tighten,
+                                        pts, cent_t, *plan, plan_p)
+            that = {name: (lambda o=o: other_listed(o, slim, tighten, pts, cent_t, *plan, plan_p))
+                    for name, o in others.items()}
+            report("listed", {"shape": label, "variant": variant, "points": pts.shape[0], "pairs": pairs,
+                              "issue_floor_ms": cs.issue_floor_ms(pairs),
+                              **turns(this, that, lambda: pruned_knn.listed_search_plain(
+                                  pts, cent_t, *plan, plan_p, slim, tighten)),
+                              "clock_sm_power_under_load": clock_under_load(this, 2000)})
+    # this tree's listed kernels on the blocked rows' own lists cut to one
+    # length for every row: per-pair time without the spread of list lengths
+    order, counts, lbs = pruned_knn.listed_plan(x["blocked"], tile_c, tile_r, n_tiles, plan_p)
+    for visits in (1, 10, 26):
+        even = torch.full_like(counts, visits)
+        pairs = float(even.sum()) * plan_p * 128
+        for variant, slim in (("wide", False), ("slim", True)):
+            t = cs.time_ms(lambda: other_listed(mine, slim, False,
+                                                x["blocked"], cent_t, order, even, lbs, plan_p), reps=args.rounds)
+            report("listed_even", {"visits_per_row": visits, "variant": variant, "pairs": pairs, "ms": t,
+                                   "ns_per_pair": t * 1e6 / pairs, "issue_floor_ms": cs.issue_floor_ms(pairs)})
+    # the same rows in another order: longest list first, and last
+    rows = counts.shape[0]
+    by_rows = x["blocked"].reshape(rows, plan_p, 3)
+    for label, descending in (("longest first", True), ("longest last", False)):
+        perm = torch.sort(counts, descending=descending, stable=True).indices
+        p_pts = by_rows[perm].reshape(-1, 3).contiguous()
+        p_plan = (order[perm].contiguous(), counts[perm].contiguous(), lbs[perm].contiguous())
+        pairs = float(counts.sum()) * plan_p * 128
+        for variant, slim in (("wide", False), ("slim", True)):
+            t = cs.time_ms(lambda: other_listed(mine, slim, False,
+                                                p_pts, cent_t, *p_plan, plan_p), reps=args.rounds)
+            report("listed_order", {"rows": label, "variant": variant, "pairs": pairs, "ms": t,
+                                    "issue_floor_ms": cs.issue_floor_ms(pairs)})
+    print(card)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(results, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

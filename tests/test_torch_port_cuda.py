@@ -62,17 +62,90 @@ def test_gg_kernel_equals_plain(dev, scene, r):
     assert torch.equal(n_k, n_p) and torch.equal(f_k, f_p)  # the same roundings
 
 
-@pytest.mark.parametrize("n", [1, 1000, 524_288])
-def test_nearest_face_kernel_equals_plain(dev, scene, n):
+def _world_centroids(scene, dev):
     verts = torch.as_tensor(scene.verts_world, device=dev)
-    cents = face_centroids(verts, torch.as_tensor(scene.faces.astype(np.int64), device=dev))
-    g = torch.Generator(device=dev).manual_seed(0)
+    return face_centroids(verts, torch.as_tensor(scene.faces.astype(np.int64), device=dev))
+
+
+def _points_near(cents, n, dev, seed=0, scale=0.05):
+    g = torch.Generator(device=dev).manual_seed(seed)
     idx = torch.randint(0, cents.shape[0], (n,), device=dev, generator=g)
-    pts = cents[idx] + 0.05 * torch.randn(n, 3, dtype=torch.float32, device=dev, generator=g)
+    return cents[idx] + scale * torch.randn(n, 3, dtype=torch.float32, device=dev, generator=g)
+
+
+# the brute-force kernel's block (4 points x 256 threads) and tile of centroids
+_NF_BLOCK, _NF_TILE = 1024, 1024
+
+
+@pytest.mark.parametrize("n", [1, 1000, _NF_BLOCK - 1, _NF_BLOCK, _NF_BLOCK + 1, 352_000, 524_288])
+def test_nearest_face_kernel_equals_plain(dev, scene, n):
+    cents = _world_centroids(scene, dev)
+    pts = _points_near(cents, n, dev)
     ids_k = nearest_face_cuda(pts, cents)
     ids_p = nearest_face_plain(pts, cents)
     torch.cuda.synchronize()
     assert torch.equal(ids_k, ids_p)
+
+
+@pytest.mark.parametrize("f", [1, 2, 7, 9, _NF_TILE - 1, _NF_TILE, _NF_TILE + 1, 3 * _NF_TILE + 5, 13_776])
+@pytest.mark.parametrize("n", [5000, 352_000])
+def test_nearest_face_kernel_face_counts(dev, scene, f, n):
+    """Face counts at the chunk (8), the tile and the split edges; the
+    split (chosen by `face_splits`, 3 ranges at 352,000 points) included."""
+    cents = _world_centroids(scene, dev)[:f].contiguous()
+    pts = _points_near(cents, n, dev, seed=f)
+    ids_k = nearest_face_cuda(pts, cents)
+    ids_p = nearest_face_plain(pts, cents)
+    torch.cuda.synchronize()
+    assert torch.equal(ids_k, ids_p)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 7, 8])
+def test_nearest_face_every_split_gives_the_same_ids(dev, scene, splits):
+    from dual_space_nerf_tpu_torch.ops.nearest_face import _nearest_face_launch
+
+    cents = _world_centroids(scene, dev)
+    pts = _points_near(cents, 100_003, dev, seed=3)
+    ids_k = _nearest_face_launch(pts, cents, splits)
+    torch.cuda.synchronize()
+    assert torch.equal(ids_k, nearest_face_plain(pts, cents))
+
+
+def _duplicated_centroids(scene, dev):
+    """The world centroids with copies planted across the kernel's edges:
+    each pair (a, b), a < b, gets cents[b] = cents[a], so every point is
+    exactly as far from both and must take a. The pairs straddle a chunk
+    (7 | 8), a tile (1023 | 1024) and the 3-way face split's edges (4592
+    and 9184), lie inside one chunk, and lie far apart in other ranges."""
+    cents = _world_centroids(scene, dev).clone()
+    pairs = [(7, 8), (16, 19), (1023, 1024), (2000, 2001), (4591, 4592), (9183, 9184),
+             (100, 13_775), (5000, 13_000)]
+    for a, b in pairs:
+        cents[b] = cents[a]
+    return cents, pairs
+
+
+@pytest.mark.parametrize("n", [5000, 352_000, 524_288])
+def test_nearest_face_ties_go_to_the_smallest_index(dev, scene, n):
+    cents, pairs = _duplicated_centroids(scene, dev)
+    pts = _points_near(cents, n, dev, seed=5, scale=0.002)
+    # every fourth point sits on a duplicated centroid, ties at d2 = 0 too
+    planted = torch.tensor([a for a, _ in pairs], device=dev)
+    pts[::4] = cents[planted[torch.arange(pts[::4].shape[0], device=dev) % len(pairs)]]
+    ids_k = nearest_face_cuda(pts, cents)
+    ids_p = nearest_face_plain(pts, cents)
+    torch.cuda.synchronize()
+    assert torch.equal(ids_k, ids_p)
+    losers = torch.tensor([b for _, b in pairs], device=dev)
+    assert not bool(torch.isin(ids_k, losers).any())
+    assert bool(torch.isin(planted, ids_k).all())
+
+
+def test_nearest_face_two_calls_give_the_same_ids(dev, scene):
+    cents, _ = _duplicated_centroids(scene, dev)
+    for n in (352_000, 524_288):
+        pts = _points_near(cents, n, dev, seed=9, scale=0.01)
+        assert torch.equal(nearest_face_cuda(pts, cents), nearest_face_cuda(pts, cents))
 
 
 def _search_inputs(scene, n, dev):
@@ -120,6 +193,69 @@ def test_listed_kernels_equal_plain(dev, scene, n, variant, plan_p):
     assert torch.equal(ids_k, ids_p)
     # and the search is exact: the brute-force kernel's faces, but for near-ties
     assert int((perm_pad[ids_k.long()] != nearest_face_cuda(pts, cents)).sum()) <= max(1, n // 5000)
+
+
+def _planted_lists(scene, dev, n, plan_p, seed):
+    """Inputs for the listed kernels that no plan would give: visit lists
+    of every length from 1 to all tiles (both ends present), tiles in random
+    order, sorted random lower bounds, and centroid copies planted across
+    tiles, each source slot copied to the same lane of another tile and to
+    another lane of a third. Each row's points lie on or within 1e-3 of one
+    source, so exact ties meet the tie rules."""
+    rng = np.random.default_rng(seed)
+    cents = _world_centroids(scene, dev)
+    tiles_np = build_face_tiles(cents.cpu().numpy())
+    t = tiles_np.shape[0]
+    cent_t = listed_tables(cents, torch.as_tensor(tiles_np, device=dev))[0].clone()
+    src = rng.choice(np.flatnonzero(tiles_np.reshape(-1) >= 0), 64, replace=False)
+    for a in src:
+        ta, la = divmod(int(a), 128)
+        for lane in (la, (la + 1 + int(rng.integers(127))) % 128):
+            tb = (ta + 1 + int(rng.integers(t - 1))) % t
+            cent_t[:, tb * 128 + lane] = cent_t[:, a]
+    rows = n // plan_p
+    row_src = torch.as_tensor(src[np.arange(rows) % len(src)], device=dev)
+    pts = cent_t.T[row_src].repeat_interleave(plan_p, 0)
+    noise = torch.as_tensor(rng.standard_normal((n, 3)), dtype=torch.float32, device=dev)
+    noise[::8] = 0.0
+    pts = (pts + 1e-3 * noise).contiguous()
+    counts = rng.integers(1, t + 1, rows)
+    counts[::7], counts[3::7] = 1, t
+    order = np.argsort(rng.random((rows, t)), axis=1)
+    lbs = np.sort(rng.uniform(0.0, 1e-2, (rows, t)), axis=1)
+    as_dev = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev).contiguous()
+    return (pts, cent_t, as_dev(order, torch.int32), as_dev(counts, torch.int32),
+            as_dev(lbs, torch.float32))
+
+
+@pytest.mark.parametrize("variant", ["wide", "tighten", "slim"])
+@pytest.mark.parametrize("plan_p", [128, 512])
+def test_listed_kernels_follow_any_list(dev, scene, variant, plan_p):
+    """2048 blocks with rows of count 1 and of every tile, planted ties:
+    every slot id equals the plain version's."""
+    inputs = _planted_lists(scene, dev, 262_144, plan_p, seed=plan_p)
+    counts = inputs[3]
+    assert int(counts.min()) == 1 and int(counts.max()) == inputs[2].shape[1]
+    args = (*inputs, plan_p, variant == "slim", variant == "tighten")
+    ids_k = pruned_knn.listed_search(*args)
+    ids_p = pruned_knn.listed_search_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(ids_k, ids_p)
+
+
+def test_listed_tie_rules_part_on_planted_ties(dev, scene):
+    """The planted copies do reach the tie branches: the wide rule (first
+    visited tile per lane) and the slim rule (smallest slot) name different
+    slots at some points, and each kernel equals its plain version there;
+    two calls give the same ids."""
+    inputs = _planted_lists(scene, dev, 262_144, 128, seed=7)
+    wide = pruned_knn.listed_search(*inputs, 128, False, False)
+    slim = pruned_knn.listed_search(*inputs, 128, True, False)
+    torch.cuda.synchronize()
+    assert int((wide != slim).sum()) > 0
+    assert torch.equal(wide, pruned_knn.listed_search_plain(*inputs, 128, False, False))
+    assert torch.equal(slim, pruned_knn.listed_search_plain(*inputs, 128, True, False))
+    assert torch.equal(wide, pruned_knn.listed_search(*inputs, 128, False, False))
 
 
 @pytest.mark.parametrize("n", [128, 2048, 524_288])

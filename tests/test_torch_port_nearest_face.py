@@ -18,6 +18,7 @@ from dual_space_nerf_tpu_torch.ops import (
     nearest_face_cuda,
     nearest_face_plain,
 )
+from dual_space_nerf_tpu_torch.ops.nearest_face import face_splits
 
 
 @pytest.fixture(scope="module")
@@ -118,3 +119,17 @@ def test_dispatch_runs_the_tile_pruned_searches(impl, mesh, rng_np):
 def test_dispatch_rejects_unknown_impl():
     with pytest.raises(ValueError):
         nearest_face(torch.zeros((1, 3)), torch.zeros((1, 3)), "fastest")
+
+
+@pytest.mark.parametrize("n,f,want", [
+    (524_288, 13_776, 1),  # the render chunk: 512 blocks, 4 rounds whatever the split
+    (352_000, 13_776, 3),  # the training step: 344 blocks, 3 ranges even the rounds
+    (1, 13_776, 8),        # one block: every range on an SM of its own
+    (352_000, 2_047, 1),   # too few faces for two ranges of 1024
+    (352_000, 3_072, 3),
+    (528 * 1024, 13_776, 1),  # exactly four rounds
+])
+def test_face_splits_even_the_rounds(n, f, want):
+    """The brute-force kernel's face split (blocks of 1024 points on 132
+    SMs): taken only where it shortens the modelled rounds by 5%."""
+    assert face_splits(n, f, 132, 1024) == want
