@@ -16,9 +16,13 @@ Phases (any failure exits non-zero, before the last line is printed):
    against the brute-force kernel, with the visit plan (a kernel of its own,
    held against the plan in plain torch ops bit for bit) timed apart. The
    brute-force search is also held and timed at the training step's 352,000
-   world points; it and the listed searches report their issue floor (9
-   single FP32 instructions per pair, `issue_floor_ms`) and their
-   registers, spills, shared memory and blocks per SM (`search_resources`);
+   world points, GG at its 5500 rays and the plan at its 352,000 blocked
+   points. The searches, GG and the plan report their issue floor (single
+   FP32 instructions a pair: 9 for the searches, 8 + 7 inside a sphere for
+   GG, 25 for the plan; `issue_floor_ms`) and their registers, spills,
+   shared memory and blocks per SM (`search_resources`,
+   `small_kernel_resources`); GG and the plan also their device time from
+   bare launches (`device_turns_ms`) beside the wrapper's event time;
 4. renders the full 512x512 val image of the synthetic SMPL-sized scene with
    the trained fixture through `ImageRenderer.render_item` (the port's eval
    entry point) on two paths: (a) exact full shading with the brute-force
@@ -103,7 +107,7 @@ from dual_space_nerf_tpu_torch.ops import (
     pruned_search_listed,
     pruned_search_presorted,
 )
-from dual_space_nerf_tpu_torch.ops import fused_mlp, posenc, pruned_knn
+from dual_space_nerf_tpu_torch.ops import fused_mlp, gg_cuda, posenc, pruned_knn
 from dual_space_nerf_tpu_torch.ops.cuda_build import build_all
 from dual_space_nerf_tpu_torch.ops.nearest_face import kernel_splits
 from dual_space_nerf_tpu_torch.renderer import (
@@ -126,6 +130,13 @@ PEAK_FP32_INSTR_PER_S = 33.5e12
 H = W = 512
 N_TIMED_RENDERS = 3
 PAIR_OPS = 9.0  # 3 sub, 3 mul, 2 add, 1 compare per point-centroid pair
+# GG: z0 (3 mul, 2 add), d2 (mul, sub), the compare per (ray, vertex) pair;
+# sub, max, sqrt, sub, add, min, max more per pair inside a sphere
+GG_PAIR_OPS, GG_INSIDE_OPS = 8.0, 7.0
+# the plan per (point, tile) pair: witness distance 9 (3 sub, 3 mul, 2 add,
+# min), AABB bound 14 (6 clamp, 3 sub, 3 mul, 2 add), the test and the min 2
+PLAN_PAIR_OPS = 25.0
+SLEEP_CYCLES = 200_000     # ~0.1 ms of device time queued ahead of a timed launch
 TRAIN_RAYS = 5500          # bench.py's train workload
 N_TIMED_STEPS = 3
 FWD_TOL, BWD_TOL = 1e-5, 2e-5  # the CPU tests' bands against the JAX package
@@ -178,16 +189,39 @@ def alternate_ms(fns: dict, rounds: int) -> dict:
     return {name: (statistics.median(t), [min(t), max(t)]) for name, t in times.items()}
 
 
+def device_turns_ms(fns: dict, rounds: int) -> dict:
+    """Device time of one call of each function of ``fns`` (a bare kernel
+    launch), in turns after one warm-up each: a sleep kernel queued ahead
+    keeps the card busy while the host enqueues the events and the launch,
+    so the events bracket the kernel's device time alone and not the host's
+    enqueue. {name: (median ms, [min, max])}."""
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: (statistics.median(t), [min(t), max(t)]) for name, t in times.items()}
+
+
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_FP32_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def issue_floor_ms(pairs: float) -> float:
-    """The searches' floor: PAIR_OPS single FP32 instructions per pair,
-    none of which may fuse into an FMA (the tie rule)."""
-    return PAIR_OPS * pairs / PEAK_FP32_INSTR_PER_S * 1e3
+def issue_floor_ms(pairs: float, per_pair: float = PAIR_OPS) -> float:
+    """The floor of a kernel that must equal its plain version bit for bit:
+    ``per_pair`` single FP32 instructions per pair (PAIR_OPS for the
+    searches), none of which may fuse into an FMA."""
+    return per_pair * pairs / PEAK_FP32_INSTR_PER_S * 1e3
 
 
 def gg_inside_pairs(ray_o, ray_d, verts, gamma) -> int:
@@ -203,30 +237,53 @@ def gg_inside_pairs(ray_o, ray_d, verts, gamma) -> int:
     return total
 
 
-def check_gg(rays, mesh, gamma) -> dict:
+def gg_floor_ms(ray_o, ray_d, verts, gamma) -> tuple[float, int]:
+    """GG's issue floor on these inputs, and its pairs inside a sphere."""
+    inside = gg_inside_pairs(ray_o, ray_d, verts, gamma)
+    pairs = ray_d.shape[0] * verts.shape[0]
+    return (GG_PAIR_OPS * pairs + GG_INSIDE_OPS * inside) / PEAK_FP32_INSTR_PER_S * 1e3, inside
+
+
+def check_gg(rays, mesh, step_rays, step_mesh, gamma) -> dict:
+    """GG against its plain version bit for bit at the render chunk's 8192
+    rays and the training step's 5500; timed through the wrapper (events)
+    and as bare launches into preallocated outputs (device time), with its
+    bound, issue floor and resources."""
+    shapes = {}
+    for label, rs, ms in (("render", rays, mesh), ("step", step_rays, step_mesh)):
+        args = (rs.ray_o, rs.ray_d, rs.near, rs.far, ms.verts_world)
+        n_k, f_k = gg_near_far_cuda(*args, gamma)
+        n_p, f_p = gg_near_far_plain(*args, gamma)
+        torch.cuda.synchronize()
+        if not (torch.equal(n_k, n_p) and torch.equal(f_k, f_p)):
+            err = max(float((n_k - n_p).abs().max()), float((f_k - f_p).abs().max()))
+            raise AssertionError(f"gg_near_far ({label}): kernel differs from plain version by {err}")
+        outs = (torch.empty_like(rs.near), torch.empty_like(rs.far))
+        bare = lambda args=args, outs=outs: gg_cuda.launch_gg(*args, *outs, gamma)
+        floor, inside = gg_floor_ms(rs.ray_o, rs.ray_d, ms.verts_world, gamma)
+        r, v = rs.ray_d.shape[0], ms.verts_world.shape[0]
+        shapes[label] = {
+            "rays": r, "verts": v, "inside_pairs": inside,
+            "wrapper_ms": time_ms(lambda args=args: gg_near_far_cuda(*args, gamma), reps=20),
+            "device_ms": device_turns_ms({"k": bare}, rounds=21)["k"][0],
+            "issue_floor_ms": floor,
+            "bound": bound_ms(4.0 * (r * 3 * 2 + r * 2 + v * 3 + r * 2),
+                              GG_PAIR_OPS * r * v + GG_INSIDE_OPS * inside + 10.0 * r),
+        }
+    s = shapes["render"]
     args = (rays.ray_o, rays.ray_d, rays.near, rays.far, mesh.verts_world)
-    n_k, f_k = gg_near_far_cuda(*args, gamma)
-    n_p, f_p = gg_near_far_plain(*args, gamma)
-    torch.cuda.synchronize()
-    err = max(float((n_k - n_p).abs().max()), float((f_k - f_p).abs().max()))
-    if not (torch.equal(n_k, n_p) and torch.equal(f_k, f_p)):
-        raise AssertionError(f"gg_near_far: kernel differs from plain version by {err}")
-    r, v = rays.ray_d.shape[0], mesh.verts_world.shape[0]
-    inside = gg_inside_pairs(rays.ray_o, rays.ray_d, mesh.verts_world, gamma)
-    # per pair: z0 (3 mul, 2 add), d2 (mul, sub), compare; per inside pair:
-    # sub, max, sqrt, sub, add, min, max
-    n_ops = 8.0 * r * v + 7.0 * inside + 10.0 * r
-    n_bytes = 4.0 * (r * 3 * 2 + r * 2 + v * 3 + r * 2)
-    b, by = bound_ms(n_bytes, n_ops)
     return {
         "name": "gg_near_far", "route": "cuda",
         "source": "dual_space_nerf_tpu_torch/csrc/gg_near_far.cu",
         "replaces": "dual_space_nerf_tpu/ops/gg_pallas.py:31",
-        "max_abs_err": err,
-        "ms": time_ms(lambda: gg_near_far_cuda(*args, gamma), reps=20),
+        "max_abs_err": 0.0,
+        "ms": s["wrapper_ms"], "device_ms": s["device_ms"],
         "plain_ms": time_ms(lambda: gg_near_far_plain(*args, gamma), reps=5),
-        "bound_ms": b, "bound_by": by, "library_ms": None,
-        "shape": {"rays": r, "verts": v, "inside_pairs": inside},
+        "bound_ms": s["bound"][0], "bound_by": s["bound"][1], "library_ms": None,
+        "issue_floor_ms": s["issue_floor_ms"],
+        "step": shapes["step"],
+        "resources": small_kernel_resources(GG_KERNEL),
+        "shape": {k: s[k] for k in ("rays", "verts", "inside_pairs")},
     }
 
 
@@ -298,36 +355,59 @@ def near_tie_only(pts, cents, ids_a, ids_b, what: str) -> int:
     return int(off.numel())
 
 
-def check_plan(pts_path, cloud, cents, mesh) -> dict:
+def check_plan(pts_path, cloud, pts_step, cents, mesh, step_cents, step_mesh) -> dict:
     """The plan kernel against the plan in plain torch ops: the same lists,
-    counts and lower bounds bit for bit, at several row sizes."""
+    counts and lower bounds bit for bit, at several row sizes, on the
+    render's blocked points, a random cloud and the training step's blocked
+    points; timed through the wrapper (events) and as bare launches into
+    preallocated outputs (device time), with its bound, issue floor and
+    resources."""
     name = LISTED_PLAN_KERNEL.name
     _, tile_c, tile_r, _ = listed_tables(cents, mesh.tile_table)
     n_tiles = mesh.tile_table.shape[0]
+    step_tabs = listed_tables(step_cents, step_mesh.tile_table)[1:3]
     mism = 0
-    for pts in (pts_path, cloud):
+    for pts, tabs in ((pts_path, (tile_c, tile_r)), (cloud, (tile_c, tile_r)), (pts_step, step_tabs)):
         for plan_p in (pruned_knn._PLAN_P_LISTED, 512, 2048):
-            got = pruned_knn.listed_plan(pts, tile_c, tile_r, n_tiles, plan_p)
-            want = pruned_knn.listed_plan_plain(pts, tile_c, tile_r, n_tiles, plan_p)
+            if pts.shape[0] % plan_p:
+                continue
+            got = pruned_knn.listed_plan(pts, *tabs, n_tiles, plan_p)
+            want = pruned_knn.listed_plan_plain(pts, *tabs, n_tiles, plan_p)
             torch.cuda.synchronize()
             mism += sum(int((a != b).sum()) for a, b in zip(got, want))
     if mism:
         raise AssertionError(f"{name}: {mism} plan entries differ from the plain version")
-    n, plan_p = pts_path.shape[0], pruned_knn._PLAN_P_LISTED
-    # per point-tile pair: witness distance 9 ops (3 sub, 3 mul, 2 add, min),
-    # AABB bound 14 (6 clamp, 3 sub, 3 mul, 2 add), compare + min 2
-    n_ops = 25.0 * n * n_tiles
-    n_bytes = 4.0 * (n * 3 + 9 * n_tiles + (n // plan_p) * (2 * n_tiles + 1))
-    b, by = bound_ms(n_bytes, n_ops)
+    plan_p = pruned_knn._PLAN_P_LISTED
+    shapes = {}
+    for label, pts, tabs in (("render", pts_path, (tile_c, tile_r)), ("step", pts_step, step_tabs)):
+        n = pts.shape[0]
+        outs = pruned_knn.listed_plan(pts, *tabs, n_tiles, plan_p)
+        bare = lambda pts=pts, tabs=tabs, outs=outs: pruned_knn.launch_plan(pts, *tabs, *outs, plan_p)
+        shapes[label] = {
+            "points": n,
+            "wrapper_ms": time_ms(lambda pts=pts, tabs=tabs: pruned_knn.listed_plan(
+                pts, *tabs, n_tiles, plan_p), reps=10),
+            "device_ms": device_turns_ms({"k": bare}, rounds=21)["k"][0],
+            "issue_floor_ms": issue_floor_ms(float(n) * n_tiles, PLAN_PAIR_OPS),
+            "bound": bound_ms(4.0 * (n * 3 + 9 * n_tiles + (n // plan_p) * (2 * n_tiles + 1)),
+                              PLAN_PAIR_OPS * n * n_tiles),
+        }
+    s = shapes["render"]
+    q = lambda sym: LISTED_PLAN_KERNEL.extra_function(sym, [ctypes.c_int] * 2)(plan_p, n_tiles)
+    resources = small_kernel_resources(LISTED_PLAN_KERNEL)
+    resources.update({"dynamic_smem_bytes": q("listed_plan_smem"), "blocks_per_sm": q("listed_plan_blocks_per_sm")})
     return {
         "name": name, "route": "cuda",
         "source": f"dual_space_nerf_tpu_torch/csrc/{LISTED_PLAN_KERNEL.source}",
         "replaces": "dual_space_nerf_tpu/ops/pruned_knn.py:643",
         "max_abs_err": 0.0, "mismatches": mism,
-        "ms": time_ms(lambda: pruned_knn.listed_plan(pts_path, tile_c, tile_r, n_tiles, plan_p), reps=10),
+        "ms": s["wrapper_ms"], "device_ms": s["device_ms"],
         "plain_ms": time_ms(lambda: pruned_knn.listed_plan_plain(pts_path, tile_c, tile_r, n_tiles, plan_p), reps=5),
-        "bound_ms": b, "bound_by": by, "library_ms": None,
-        "shape": {"points": n, "tiles": n_tiles, "plan_p": plan_p},
+        "bound_ms": s["bound"][0], "bound_by": s["bound"][1], "library_ms": None,
+        "issue_floor_ms": s["issue_floor_ms"],
+        "step": shapes["step"],
+        "resources": resources,
+        "shape": {"points": s["points"], "tiles": n_tiles, "plan_p": plan_p},
     }
 
 
@@ -466,7 +546,7 @@ def profile_device(fn) -> dict:
         ms = ev.self_device_time_total / 1e3
         kernels.append((ev.key, ms, ev.count))
         name = ev.key.lower()
-        if "gg_kernel" in name or "gg_rel" in name:
+        if "gg_kernel" in name:
             k = "gg_near_far kernel"
         elif "nearest_face" in name:
             k = "nearest_face kernel"
@@ -591,16 +671,22 @@ def fused_bound(n: int, with_color: bool, backward: bool) -> tuple[float, str]:
     return bound_ms(n_bytes, 2.0 * fused_macs(with_color, backward) * n)
 
 
-def train_world_points(batch, mesh, settings) -> torch.Tensor:
+def train_world_points(batch, mesh, settings, blocked: bool = False) -> torch.Tensor:
     """The 352,000 world points of the train batch (5500 rays x 64 samples),
-    formed by the pipeline's own steps: GG and jittered z."""
+    formed by the pipeline's own steps: GG and jittered z. blocked: in the
+    listed search's block-coherent layout, its tail padded as the search
+    pads it (352,256 points), as the production step's plan takes them."""
     dev = torch.device("cuda")
     with torch.no_grad():
         rays = batch.rays
         gen = torch.Generator(device=dev).manual_seed(7)
         u, _ = draw_randoms(rays.ray_o.shape[0], settings.n_samples, gen, dev)
         z = sample_z(rays, mesh, settings, u)
-        return sample_along_rays(rays.ray_o, rays.ray_d, z).reshape(-1, 3).contiguous()
+        pts = sample_along_rays(rays.ray_o, rays.ray_d, z)
+        if not blocked:
+            return pts.reshape(-1, 3).contiguous()
+        to_blocked, _ = _block_layout(*z.shape, settings.block_sc)
+        return pruned_knn._pad_edge(to_blocked(pts).contiguous(), pruned_knn._BLOCK_P_LISTED).contiguous()
 
 
 def fused_check_inputs(model, batch, mesh, settings, pts_w):
@@ -860,6 +946,21 @@ def search_resources(kernel, row_stride: int = 0) -> dict:
     return out
 
 
+def small_kernel_resources(kernel) -> dict:
+    """GG's or the plan's registers, spills and static shared memory
+    (`ptxas_entries` of its one entry); for GG also its resident blocks per
+    SM (no dynamic shared memory)."""
+    entries = ptxas_entries(kernel)
+    if not entries:
+        return {"registers": "not measured (no build in this run)"}
+    out = dict(next(iter(entries.values())))
+    if kernel is GG_KERNEL:
+        out["dynamic_smem_bytes"] = 0
+        out["blocks_per_sm"] = kernel.extra_function("gg_near_far_blocks_per_sm", [])()
+    out["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    return out
+
+
 def fused_resources(kernel) -> dict:
     """A fused kernel's registers and spilled bytes (stores + loads) per
     variant (`entry_resources`); its dynamic shared memory and resident
@@ -998,7 +1099,7 @@ def main() -> int:
     tpts_w = train_world_points(tbatch, tmesh, settings)
 
     # ---- 3. kernels against their plain versions, main-path shapes ------
-    kernels = [check_gg(rays0, mesh, settings.gg_gamma)]
+    kernels = [check_gg(rays0, mesh, tbatch.rays, tmesh, settings.gg_gamma)]
     near, far = gg_near_far_cuda(rays0.ray_o, rays0.ray_d, rays0.near, rays0.far,
                                  mesh.verts_world, settings.gg_gamma)
     z = stratified_z(near, far, settings.n_samples)
@@ -1014,19 +1115,23 @@ def main() -> int:
     brute_ids = {"path": nearest_face_cuda(pts_blocked, cents_w), "cloud": nearest_face_cuda(cloud, cents_w)}
     brute_ms = time_ms(lambda: nearest_face_cuda(pts_blocked, cents_w), reps=10)
     lib_ms = kernels[1]["library_ms"]
-    kernels.append(check_plan(pts_blocked, cloud, cents_w, mesh))
+    tcents_w = face_centroids(tmesh.verts_world, tmesh.faces).contiguous()
+    kernels.append(check_plan(pts_blocked, cloud, train_world_points(tbatch, tmesh, settings, blocked=True),
+                              cents_w, mesh, tcents_w, tmesh))
     kernels.append(check_listed(LISTED_KERNEL, False, pts_blocked, cloud, cents_w, mesh, brute_ids, lib_ms, brute_ms))
     kernels.append(check_listed(LISTED_SLIM_KERNEL, True, pts_blocked, cloud, cents_w, mesh, brute_ids, lib_ms, brute_ms))
     kernels.append(check_pruned(pts_blocked, cloud, cents_w, mesh, brute_ids, lib_ms, brute_ms))
     for k in kernels:
         log("kernel: " + json.dumps({key: k[key] for key in k if key not in ("route", "source", "replaces")}))
-    for k in kernels:  # the brute-force and listed searches: time against floor, resources
+    for k in kernels:  # GG, the searches and the plan: time against floor, resources
         if "issue_floor_ms" not in k:
             continue
-        log(f"search {k['name']}: " + json.dumps({
-            "ms": k["ms"], "issue_floor_ms": k["issue_floor_ms"], "bound_ms": k["bound_ms"],
-            "issue_floor_share": k["issue_floor_ms"] / k["ms"], "bound_share": k["bound_ms"] / k["ms"],
-            "resources": k["resources"]}))
+        floor = {"ms": k["ms"], "issue_floor_ms": k["issue_floor_ms"], "bound_ms": k["bound_ms"],
+                 "issue_floor_share": k["issue_floor_ms"] / k["ms"], "bound_share": k["bound_ms"] / k["ms"]}
+        if "device_ms" in k:  # bare launches, device time alone
+            floor |= {"device_ms": k["device_ms"], "device_issue_floor_share": k["issue_floor_ms"] / k["device_ms"],
+                      "step": k["step"]}
+        log(f"floor {k['name']}: " + json.dumps({**floor, "resources": k["resources"]}))
     log("sweep: " + json.dumps(sweep_granularity(pts_blocked, cents_w, mesh)))
     log("tables: " + json.dumps({
         "listed_tables_ms": time_ms(lambda: listed_tables(cents_w, mesh.tile_table), reps=10),

@@ -5,12 +5,14 @@ Replaces the TPU kernel `dual_space_nerf_tpu/ops/gg_pallas.py:_gg_kernel`
 plain PyTorch version is `geometry.sampling.gg_near_far`, re-exported here as
 `gg_near_far_plain`.
 
-Bound on the H100: operations (5.6e7 ray-vertex pairs of ~8 FP32 ops per
-8192-ray launch; under 0.3 MB moved). The design keeps the per-vertex setup
-out of the pair loop (a float4 table of v - o and |v - o|^2) and gives each
-ray a warp, so one 8192-ray chunk fills the card; see the source's header.
+Bound on the H100: instruction issue (5.6e7 ray-vertex pairs of 8 single
+FP32 instructions per 8192-ray launch, no FMA; under 0.3 MB moved). One
+launch: each block takes a tile of adjacent rays, stages the vertices as
+(v - o, |v - o|^2) in shared memory, drops those that no ray of the tile
+can touch (a bound with a margin past every rounding), and tests its rays
+against the rest, one broadcast load for 32 rays; see the source's header.
 The kernel equals its plain version bit for bit: both round every
-operation once, in the same order.
+operation of the result once, in the same order.
 """
 
 from __future__ import annotations
@@ -26,8 +28,10 @@ _P = ctypes.c_void_p
 GG_KERNEL = CudaKernel(
     "gg_near_far.cu",
     "gg_near_far_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
+    [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
 )
+RAY_TILE = 32             # rays of a block (the kernel's lanes)
+VERT_TILE = 1024          # vertices a block stages per pass
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -67,13 +71,19 @@ def gg_near_far_cuda(
     _check("verts", verts, (v, 3), dev)
     if r == 0 or v == 0:
         raise ValueError("gg_near_far: needs at least one ray and one vertex")
-    rel = torch.empty((v, 4), dtype=torch.float32, device=dev)
     near_out = torch.empty_like(near)
     far_out = torch.empty_like(far)
+    launch_gg(ray_o, ray_d, near, far, verts, near_out, far_out, gamma)
+    return near_out, far_out
+
+
+def launch_gg(ray_o, ray_d, near, far, verts, near_out, far_out, gamma: float) -> None:
+    """One bare launch of the kernel into preallocated outputs, without the
+    wrapper's checks (`gg_near_far_cuda` makes them)."""
+    dev = ray_d.device
     with torch.cuda.device(dev):
         GG_KERNEL.launch(
             ray_o.data_ptr(), ray_d.data_ptr(), near.data_ptr(), far.data_ptr(),
-            verts.data_ptr(), rel.data_ptr(), near_out.data_ptr(), far_out.data_ptr(),
-            r, v, float(gamma) * float(gamma), stream_ptr(dev),
+            verts.data_ptr(), near_out.data_ptr(), far_out.data_ptr(),
+            ray_d.shape[0], verts.shape[0], float(gamma) * float(gamma), stream_ptr(dev),
         )
-    return near_out, far_out

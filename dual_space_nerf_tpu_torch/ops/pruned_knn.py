@@ -77,7 +77,7 @@ LISTED_SLIM_KERNEL = CudaKernel(
 )
 LISTED_PLAN_KERNEL = CudaKernel(
     "listed_plan.cu", "listed_plan_launch",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 )
 PRUNED_KERNEL = CudaKernel(
     "pruned_knn.cu", "pruned_knn_launch",
@@ -317,11 +317,20 @@ def listed_plan_plain(pts: torch.Tensor, tile_c: torch.Tensor, tile_r: torch.Ten
 _PLAN_SMEM_MAX = 48 * 1024
 
 
+def plan_smem_bytes(plan_p: int, n_tiles: int) -> int:
+    """Shared memory of a plan kernel block (`csrc/listed_plan.cu`): the
+    witnesses twice (all, and those a row keeps) and the row's points as
+    float4, a candidate tile id and key a tile, 168 bytes of reduction
+    slots and counters, and a listed bit a tile."""
+    return 16 * (2 * n_tiles + plan_p) + 8 * n_tiles + 168 + 4 * (-(-n_tiles // 32))
+
+
 def listed_plan(pts: torch.Tensor, tile_c: torch.Tensor, tile_r: torch.Tensor,
                 n_tiles: int, plan_p: int):
     """The visit plan (`listed_plan_plain`: order, counts, lbs). CPU tensors
-    take the plain version; CUDA tensors launch `csrc/listed_plan.cu`, one
-    thread block per row, which gives the same plan bit for bit without the
+    take the plain version; CUDA tensors launch `csrc/listed_plan.cu`, a
+    block a row, which takes only the witnesses and tiles the row's bounding
+    box cannot rule out and writes the same plan bit for bit without the
     (N, T) temporaries (or raise)."""
     if pts.device.type == "cpu":
         return listed_plan_plain(pts, tile_c, tile_r, n_tiles, plan_p)
@@ -340,8 +349,7 @@ def listed_plan(pts: torch.Tensor, tile_c: torch.Tensor, tile_r: torch.Tensor,
     _check_table(name, "tile_r", tile_r, (8, t_pad), torch.float32, dev)
     if not 1 <= n_tiles <= t_pad:
         raise ValueError(f"{name}: {n_tiles} tiles for tables of {t_pad} columns")
-    n_sort = 1 << (n_tiles - 1).bit_length()
-    if plan_p * 16 + n_sort * 8 + 9 * n_tiles * 4 > _PLAN_SMEM_MAX:
+    if plan_smem_bytes(plan_p, n_tiles) > _PLAN_SMEM_MAX:
         raise ValueError(
             f"{name}: plan_p={plan_p} with {n_tiles} tiles exceeds the kernel's shared memory"
         )
@@ -349,13 +357,20 @@ def listed_plan(pts: torch.Tensor, tile_c: torch.Tensor, tile_r: torch.Tensor,
     order = torch.empty((rows, n_tiles), dtype=torch.int32, device=dev)
     counts = torch.empty((rows,), dtype=torch.int32, device=dev)
     lbs = torch.empty((rows, n_tiles), dtype=torch.float32, device=dev)
+    launch_plan(pts, tile_c, tile_r, order, counts, lbs, plan_p)
+    return order, counts, lbs
+
+
+def launch_plan(pts, tile_c, tile_r, order, counts, lbs, plan_p: int) -> None:
+    """One bare launch of the plan kernel into preallocated outputs, without
+    the wrapper's checks (`listed_plan` makes them)."""
+    dev = pts.device
     with torch.cuda.device(dev):
         LISTED_PLAN_KERNEL.launch(
             pts.data_ptr(), tile_c.data_ptr(), tile_r.data_ptr(), order.data_ptr(),
-            counts.data_ptr(), lbs.data_ptr(), n, plan_p, n_tiles, t_pad, n_sort,
-            stream_ptr(dev),
+            counts.data_ptr(), lbs.data_ptr(), pts.shape[0], plan_p, order.shape[1],
+            tile_c.shape[1], stream_ptr(dev),
         )
-    return order, counts, lbs
 
 
 # --------------------------------------------------------------------------

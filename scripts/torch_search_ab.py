@@ -1,24 +1,34 @@
 #!/usr/bin/env python3
-"""The port's brute-force and listed search kernels against another tree's,
-in turns, on one NVIDIA card.
+"""The port's search, GG and visit-plan kernels against another tree's, in
+turns, on one NVIDIA card.
 
     git archive <commit> dual_space_nerf_tpu_torch/csrc | tar -x -C <dir>
     python3 scripts/torch_search_ab.py --other <dir>/dual_space_nerf_tpu_torch/csrc [--other ...]
+        [--sections searches,gg,plan]
 
-Each other tree's `nearest_face.cu`, `listed_knn.cu` and `listed_knn_slim.cu`
-are built beside this tree's (`CudaKernel(csrc=...)`), named by the
-directory two levels above its csrc/ (or the csrc/'s parent). A brute-force
-launcher without the face split has the signature
-`nearest_face_launch(pts, cents, out, n_pts, n_faces, stream)`; the listed
-launchers have this tree's signatures. On the shapes of `chip_smoke.py`
-phase 3 (the render chunk's 524,288 world points, as many blocked points,
-a random cloud, and the training step's 352,000 world points) the script:
+Each other tree's `nearest_face.cu`, `listed_knn.cu`, `listed_knn_slim.cu`,
+`gg_near_far.cu` and `listed_plan.cu` are built beside this tree's
+(`CudaKernel(csrc=...)`), named by the directory two levels above its csrc/
+(or the csrc/'s parent). A brute-force launcher without the face split has
+the signature `nearest_face_launch(pts, cents, out, n_pts, n_faces,
+stream)`; a GG launcher with a `rel` scratch argument (the two-kernel
+design) takes a (V, 4) scratch after `verts`; a plan launcher with
+`n_sort` (the bitonic design) takes the power of two >= n_tiles before the
+stream. On the shapes of
+`chip_smoke.py` phase 3 (the render chunk's 8192 rays and 524,288 world
+points, as many blocked points, a random cloud, and the training step's
+5500 rays, 352,000 world points and 352,256 blocked points) the script:
 
-1. holds every version's ids equal, id for id, and to the plain versions;
+1. holds every version's outputs equal, bit for bit or id for id, and to
+   the plain versions;
 2. times each kernel and the other trees' in turns (this, other, ...,
    this, other, ...; CUDA events, median and range over ``--rounds``);
+   GG and the plan as bare launches into preallocated outputs with the
+   card kept busy ahead of each (`chip_smoke.device_turns_ms`: device time
+   alone), and also through this tree's wrapper;
 3. times this tree's brute-force kernel at forced face splits against the
-   split that `face_splits` chooses, in turns.
+   split that `face_splits` chooses, in turns, and reports the share of
+   GG's pairs and the plan's witnesses and tiles that their culls keep.
 
 Prints one JSON line per measurement, the card line, and writes all of it
 to ``--out``.
@@ -49,15 +59,19 @@ from dual_space_nerf_tpu_torch.data import (  # noqa: E402
 from dual_space_nerf_tpu_torch.evaluation.golden import slice_cfg  # noqa: E402
 from dual_space_nerf_tpu_torch.geometry import sample_along_rays, stratified_z  # noqa: E402
 from dual_space_nerf_tpu_torch.ops import (  # noqa: E402
+    GG_KERNEL,
     LISTED_KERNEL,
+    LISTED_PLAN_KERNEL,
     LISTED_SLIM_KERNEL,
     NEAREST_KERNEL,
     face_centroids,
     gg_near_far_cuda,
+    gg_near_far_plain,
     listed_tables,
     nearest_face_plain,
     pruned_knn,
 )
+from dual_space_nerf_tpu_torch.ops import gg_cuda  # noqa: E402
 from dual_space_nerf_tpu_torch.ops.cuda_build import CudaKernel, build_all, stream_ptr  # noqa: E402
 from dual_space_nerf_tpu_torch.ops.nearest_face import kernel_splits  # noqa: E402
 from dual_space_nerf_tpu_torch.renderer import RenderSettings  # noqa: E402
@@ -83,19 +97,52 @@ def other_kernels(csrc: str) -> dict:
         split = "void* keys" in f.read()
     with open(os.path.join(csrc, "listed_knn.cu")) as f:
         ranked = "row_of_rank" in f.read()
+    with open(os.path.join(csrc, "gg_near_far.cu")) as f:
+        gg_rel = "float* rel" in f.read()
+    with open(os.path.join(csrc, "listed_plan.cu")) as f:
+        bitonic = "n_sort" in f.read()
     nearest_args = NEAREST_KERNEL.argtypes if split else [_P, _P, _P, _I, _I, _P]
+    gg_args = [_P] * 8 + [_I, _I, ctypes.c_float, _P] if gg_rel else GG_KERNEL.argtypes
+    plan_args = LISTED_PLAN_KERNEL.argtypes[:-1] + [_I, _P] if bitonic else LISTED_PLAN_KERNEL.argtypes
     # a listed launcher without the row order lacks its scratch pointer
     wide_args, slim_args = LISTED_KERNEL.argtypes, LISTED_SLIM_KERNEL.argtypes
     if not ranked:
         wide_args, slim_args = wide_args[:6] + wide_args[7:], slim_args[:6] + slim_args[7:]
     return {
-        "split": split, "ranked": ranked,
+        "split": split, "ranked": ranked, "gg_rel": gg_rel, "bitonic": bitonic,
         "nearest_face": CudaKernel("nearest_face.cu", "nearest_face_launch", nearest_args, csrc=csrc),
         "listed_knn": CudaKernel("listed_knn.cu", "listed_knn_launch", wide_args,
                                  includes=("listed_knn.cuh",), csrc=csrc),
         "listed_knn_slim": CudaKernel("listed_knn_slim.cu", "listed_knn_slim_launch", slim_args,
                                       includes=("listed_knn.cuh",), csrc=csrc),
+        "gg_near_far": CudaKernel("gg_near_far.cu", "gg_near_far_launch", gg_args, csrc=csrc),
+        "listed_plan": CudaKernel("listed_plan.cu", "listed_plan_launch", plan_args, csrc=csrc),
     }
+
+
+FLAGS = ("split", "ranked", "gg_rel", "bitonic")
+
+
+def other_gg(other, args, outs, gamma, rel=None):
+    """One bare GG launch of a tree's kernel into ``outs``; ``rel``: the
+    (V, 4) scratch of the two-kernel design, preallocated."""
+    head = [a.data_ptr() for a in args]
+    r, v = args[1].shape[0], args[4].shape[0]
+    g2 = float(gamma) * float(gamma)
+    dev = args[1].device
+    scratch = (rel.data_ptr(),) if other["gg_rel"] else ()
+    other["gg_near_far"].launch(*head, *scratch, outs[0].data_ptr(), outs[1].data_ptr(), r, v, g2,
+                                stream_ptr(dev))
+
+
+def other_plan(other, pts, tile_c, tile_r, outs, plan_p):
+    """One bare plan launch of a tree's kernel into ``outs`` (order, counts,
+    lbs)."""
+    n_tiles = outs[0].shape[1]
+    n_sort = (1 << (n_tiles - 1).bit_length(),) if other["bitonic"] else ()
+    other["listed_plan"].launch(pts.data_ptr(), tile_c.data_ptr(), tile_r.data_ptr(),
+                                *(o.data_ptr() for o in outs), pts.shape[0], plan_p, n_tiles,
+                                tile_c.shape[1], *n_sort, stream_ptr(pts.device))
 
 
 def other_nearest(other, pts, cents, splits):
@@ -141,9 +188,12 @@ def inputs(dev):
     tds = SyntheticDataset(split="train", nrays=cs.TRAIN_RAYS, n_frames=1, n_views=1, h=cs.H, w=cs.W)
     titem = tds[0]
     tmesh = item_to_mesh(titem, tds.faces, tds.canonical_vertex, dev)
-    tpts = cs.train_world_points(item_to_train_batch(titem, cs.TRAIN_RAYS, dev), tmesh, settings)
+    tbatch = item_to_train_batch(titem, cs.TRAIN_RAYS, dev)
+    tpts = cs.train_world_points(tbatch, tmesh, settings)
     blocked = to_blocked(pts_rs).contiguous()
     return {
+        "rays": rays0, "step_rays": tbatch.rays, "step_mesh": tmesh, "gamma": settings.gg_gamma,
+        "step_blocked": cs.train_world_points(tbatch, tmesh, settings, blocked=True),
         "mesh": mesh, "cents": cents, "world": pts_rs.reshape(-1, 3).contiguous(),
         "blocked": blocked, "cloud": cs.random_cloud(blocked.shape[0], cents),
         "step": tpts, "step_cents": face_centroids(tmesh.verts_world, tmesh.faces).contiguous(),
@@ -155,6 +205,8 @@ def main() -> int:
     ap.add_argument("--other", required=True, action="append",
                     help="another tree's dual_space_nerf_tpu_torch/csrc (repeatable)")
     ap.add_argument("--rounds", type=int, default=11)
+    ap.add_argument("--sections", default="searches,gg,plan",
+                    help="comma-separated: searches, gg, plan")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "search_ab.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -168,14 +220,17 @@ def main() -> int:
         parts = d.rstrip("/").split("/")
         label = parts[-3] if parts[-1] == "csrc" and parts[-2] == "dual_space_nerf_tpu_torch" else parts[-2]
         others[label] = other_kernels(d)
-    build_s = build_all([NEAREST_KERNEL, LISTED_KERNEL, LISTED_SLIM_KERNEL, pruned_knn.LISTED_PLAN_KERNEL,
-                         *(k for o in others.values() for n, k in o.items() if n not in ("split", "ranked"))])
+    sections = set(args.sections.split(","))
+    build_s = build_all([NEAREST_KERNEL, LISTED_KERNEL, LISTED_SLIM_KERNEL, LISTED_PLAN_KERNEL, GG_KERNEL,
+                         *(k for o in others.values() for n, k in o.items() if n not in FLAGS)])
     results = {"card": card, "build_s": build_s, "rounds": args.rounds, "nearest_face": [],
-               "listed": [], "listed_even": [], "listed_order": [], "splits": [], "ptxas": {}}
+               "listed": [], "listed_even": [], "listed_order": [], "splits": [], "gg": [], "plan": [],
+               "ptxas": {}}
     for label, kernels in (("this", {"nearest_face": NEAREST_KERNEL, "listed_knn": LISTED_KERNEL,
-                                     "listed_knn_slim": LISTED_SLIM_KERNEL}), *others.items()):
+                                     "listed_knn_slim": LISTED_SLIM_KERNEL, "gg_near_far": GG_KERNEL,
+                                     "listed_plan": LISTED_PLAN_KERNEL}), *others.items()):
         for name, k in kernels.items():
-            if name not in ("split", "ranked"):  # registers, spills and shared memory per entry
+            if name not in FLAGS:  # registers, spills and shared memory per entry
                 results["ptxas"][f"{label} {name}"] = cs.ptxas_entries(k)
     print("ptxas: " + json.dumps(results["ptxas"]), flush=True)
 
@@ -183,9 +238,146 @@ def main() -> int:
         results[kind].append(row)
         print(f"{kind}: " + json.dumps(row), flush=True)
 
-    mine = {"split": True, "ranked": True, "nearest_face": NEAREST_KERNEL, "listed_knn": LISTED_KERNEL,
-            "listed_knn_slim": LISTED_SLIM_KERNEL}
+    mine = {"split": True, "ranked": True, "gg_rel": False, "bitonic": False, "nearest_face": NEAREST_KERNEL,
+            "listed_knn": LISTED_KERNEL, "listed_knn_slim": LISTED_SLIM_KERNEL, "gg_near_far": GG_KERNEL,
+            "listed_plan": LISTED_PLAN_KERNEL}
     x = inputs(dev)
+    if "gg" in sections:
+        gg_section(x, others, args.rounds, report)
+    if "plan" in sections:
+        plan_section(x, others, args.rounds, report)
+    if "searches" in sections:
+        search_sections(x, mine, others, args.rounds, report)
+    print(card)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(results, f, indent=1)
+    return 0
+
+
+def equal_outputs(want, fns: dict, what: str) -> None:
+    """Every version's outputs (each fn returns a tuple of tensors) equal
+    ``want`` bit for bit."""
+    for name, fn in fns.items():
+        got = fn()
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {name}'s output {i} differs from the plain version")
+
+
+def gg_cull_share(rays, verts, gamma, tile: int = 32) -> float:
+    """The share of (ray, vertex) pairs that GG's cull keeps (a torch
+    replica of the bound in `csrc/gg_near_far.cu`, tiles of ``tile``
+    consecutive rays)."""
+    d = rays.ray_d / torch.linalg.norm(rays.ray_d, dim=-1, keepdim=True)
+    rel = verts - rays.ray_o[0]
+    r2 = (rel * rel).sum(-1)
+    kept = 0
+    for b in range(0, d.shape[0], tile):
+        dt = d[b:b + tile]
+        a = d[min(b + tile // 2, d.shape[0] - 1)]
+        rho = float(torch.linalg.norm(dt - a, dim=-1).max()) * 1.001 + 1e-4
+        lb = torch.linalg.norm(torch.cross(rel, a.expand_as(rel), dim=-1), dim=-1) - r2.sqrt() * rho
+        kept += int((~((lb > 0) & (lb * lb > gamma * gamma + 1e-4 * r2))).sum()) * dt.shape[0]
+    return kept / (d.shape[0] * verts.shape[0])
+
+
+def plan_cull_counts(pts, tile_c, tile_r, n_tiles, plan_p) -> dict:
+    """Per row, the witnesses and tiles that the plan kernel's culls keep
+    (a torch replica of the bounds in `csrc/listed_plan.cu`), means and
+    maxima."""
+    p = pts.reshape(-1, plan_p, 3)
+    wit, lo, hi = tile_r[0:3, :n_tiles].T, tile_c[0:3, :n_tiles].T, tile_c[3:6, :n_tiles].T
+    b_lo, b_hi = p.amin(1)[:, None], p.amax(1)[:, None]                   # (rows, 1, 3)
+    d2 = ((p[:, :, None] - wit[None, None]) ** 2).sum(-1)                 # (rows, P, T)
+    t0 = d2[:, 0].argmin(-1)
+    u_max = d2.gather(2, t0[:, None, None].expand(-1, plan_p, 1)).amax(1)  # (rows, 1)
+    gap = torch.where(wit > b_hi, wit - b_hi, torch.where(wit < b_lo, b_lo - wit, 0.0))
+    w_keep = (gap * gap).sum(-1) <= u_max
+    u = d2.masked_fill(~w_keep[:, None], float("inf")).amin(-1).sqrt() * (1.0 + 1e-5) + 1e-6
+    gap = torch.where(lo > b_hi, lo - b_hi, torch.where(hi < b_lo, b_lo - hi, 0.0))
+    t_keep = (gap * gap).sum(-1) <= (u * u).amax(1, keepdim=True)
+    w, t = w_keep.sum(1).float(), t_keep.sum(1).float()
+    return {"witnesses_kept_mean": float(w.mean()), "witnesses_kept_max": int(w.max()),
+            "tiles_kept_mean": float(t.mean()), "tiles_kept_max": int(t.max())}
+
+
+def gg_section(x, others, rounds, report) -> None:
+    """GG: this tree's kernel and the other trees', bit for bit and in turns
+    (device time of bare launches), at the render chunk's 8192 rays and the
+    step's 5500."""
+    gamma = x["gamma"]
+    for label, rays, mesh in (("render 8192 rays", x["rays"], x["mesh"]),
+                              ("train step 5500 rays", x["step_rays"], x["step_mesh"])):
+        args = (rays.ray_o, rays.ray_d, rays.near, rays.far, mesh.verts_world)
+        rel = torch.empty((mesh.verts_world.shape[0], 4), dtype=torch.float32, device=rays.ray_d.device)
+        fns, outs = {}, {}
+        outs["this"] = (torch.empty_like(rays.near), torch.empty_like(rays.far))
+        fns["this"] = lambda: gg_cuda.launch_gg(*args, *outs["this"], gamma)
+        for name, o in others.items():
+            outs[name] = (torch.empty_like(rays.near), torch.empty_like(rays.far))
+            fns[name] = lambda o=o, out=outs[name]: other_gg(o, args, out, gamma, rel)
+        want = gg_near_far_plain(*args, gamma)
+
+        def run(fn, name):
+            fn()
+            return outs[name]
+
+        equal_outputs(want, {name: (lambda fn=fn, name=name: run(fn, name)) for name, fn in fns.items()}, label)
+        t = cs.device_turns_ms(fns, rounds)
+        wrap = cs.alternate_ms({"this wrapper": lambda: gg_near_far_cuda(*args, gamma)}, rounds)
+        floor, inside = cs.gg_floor_ms(rays.ray_o, rays.ray_d, mesh.verts_world, gamma)
+        report("gg", {"shape": label, "rays": rays.ray_d.shape[0], "verts": mesh.verts_world.shape[0],
+                      "inside_pairs": inside, "issue_floor_ms": floor,
+                      "cull_kept_pair_share": gg_cull_share(rays, mesh.verts_world, gamma),
+                      **{f"{k}_device_ms": v[0] for k, v in t.items()},
+                      **{f"{k}_range": v[1] for k, v in t.items()},
+                      "this_wrapper_ms": wrap["this wrapper"][0], "this_wrapper_range": wrap["this wrapper"][1],
+                      "clock_sm_power_under_load": clock_under_load(fns["this"], 4000)})
+
+
+def plan_section(x, others, rounds, report) -> None:
+    """The plan: this tree's kernel and the other trees', bit for bit and in
+    turns (device time of bare launches), at the render's blocked 524,288
+    points and the step's 352,256."""
+    plan_p = pruned_knn._PLAN_P_LISTED
+    for label, pts, cents, mesh in (
+        ("render blocked 524,288", x["blocked"], x["cents"], x["mesh"]),
+        ("train step blocked 352,256", x["step_blocked"], x["step_cents"], x["step_mesh"]),
+    ):
+        _, tile_c, tile_r, _ = listed_tables(cents, mesh.tile_table)
+        n_tiles = mesh.tile_table.shape[0]
+        want = pruned_knn.listed_plan_plain(pts, tile_c, tile_r, n_tiles, plan_p)
+        fns, outs = {}, {}
+        outs["this"] = tuple(torch.empty_like(w) for w in want)
+        fns["this"] = lambda: pruned_knn.launch_plan(pts, tile_c, tile_r, *outs["this"], plan_p)
+        for name, o in others.items():
+            outs[name] = tuple(torch.empty_like(w) for w in want)
+            fns[name] = lambda o=o, out=outs[name]: other_plan(o, pts, tile_c, tile_r, out, plan_p)
+
+        def run(fn, name):
+            fn()
+            return outs[name]
+
+        equal_outputs(want, {name: (lambda fn=fn, name=name: run(fn, name)) for name, fn in fns.items()}, label)
+        t = cs.device_turns_ms(fns, rounds)
+        wrap = cs.alternate_ms({"this wrapper": lambda: pruned_knn.listed_plan(
+            pts, tile_c, tile_r, n_tiles, plan_p)}, rounds)
+        q = lambda sym: LISTED_PLAN_KERNEL.extra_function(sym, [_I, _I])(plan_p, n_tiles)
+        report("plan", {"shape": label, "points": pts.shape[0], "tiles": n_tiles,
+                        "visits_mean": float(want[1].float().mean()),
+                        **plan_cull_counts(pts, tile_c, tile_r, n_tiles, plan_p),
+                        "issue_floor_ms": cs.issue_floor_ms(float(pts.shape[0]) * n_tiles, cs.PLAN_PAIR_OPS),
+                        "blocks_per_sm": q("listed_plan_blocks_per_sm"), "smem_bytes": q("listed_plan_smem"),
+                        **{f"{k}_device_ms": v[0] for k, v in t.items()},
+                        **{f"{k}_range": v[1] for k, v in t.items()},
+                        "this_wrapper_ms": wrap["this wrapper"][0], "this_wrapper_range": wrap["this wrapper"][1],
+                        "clock_sm_power_under_load": clock_under_load(fns["this"], 4000)})
+
+
+def search_sections(x, mine, others, rounds, report) -> None:
+    """The brute-force and listed searches against the other trees'."""
 
     def turns(this, that: dict, same) -> dict:
         """``this`` and every other version: the same ids, then timed in turns."""
@@ -197,7 +389,7 @@ def main() -> int:
                 raise AssertionError(f"{name}: ids differ from this tree's")
         if not torch.equal(ids, same()):
             raise AssertionError("this tree's ids differ from the plain version")
-        t = cs.alternate_ms({"this": this, **that}, args.rounds)
+        t = cs.alternate_ms({"this": this, **that}, rounds)
         return {f"{k}_ms": v[0] for k, v in t.items()} | {f"{k}_range": v[1] for k, v in t.items()}
 
     for label, pts, cents in (("render world 524,288", x["world"], x["cents"]),
@@ -212,7 +404,7 @@ def main() -> int:
                                 "clock_sm_power_under_load": clock_under_load(this)})
         if label != "random cloud 524,288":
             splits = {f"splits={s}": (lambda s=s: other_nearest(mine, pts, cents, s)) for s in (1, 2, 3, 4)}
-            t = cs.alternate_ms({"auto": this, **splits}, args.rounds)
+            t = cs.alternate_ms({"auto": this, **splits}, rounds)
             report("splits", {"shape": label, "auto": auto, **{k: {"ms": v[0], "range": v[1]} for k, v in t.items()}})
 
     cent_t, tile_c, tile_r, _ = listed_tables(x["cents"], x["mesh"].tile_table)
@@ -240,7 +432,7 @@ def main() -> int:
         pairs = float(even.sum()) * plan_p * 128
         for variant, slim in (("wide", False), ("slim", True)):
             t = cs.time_ms(lambda: other_listed(mine, slim, False,
-                                                x["blocked"], cent_t, order, even, lbs, plan_p), reps=args.rounds)
+                                                x["blocked"], cent_t, order, even, lbs, plan_p), reps=rounds)
             report("listed_even", {"visits_per_row": visits, "variant": variant, "pairs": pairs, "ms": t,
                                    "ns_per_pair": t * 1e6 / pairs, "issue_floor_ms": cs.issue_floor_ms(pairs)})
     # the same rows in another order: longest list first, and last
@@ -253,14 +445,9 @@ def main() -> int:
         pairs = float(counts.sum()) * plan_p * 128
         for variant, slim in (("wide", False), ("slim", True)):
             t = cs.time_ms(lambda: other_listed(mine, slim, False,
-                                                p_pts, cent_t, *p_plan, plan_p), reps=args.rounds)
+                                                p_pts, cent_t, *p_plan, plan_p), reps=rounds)
             report("listed_order", {"rows": label, "variant": variant, "pairs": pairs, "ms": t,
                                     "issue_floor_ms": cs.issue_floor_ms(pairs)})
-    print(card)
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(results, f, indent=1)
-    return 0
 
 
 if __name__ == "__main__":

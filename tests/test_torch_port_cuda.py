@@ -25,6 +25,7 @@ from dual_space_nerf_tpu_torch.ops import (
     nearest_face_plain,
     pruned_knn,
 )
+from dual_space_nerf_tpu_torch.ops.gg_cuda import RAY_TILE, VERT_TILE
 
 pytestmark = pytest.mark.cuda
 
@@ -53,13 +54,87 @@ def _rays(scene, r, dev):
         o, d, np.full(r, 0.5, np.float32), np.full(r, 4.0, np.float32), scene.verts_world)]
 
 
-@pytest.mark.parametrize("r", [1, 8191, 8192])
+@pytest.mark.parametrize("r", [1, 5500, 8191, 8192, 8193])
 def test_gg_kernel_equals_plain(dev, scene, r):
     args = _rays(scene, r, dev)
     n_k, f_k = gg_near_far_cuda(*args)
     n_p, f_p = gg_near_far_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(n_k, n_p) and torch.equal(f_k, f_p)  # the same roundings
+
+
+@pytest.mark.parametrize("r", [RAY_TILE - 1, RAY_TILE, RAY_TILE + 1, 2 * RAY_TILE + 1])
+def test_gg_kernel_ray_tiles(dev, scene, r):
+    """Ray counts around the block's tile of rays."""
+    args = _rays(scene, r, dev)
+    n_k, f_k = gg_near_far_cuda(*args)
+    n_p, f_p = gg_near_far_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(n_k, n_p) and torch.equal(f_k, f_p)
+
+
+def _pixel_rays(scene, h, w, dev, fov=0.6):
+    """Scanline-ordered rays of an h x w pinhole grid aimed at the mesh's
+    centre: adjacent rays are adjacent pixels, as in a render chunk, so the
+    cull drops most vertices of a ray tile."""
+    eye = (-scene.R.T @ scene.T).ravel()
+    fwd = scene.verts_world.mean(0) - eye
+    fwd = fwd / np.linalg.norm(fwd)
+    right = np.cross(fwd, [0.0, 0.0, 1.0])
+    right = right / np.linalg.norm(right)
+    up = np.cross(right, fwd)
+    v, u = np.meshgrid(np.linspace(-fov, fov, h), np.linspace(-fov, fov, w), indexing="ij")
+    d = (fwd + u.reshape(-1, 1) * right + v.reshape(-1, 1) * up).astype(np.float32)
+    r = d.shape[0]
+    o = np.broadcast_to(eye, (r, 3)).astype(np.float32)
+    return [torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in (
+        o, d, np.full(r, 0.5, np.float32), np.full(r, 4.0, np.float32), scene.verts_world)]
+
+
+@pytest.mark.parametrize("gamma", [0.02, 0.05, 0.2])
+def test_gg_kernel_cull_on_pixel_rays(dev, scene, gamma):
+    """On coherent pixel rays, where the cull drops most vertices of a ray
+    tile, the same bits as the plain version."""
+    args = _pixel_rays(scene, 96, 128, dev)
+    n_k, f_k = gg_near_far_cuda(*args, gamma)
+    n_p, f_p = gg_near_far_plain(*args, gamma)
+    torch.cuda.synchronize()
+    assert torch.equal(n_k, n_p) and torch.equal(f_k, f_p)
+    assert int((n_k != args[2]).sum()) > 100  # some rays hit the body
+
+
+@pytest.mark.parametrize("v", [1, VERT_TILE - 1, VERT_TILE, VERT_TILE + 1, 6890])
+def test_gg_kernel_vertex_counts(dev, scene, v):
+    """Vertex counts around the block's staged tile."""
+    args = _rays(scene, 777, dev)
+    args[4] = args[4][:v].contiguous()
+    if v == 1:  # aim some rays at the one vertex
+        args[1][::3] = args[4][0] - args[0][0]
+    n_k, f_k = gg_near_far_cuda(*args)
+    n_p, f_p = gg_near_far_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(n_k, n_p) and torch.equal(f_k, f_p)
+
+
+@pytest.mark.parametrize("gamma", [1e-6, 100.0])
+def test_gg_kernel_no_sphere_and_every_sphere(dev, scene, gamma):
+    """Rays that touch no sphere keep near/far; with a gamma larger than the
+    scene every ray is inside every sphere."""
+    args = _rays(scene, 1000, dev)
+    n_k, f_k = gg_near_far_cuda(*args, gamma)
+    n_p, f_p = gg_near_far_plain(*args, gamma)
+    torch.cuda.synchronize()
+    assert torch.equal(n_k, n_p) and torch.equal(f_k, f_p)
+    hit = (n_k != args[2]) | (f_k != args[3])
+    assert bool(hit.all()) if gamma > 1 else int(hit.sum()) < 1000
+
+
+def test_gg_kernel_two_calls_give_the_same_bits(dev, scene):
+    args = _rays(scene, 8192, dev)
+    a = gg_near_far_cuda(*args)
+    b = gg_near_far_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def _world_centroids(scene, dev):
@@ -175,6 +250,67 @@ def test_listed_plan_kernel_equals_plain(dev, scene, n, plan_p):
     for name, a, b in zip(("order", "counts", "lbs"), got, want):
         assert a.dtype == b.dtype and torch.equal(a, b), name
     assert int(got[1].min()) >= 1
+
+
+def _plan_tables(kind, n_tiles, plan_p, rows, dev, seed=3):
+    """(tile_c, tile_r) of `listed_tables`' layout, (8, 128), and rows x
+    plan_p points for one kind of row: "ties" (random boxes, every odd tile
+    a copy of the one before it), "all" (boxes that all hold the points:
+    every tile listed, key 0) or "one" (boxes 10 apart, each row's points at
+    one tile's centre: that tile alone listed)."""
+    rng = np.random.default_rng(seed)
+    tile_c = np.full((8, 128), 1e15, np.float32)
+    tile_r = np.full((8, 128), 1e15, np.float32)
+    n = rows * plan_p
+    if kind == "ties":
+        mid = 4.0 * rng.random((n_tiles, 3))
+        half = 0.1 + 0.2 * rng.random((n_tiles, 3))
+        mid[1::2], half[1::2] = mid[0:n_tiles - 1:2], half[0:n_tiles - 1:2]
+        pts = mid[rng.integers(0, n_tiles, n)] + 0.3 * rng.standard_normal((n, 3))
+    elif kind == "all":
+        mid = 0.2 * rng.standard_normal((n_tiles, 3))
+        half = 1.5 + rng.random((n_tiles, 3))
+        pts = rng.random((n, 3)) - 0.5
+    else:
+        mid = 10.0 * np.stack([np.arange(n_tiles), np.zeros(n_tiles), np.zeros(n_tiles)], 1)
+        half = np.full((n_tiles, 3), 0.5)
+        pts = np.repeat(mid[rng.integers(0, n_tiles, rows)], plan_p, axis=0)
+    tile_c[0:3, :n_tiles] = (mid - half).T
+    tile_c[3:6, :n_tiles] = (mid + half).T
+    tile_r[0:3, :n_tiles] = mid.T
+    return [torch.as_tensor(a.astype(np.float32), device=dev) for a in (tile_c, tile_r, pts)]
+
+
+@pytest.mark.parametrize("plan_p", [128, 512, 2048])
+@pytest.mark.parametrize("n_tiles", [1, 100, 128])
+@pytest.mark.parametrize("kind", ["ties", "all", "one"])
+def test_listed_plan_kernel_planted_rows(dev, kind, n_tiles, plan_p):
+    """Planted key ties (broken by tile id), rows with every tile listed and
+    rows with one, bit for bit against the plain version."""
+    tile_c, tile_r, pts = _plan_tables(kind, n_tiles, plan_p, 5, dev)
+    got = pruned_knn.listed_plan(pts, tile_c, tile_r, n_tiles, plan_p)
+    want = pruned_knn.listed_plan_plain(pts, tile_c, tile_r, n_tiles, plan_p)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("order", "counts", "lbs"), got, want):
+        assert torch.equal(a, b), name
+    if kind != "ties":
+        assert bool((got[1] == (n_tiles if kind == "all" else 1)).all())
+
+
+@pytest.mark.parametrize("rows", [1, 10, 4097])
+def test_listed_plan_kernel_row_counts(dev, scene, rows):
+    """Every entry of every row is written (outputs prefilled with -1)."""
+    pts, cents, tiles, _ = _search_inputs(scene, rows * 128, dev)
+    _, tile_c, tile_r, _ = listed_tables(cents, tiles)
+    t = tiles.shape[0]
+    order = torch.full((rows, t), -1, dtype=torch.int32, device=dev)
+    counts = torch.full((rows,), -1, dtype=torch.int32, device=dev)
+    lbs = torch.full((rows, t), -1.0, dtype=torch.float32, device=dev)
+    pruned_knn.launch_plan(pts, tile_c, tile_r, order, counts, lbs, 128)
+    want = pruned_knn.listed_plan_plain(pts, tile_c, tile_r, t, 128)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("order", "counts", "lbs"), (order, counts, lbs), want):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("n", [128, 2048, 524_288])

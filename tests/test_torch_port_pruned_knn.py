@@ -192,6 +192,87 @@ def test_plan_never_drops_the_nearest_tile(mesh, rng_np, plan_p):
             assert counts.float().mean() > 4
 
 
+def _plan_tables(kind, n_tiles, rng):
+    """(tile_c, tile_r) of `listed_tables`' layout, (8, 128) float32, and 4
+    rows of 128 points for one kind of row:
+
+    - "ties": random boxes with their centres as witnesses, every odd tile
+      a copy of the tile before it, so listed keys tie in pairs;
+    - "all": boxes that all hold the unit cube, the points inside it, so
+      every tile is listed with key 0;
+    - "one": boxes 10 apart with their centres as witnesses, each row's
+      points at one tile's centre, so that tile alone is listed."""
+    t_pad, plan_p = 128, 128
+    tile_c = np.full((8, t_pad), 1e15, np.float32)
+    tile_r = np.full((8, t_pad), 1e15, np.float32)
+    if kind == "ties":
+        mid = 4.0 * rng.random((n_tiles, 3))
+        half = 0.1 + 0.2 * rng.random((n_tiles, 3))
+        mid[1::2], half[1::2] = mid[0:n_tiles - 1:2], half[0:n_tiles - 1:2]
+        pts = mid[rng.integers(0, n_tiles, 4 * plan_p)] + 0.3 * rng.standard_normal((4 * plan_p, 3))
+    elif kind == "all":
+        mid = np.zeros((n_tiles, 3)) + 0.2 * rng.standard_normal((n_tiles, 3))
+        half = 1.5 + rng.random((n_tiles, 3))
+        pts = rng.random((4 * plan_p, 3)) - 0.5
+    else:
+        mid = 10.0 * np.stack([np.arange(n_tiles), np.zeros(n_tiles), np.zeros(n_tiles)], 1)
+        half = np.full((n_tiles, 3), 0.5)
+        pts = np.repeat(mid[rng.integers(0, n_tiles, 4)], plan_p, axis=0)
+    tile_c[0:3, :n_tiles] = (mid - half).T
+    tile_c[3:6, :n_tiles] = (mid + half).T
+    tile_r[0:3, :n_tiles] = mid.T
+    return (torch.from_numpy(tile_c), torch.from_numpy(tile_r),
+            torch.from_numpy(pts.astype(np.float32)))
+
+
+def _rank_rule(keys):
+    """The plan kernel's order in closed form (`csrc/listed_plan.cu`), for
+    one row's keys (inf where a tile is not listed): a listed tile's rank is
+    the number of listed tiles with a smaller key, or an equal key and a
+    smaller id; an unlisted tile's is the number of listed tiles plus the
+    number of unlisted tiles with a smaller id."""
+    listed = np.isfinite(keys)
+    n_listed = int(listed.sum())
+    below = np.cumsum(listed) - listed  # listed tiles with a smaller id
+    listed_keys = keys[listed]          # in id order
+    j = np.arange(n_listed)
+    order = np.full(len(keys), -1, np.int64)
+    lbs = np.full(len(keys), np.nan, np.float32)
+    for t, k in enumerate(keys):
+        if listed[t]:
+            rank = int(((listed_keys < k) | ((listed_keys == k) & (j < below[t]))).sum())
+        else:
+            rank = n_listed + t - int(below[t])
+        order[rank], lbs[rank] = t, k
+    return order, n_listed, lbs
+
+
+@pytest.mark.parametrize("n_tiles", [1, 100, 128])
+@pytest.mark.parametrize("kind", ["ties", "all", "one"])
+def test_plan_rank_rule_is_the_stable_sort(kind, n_tiles):
+    """The closed-form rank of the plan kernel gives `listed_plan_plain`'s
+    stable sort: order, counts and lbs, on rows with key ties, on rows with
+    every tile listed and on rows with one."""
+    tile_c, tile_r, pts = _plan_tables(kind, n_tiles, np.random.default_rng(3))
+    order, counts, lbs = (a.numpy() for a in knn.listed_plan(pts, tile_c, tile_r, n_tiles, 128))
+    ties = 0
+    for row in range(order.shape[0]):
+        keys = np.empty(n_tiles, np.float32)
+        keys[order[row]] = lbs[row]  # the row's keys in tile order
+        got_order, got_count, got_lbs = _rank_rule(keys)
+        np.testing.assert_array_equal(got_order, order[row])
+        np.testing.assert_array_equal(got_lbs, lbs[row])
+        assert got_count == counts[row]
+        finite = keys[np.isfinite(keys)]
+        ties += len(finite) - len(np.unique(finite))
+    if kind == "all":
+        assert (counts == n_tiles).all()
+    elif kind == "one":
+        assert (counts == 1).all()
+    elif n_tiles > 1:
+        assert ties > 0  # the planted copies tie
+
+
 # --------------------------------------------------------------------------
 # tie rules
 # --------------------------------------------------------------------------
