@@ -18,18 +18,22 @@ Phases (any failure exits non-zero, before the last line is printed):
    brute-force search is also held and timed at the training step's 352,000
    world points, GG at its 5500 rays and the plan at its 352,000 blocked
    points. The searches, GG and the plan report their issue floor (single
-   FP32 instructions a pair: 9 for the searches, 8 + 7 inside a sphere for
-   GG, 25 for the plan; `issue_floor_ms`) and their registers, spills,
-   shared memory and blocks per SM (`search_resources`,
-   `small_kernel_resources`); GG and the plan also their device time from
-   bare launches (`device_turns_ms`) beside the wrapper's event time;
+   FP32 instructions issued on this run's inputs; `issue_floor_ms`: 9 a
+   visited pair for the searches; for GG and the plan, the pairs their
+   culls keep plus the culls' own work, `gg_floor` / `plan_floor`, with the
+   all-pairs figure beside it) and their registers, spills, shared memory
+   and blocks per SM (`search_resources`, `small_kernel_resources`); GG and
+   the plan also their device time from bare launches (`device_turns_ms`)
+   beside the wrapper's event time;
 4. renders the full 512x512 val image of the synthetic SMPL-sized scene with
    the trained fixture through `ImageRenderer.render_item` (the port's eval
    entry point) on two paths: (a) exact full shading with the brute-force
    search (`configs/zju_mocap/313.yml`), (b) the production path
    (`configs/zju_mocap/313_tpu.yml`: SHADE_TOPK 16, REUSE_WARP_FACES) with
    `KNN_IMPL: "listed"`. Each: launch counts per image, s_per_image, rays/s,
-   PSNR, and a profile of one render chunk;
+   PSNR, and a profile of one render chunk (`profile_device`: the profiler
+   warmed up by one call, and every port kernel the profiled call launched
+   looked up in its trace);
 5. renders the golden rays (`tests/fixtures/torch_port_render_golden.npz`,
    the JAX package's CPU render) on the card and holds them to its bands:
    every leg with its config's search, then the exact legs again with
@@ -128,14 +132,29 @@ PEAK_FP32_PER_S = 67e12
 # (67 TFLOP/s counts an FMA as two operations)
 PEAK_FP32_INSTR_PER_S = 33.5e12
 H = W = 512
+KERNEL_FAMILY = {  # each port kernel's family in `kernel_family`
+    GG_KERNEL.name: "gg_near_far kernel", NEAREST_KERNEL.name: "nearest_face kernel",
+    LISTED_PLAN_KERNEL.name: "listed plan kernel", LISTED_KERNEL.name: "tile-pruned search kernel",
+    LISTED_SLIM_KERNEL.name: "tile-pruned search kernel", PRUNED_KERNEL.name: "tile-pruned search kernel",
+    FUSED_FWD_KERNEL.name: "fused SpaceNet kernels", FUSED_BWD_KERNEL.name: "fused SpaceNet kernels",
+}
 N_TIMED_RENDERS = 3
 PAIR_OPS = 9.0  # 3 sub, 3 mul, 2 add, 1 compare per point-centroid pair
-# GG: z0 (3 mul, 2 add), d2 (mul, sub), the compare per (ray, vertex) pair;
-# sub, max, sqrt, sub, add, min, max more per pair inside a sphere
-GG_PAIR_OPS, GG_INSIDE_OPS = 8.0, 7.0
-# the plan per (point, tile) pair: witness distance 9 (3 sub, 3 mul, 2 add,
-# min), AABB bound 14 (6 clamp, 3 sub, 3 mul, 2 add), the test and the min 2
-PLAN_PAIR_OPS = 25.0
+# GG (csrc/gg_near_far.cu), single FP32 instructions: z0 (3 mul, 2 add), d2
+# (mul, sub) and the compare per (ray, vertex) pair the cull keeps; sub, max,
+# sqrt, sub, add, min, max more per pair inside a sphere; per (ray tile,
+# vertex) the staging (3 sub, 3 mul, 2 add, exact) and the cone cull (16: the
+# cross product 6, its norm 3, 2 sqrt, lb 1, the tests 4, FMAs fused); per ray
+# the unit direction and the two divisions, ~10
+GG_PAIR_OPS, GG_INSIDE_OPS, GG_TILE_VERT_OPS, GG_RAY_OPS = 8.0, 7.0, 24.0, 10.0
+# the plan (csrc/listed_plan.cu), single FP32 instructions, none fused: per
+# (point, witness) the cull keeps 9 (3 sub, 3 mul, 2 add, min); per (point,
+# tile) it keeps 16 (6 clamp, 3 sub, 3 mul, 2 add, the test, the min); per
+# point 20 (its box 6, U 9, u^2 5); per (row, tile) 41 (the first point's
+# witness distance 8, the witness cull 15, the tile cull 18). Taken pair by
+# pair without the culls: 9 + 16 = 25 a (point, tile) pair
+PLAN_WITNESS_OPS, PLAN_TILE_OPS, PLAN_POINT_OPS, PLAN_ROW_TILE_OPS = 9.0, 16.0, 20.0, 41.0
+PLAN_PAIR_OPS = PLAN_WITNESS_OPS + PLAN_TILE_OPS
 SLEEP_CYCLES = 200_000     # ~0.1 ms of device time queued ahead of a timed launch
 TRAIN_RAYS = 5500          # bench.py's train workload
 N_TIMED_STEPS = 3
@@ -224,51 +243,75 @@ def issue_floor_ms(pairs: float, per_pair: float = PAIR_OPS) -> float:
     return per_pair * pairs / PEAK_FP32_INSTR_PER_S * 1e3
 
 
-def gg_inside_pairs(ray_o, ray_d, verts, gamma) -> int:
-    """(ray, vertex) pairs inside a sphere on these inputs: the only pairs
-    that run the kernel's sqrt branch."""
-    dirs = ray_d / torch.linalg.norm(ray_d, dim=-1, keepdim=True)
+def gg_cull_counts(ray_o, ray_d, verts, gamma) -> dict:
+    """GG's pairs on these inputs: all (ray, vertex) pairs, those its cull
+    keeps (a torch replica of the cone bound in `csrc/gg_near_far.cu`, over
+    the kernel's tiles of consecutive rays) and those inside a sphere (the
+    only pairs that run the kernel's sqrt branch)."""
+    n, dev = ray_d.shape[0], ray_d.device
+    t = GG_KERNEL.extra_function("gg_near_far_ray_tile", [])()
+    d = ray_d / torch.linalg.norm(ray_d, dim=-1, keepdim=True)
     rel = verts - ray_o[0]
     r2 = (rel * rel).sum(-1)
-    total = 0
-    for s in range(0, dirs.shape[0], 1024):
-        z0 = dirs[s:s + 1024] @ rel.T
-        total += int(((r2 - z0 * z0) < gamma * gamma).sum())
-    return total
+    tiles = -(-n // t)
+    starts = torch.arange(0, n, t, device=dev)
+    mid = d[torch.clamp(starts + t // 2, max=n - 1)]                          # (tiles, 3)
+    lanes = d[torch.clamp(torch.arange(tiles * t, device=dev), max=n - 1)].view(tiles, t, 3)
+    rho = torch.linalg.norm(lanes - mid[:, None], dim=-1).amax(1) * 1.001 + 1e-4
+    rays_in = torch.clamp(n - starts, max=t)
+    kept = 0
+    for s in range(0, tiles, 64):
+        a = mid[s:s + 64, None].expand(-1, rel.shape[0], 3)
+        lb = torch.linalg.norm(torch.cross(rel.expand_as(a), a, dim=-1), dim=-1) - r2.sqrt() * rho[s:s + 64, None]
+        keep = ~((lb > 0) & (lb * lb > gamma * gamma + 1e-4 * r2))
+        kept += int((keep.sum(1) * rays_in[s:s + 64]).sum())
+    inside = 0
+    for s in range(0, n, 1024):
+        z0 = d[s:s + 1024] @ rel.T
+        inside += int(((r2 - z0 * z0) < gamma * gamma).sum())
+    return {"rays": n, "verts": verts.shape[0], "tiles": tiles, "pairs": n * verts.shape[0],
+            "kept_pairs": kept, "inside_pairs": inside}
 
 
-def gg_floor_ms(ray_o, ray_d, verts, gamma) -> tuple[float, int]:
-    """GG's issue floor on these inputs, and its pairs inside a sphere."""
-    inside = gg_inside_pairs(ray_o, ray_d, verts, gamma)
-    pairs = ray_d.shape[0] * verts.shape[0]
-    return (GG_PAIR_OPS * pairs + GG_INSIDE_OPS * inside) / PEAK_FP32_INSTR_PER_S * 1e3, inside
+def gg_floor(c: dict) -> dict:
+    """GG's floors on the inputs counted by `gg_cull_counts`: the issue
+    floor of the work the kernel must do there (the pairs its cull keeps,
+    the cull itself, the rays), its FP32 operations, and the issue floor of
+    every pair taken without the cull (secondary)."""
+    ops = (GG_PAIR_OPS * c["kept_pairs"] + GG_INSIDE_OPS * c["inside_pairs"]
+           + GG_TILE_VERT_OPS * c["tiles"] * c["verts"] + GG_RAY_OPS * c["rays"])
+    return {"ops": ops, "issue_floor_ms": ops / PEAK_FP32_INSTR_PER_S * 1e3,
+            "kept_pair_share": c["kept_pairs"] / c["pairs"],
+            "all_pairs_issue_floor_ms": issue_floor_ms(
+                c["pairs"], GG_PAIR_OPS) + issue_floor_ms(c["inside_pairs"], GG_INSIDE_OPS)}
 
 
 def check_gg(rays, mesh, step_rays, step_mesh, gamma) -> dict:
     """GG against its plain version bit for bit at the render chunk's 8192
     rays and the training step's 5500; timed through the wrapper (events)
     and as bare launches into preallocated outputs (device time), with its
-    bound, issue floor and resources."""
-    shapes = {}
+    bound and issue floor from the pairs its cull keeps, and resources."""
+    shapes, err = {}, 0.0
     for label, rs, ms in (("render", rays, mesh), ("step", step_rays, step_mesh)):
         args = (rs.ray_o, rs.ray_d, rs.near, rs.far, ms.verts_world)
         n_k, f_k = gg_near_far_cuda(*args, gamma)
         n_p, f_p = gg_near_far_plain(*args, gamma)
         torch.cuda.synchronize()
+        err = max(err, float((n_k - n_p).abs().max()), float((f_k - f_p).abs().max()))
         if not (torch.equal(n_k, n_p) and torch.equal(f_k, f_p)):
-            err = max(float((n_k - n_p).abs().max()), float((f_k - f_p).abs().max()))
             raise AssertionError(f"gg_near_far ({label}): kernel differs from plain version by {err}")
         outs = (torch.empty_like(rs.near), torch.empty_like(rs.far))
         bare = lambda args=args, outs=outs: gg_cuda.launch_gg(*args, *outs, gamma)
-        floor, inside = gg_floor_ms(rs.ray_o, rs.ray_d, ms.verts_world, gamma)
-        r, v = rs.ray_d.shape[0], ms.verts_world.shape[0]
+        counts = gg_cull_counts(rs.ray_o, rs.ray_d, ms.verts_world, gamma)
+        floor = gg_floor(counts)
+        r, v = counts["rays"], counts["verts"]
         shapes[label] = {
-            "rays": r, "verts": v, "inside_pairs": inside,
+            **counts, "kept_pair_share": floor["kept_pair_share"],
             "wrapper_ms": time_ms(lambda args=args: gg_near_far_cuda(*args, gamma), reps=20),
             "device_ms": device_turns_ms({"k": bare}, rounds=21)["k"][0],
-            "issue_floor_ms": floor,
-            "bound": bound_ms(4.0 * (r * 3 * 2 + r * 2 + v * 3 + r * 2),
-                              GG_PAIR_OPS * r * v + GG_INSIDE_OPS * inside + 10.0 * r),
+            "issue_floor_ms": floor["issue_floor_ms"],
+            "all_pairs_issue_floor_ms": floor["all_pairs_issue_floor_ms"],
+            "bound": bound_ms(4.0 * (r * 3 * 2 + r * 2 + v * 3 + r * 2), floor["ops"]),
         }
     s = shapes["render"]
     args = (rays.ray_o, rays.ray_d, rays.near, rays.far, mesh.verts_world)
@@ -276,14 +319,17 @@ def check_gg(rays, mesh, step_rays, step_mesh, gamma) -> dict:
         "name": "gg_near_far", "route": "cuda",
         "source": "dual_space_nerf_tpu_torch/csrc/gg_near_far.cu",
         "replaces": "dual_space_nerf_tpu/ops/gg_pallas.py:31",
-        "max_abs_err": 0.0,
+        "max_abs_err": err,
         "ms": s["wrapper_ms"], "device_ms": s["device_ms"],
         "plain_ms": time_ms(lambda: gg_near_far_plain(*args, gamma), reps=5),
         "bound_ms": s["bound"][0], "bound_by": s["bound"][1], "library_ms": None,
-        "issue_floor_ms": s["issue_floor_ms"],
-        "step": shapes["step"],
-        "resources": small_kernel_resources(GG_KERNEL),
-        "shape": {k: s[k] for k in ("rays", "verts", "inside_pairs")},
+        "issue_floor_ms": s["issue_floor_ms"], "all_pairs_issue_floor_ms": s["all_pairs_issue_floor_ms"],
+        "step": {k: v for k, v in shapes["step"].items() if k != "bound"}
+        | {"bound_ms": shapes["step"]["bound"][0]},
+        "resources": small_kernel_resources(
+            GG_KERNEL, dynamic_smem_bytes=0,
+            blocks_per_sm=GG_KERNEL.extra_function("gg_near_far_blocks_per_sm", [])()),
+        "shape": {k: s[k] for k in ("rays", "verts", "tiles", "kept_pairs", "kept_pair_share", "inside_pairs")},
     }
 
 
@@ -355,18 +401,57 @@ def near_tie_only(pts, cents, ids_a, ids_b, what: str) -> int:
     return int(off.numel())
 
 
+def plan_cull_counts(pts, tile_c, tile_r, n_tiles, plan_p) -> dict:
+    """The witnesses and tiles per row that the plan kernel's culls keep (a
+    torch replica of the bounds in `csrc/listed_plan.cu`): totals over the
+    rows, means and maxima."""
+    p_all = pts.reshape(-1, plan_p, 3)
+    wit, lo, hi = tile_r[0:3, :n_tiles].T, tile_c[0:3, :n_tiles].T, tile_c[3:6, :n_tiles].T
+    ws, ts = [], []
+    for r0 in range(0, p_all.shape[0], 256):
+        p = p_all[r0:r0 + 256]
+        b_lo, b_hi = p.amin(1)[:, None], p.amax(1)[:, None]                   # (rows, 1, 3)
+        d2 = ((p[:, :, None] - wit[None, None]) ** 2).sum(-1)                 # (rows, P, T)
+        t0 = d2[:, 0].argmin(-1)
+        u_max = d2.gather(2, t0[:, None, None].expand(-1, plan_p, 1)).amax(1)  # (rows, 1)
+        gap = torch.where(wit > b_hi, wit - b_hi, torch.where(wit < b_lo, b_lo - wit, 0.0))
+        w_keep = (gap * gap).sum(-1) <= u_max
+        u = d2.masked_fill(~w_keep[:, None], float("inf")).amin(-1).sqrt() * (1.0 + 1e-5) + 1e-6
+        gap = torch.where(lo > b_hi, lo - b_hi, torch.where(hi < b_lo, b_lo - hi, 0.0))
+        ws.append(w_keep.sum(1))
+        ts.append(((gap * gap).sum(-1) <= (u * u).amax(1, keepdim=True)).sum(1))
+    w, t = torch.cat(ws).float(), torch.cat(ts).float()
+    return {"rows": int(w.shape[0]), "tiles": n_tiles, "plan_p": plan_p,
+            "witnesses_kept": int(w.sum()), "tiles_kept": int(t.sum()),
+            "witnesses_kept_mean": float(w.mean()), "witnesses_kept_max": int(w.max()),
+            "tiles_kept_mean": float(t.mean()), "tiles_kept_max": int(t.max())}
+
+
+def plan_floor(c: dict) -> dict:
+    """The plan's floors on the inputs counted by `plan_cull_counts`: the
+    issue floor of the work the kernel must do there (the (point, witness)
+    and (point, tile) pairs its culls keep, the culls, the points), its FP32
+    operations (no FMA: the same count), and the issue floor of every
+    (point, tile) pair taken without the culls (secondary)."""
+    n = c["rows"] * c["plan_p"]
+    ops = (c["plan_p"] * (PLAN_WITNESS_OPS * c["witnesses_kept"] + PLAN_TILE_OPS * c["tiles_kept"])
+           + PLAN_POINT_OPS * n + PLAN_ROW_TILE_OPS * c["rows"] * c["tiles"])
+    return {"ops": ops, "issue_floor_ms": ops / PEAK_FP32_INSTR_PER_S * 1e3,
+            "all_pairs_issue_floor_ms": issue_floor_ms(float(n) * c["tiles"], PLAN_PAIR_OPS)}
+
+
 def check_plan(pts_path, cloud, pts_step, cents, mesh, step_cents, step_mesh) -> dict:
     """The plan kernel against the plan in plain torch ops: the same lists,
     counts and lower bounds bit for bit, at several row sizes, on the
     render's blocked points, a random cloud and the training step's blocked
     points; timed through the wrapper (events) and as bare launches into
-    preallocated outputs (device time), with its bound, issue floor and
-    resources."""
+    preallocated outputs (device time), with its bound and issue floor from
+    the witnesses and tiles its culls keep, and resources."""
     name = LISTED_PLAN_KERNEL.name
     _, tile_c, tile_r, _ = listed_tables(cents, mesh.tile_table)
     n_tiles = mesh.tile_table.shape[0]
     step_tabs = listed_tables(step_cents, step_mesh.tile_table)[1:3]
-    mism = 0
+    mism, err = 0, 0.0
     for pts, tabs in ((pts_path, (tile_c, tile_r)), (cloud, (tile_c, tile_r)), (pts_step, step_tabs)):
         for plan_p in (pruned_knn._PLAN_P_LISTED, 512, 2048):
             if pts.shape[0] % plan_p:
@@ -374,7 +459,10 @@ def check_plan(pts_path, cloud, pts_step, cents, mesh, step_cents, step_mesh) ->
             got = pruned_knn.listed_plan(pts, *tabs, n_tiles, plan_p)
             want = pruned_knn.listed_plan_plain(pts, *tabs, n_tiles, plan_p)
             torch.cuda.synchronize()
-            mism += sum(int((a != b).sum()) for a, b in zip(got, want))
+            for a, b in zip(got, want):
+                mism += int((a != b).sum())
+                diff = torch.where(a == b, 0.0, (a.double() - b.double()).abs())  # inf == inf: 0
+                err = max(err, float(diff.max()))
     if mism:
         raise AssertionError(f"{name}: {mism} plan entries differ from the plain version")
     plan_p = pruned_knn._PLAN_P_LISTED
@@ -383,31 +471,38 @@ def check_plan(pts_path, cloud, pts_step, cents, mesh, step_cents, step_mesh) ->
         n = pts.shape[0]
         outs = pruned_knn.listed_plan(pts, *tabs, n_tiles, plan_p)
         bare = lambda pts=pts, tabs=tabs, outs=outs: pruned_knn.launch_plan(pts, *tabs, *outs, plan_p)
+        counts = plan_cull_counts(pts, *tabs, n_tiles, plan_p)
+        floor = plan_floor(counts)
         shapes[label] = {
-            "points": n,
+            "points": n, **{k: counts[k] for k in counts if k.endswith(("_mean", "_max"))},
+            "listed_mean": float(outs[1].float().mean()),
             "wrapper_ms": time_ms(lambda pts=pts, tabs=tabs: pruned_knn.listed_plan(
                 pts, *tabs, n_tiles, plan_p), reps=10),
             "device_ms": device_turns_ms({"k": bare}, rounds=21)["k"][0],
-            "issue_floor_ms": issue_floor_ms(float(n) * n_tiles, PLAN_PAIR_OPS),
+            "issue_floor_ms": floor["issue_floor_ms"],
+            "all_pairs_issue_floor_ms": floor["all_pairs_issue_floor_ms"],
             "bound": bound_ms(4.0 * (n * 3 + 9 * n_tiles + (n // plan_p) * (2 * n_tiles + 1)),
-                              PLAN_PAIR_OPS * n * n_tiles),
+                              floor["ops"]),
         }
     s = shapes["render"]
     q = lambda sym: LISTED_PLAN_KERNEL.extra_function(sym, [ctypes.c_int] * 2)(plan_p, n_tiles)
-    resources = small_kernel_resources(LISTED_PLAN_KERNEL)
-    resources.update({"dynamic_smem_bytes": q("listed_plan_smem"), "blocks_per_sm": q("listed_plan_blocks_per_sm")})
     return {
         "name": name, "route": "cuda",
         "source": f"dual_space_nerf_tpu_torch/csrc/{LISTED_PLAN_KERNEL.source}",
         "replaces": "dual_space_nerf_tpu/ops/pruned_knn.py:643",
-        "max_abs_err": 0.0, "mismatches": mism,
+        "max_abs_err": err, "mismatches": mism,
         "ms": s["wrapper_ms"], "device_ms": s["device_ms"],
         "plain_ms": time_ms(lambda: pruned_knn.listed_plan_plain(pts_path, tile_c, tile_r, n_tiles, plan_p), reps=5),
         "bound_ms": s["bound"][0], "bound_by": s["bound"][1], "library_ms": None,
-        "issue_floor_ms": s["issue_floor_ms"],
-        "step": shapes["step"],
-        "resources": resources,
-        "shape": {"points": s["points"], "tiles": n_tiles, "plan_p": plan_p},
+        "issue_floor_ms": s["issue_floor_ms"], "all_pairs_issue_floor_ms": s["all_pairs_issue_floor_ms"],
+        "step": {k: v for k, v in shapes["step"].items() if k != "bound"}
+        | {"bound_ms": shapes["step"]["bound"][0]},
+        "resources": small_kernel_resources(
+            LISTED_PLAN_KERNEL, dynamic_smem_bytes=q("listed_plan_smem"),
+            blocks_per_sm=q("listed_plan_blocks_per_sm")),
+        "shape": {k: s[k] for k in s if k not in ("wrapper_ms", "device_ms", "issue_floor_ms",
+                                                   "all_pairs_issue_floor_ms", "bound")}
+        | {"tiles": n_tiles, "plan_p": plan_p},
     }
 
 
@@ -528,43 +623,70 @@ def sweep_granularity(pts, cents, mesh) -> dict:
     return out
 
 
+def kernel_family(name: str) -> str:
+    """The family of a kernel in a profiler trace, by its name."""
+    name = name.lower()
+    if "gg_kernel" in name:
+        return "gg_near_far kernel"
+    if "nearest_face" in name:
+        return "nearest_face kernel"
+    if "listed_plan" in name:
+        return "listed plan kernel"
+    if "listed" in name or "pruned_kernel" in name:  # with the listed row order
+        return "tile-pruned search kernel"
+    if "fused_mlp" in name:
+        return "fused SpaceNet kernels"
+    if "gemm" in name or "cutlass" in name or "xmma" in name:
+        return "matrix products (cuBLAS)"
+    if "index" in name or "gather" in name or "scatter" in name:
+        return "gathers / index ops"
+    if "sort" in name or "radix" in name:
+        return "sorts"
+    return "elementwise and reductions"
+
+
 def profile_device(fn) -> dict:
-    """Device time of one call of ``fn`` by kernel family (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one call of ``fn`` by kernel family (torch.profiler).
+    The profiler is warmed up by one call of ``fn`` and records the next:
+    port kernels early in a cold trace were missing from it in earlier runs.
+    ``missed``: the port kernels' families with fewer calls in the trace
+    than the recorded call launched (the launch counts)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    traced = []  # the recorded call's events, kept when its trace is ready
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
         fn()
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+        reset_launches()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = launches_now()
+        prof.step()
     fam: dict[str, float] = {}
+    calls: dict[str, int] = {}
     kernels = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:  # host-side ops: no double count
+    if len(traced) != 1:
+        raise AssertionError(f"profile_device: {len(traced)} traces recorded, expected 1")
+    for ev in traced[0]:
+        # host-side ops: no double count; the step's span on the device is no kernel
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("ProfilerStep"):
             continue
         ms = ev.self_device_time_total / 1e3
         kernels.append((ev.key, ms, ev.count))
-        name = ev.key.lower()
-        if "gg_kernel" in name:
-            k = "gg_near_far kernel"
-        elif "nearest_face" in name:
-            k = "nearest_face kernel"
-        elif "listed_plan" in name:
-            k = "listed plan kernel"
-        elif "listed" in name or "pruned_kernel" in name:  # with the listed row order
-            k = "tile-pruned search kernel"
-        elif "fused_mlp" in name:
-            k = "fused SpaceNet kernels"
-        elif "gemm" in name or "cutlass" in name or "xmma" in name:
-            k = "matrix products (cuBLAS)"
-        elif "index" in name or "gather" in name or "scatter" in name:
-            k = "gathers / index ops"
-        elif "sort" in name or "radix" in name:
-            k = "sorts"
-        else:
-            k = "elementwise and reductions"
+        k = kernel_family(ev.key)
         fam[k] = fam.get(k, 0.0) + ms
+        calls[k] = calls.get(k, 0) + ev.count
+    expected: dict[str, int] = {}
+    for k in KERNELS:
+        if launched[k.name]:
+            f = KERNEL_FAMILY[k.name]
+            expected[f] = expected.get(f, 0) + launched[k.name]
     total = sum(fam.values())
     top = sorted(kernels, key=lambda x: -x[1])[:10]
     return {
@@ -572,6 +694,9 @@ def profile_device(fn) -> dict:
         "device_ms": total if total else "not measured",
         "kernel_launches": sum(c for _, _, c in kernels),
         "by_family_ms": dict(sorted(fam.items(), key=lambda kv: -kv[1])),
+        "port_kernels_launched": launched,
+        "missed": {f: {"launched": n, "in_trace": calls.get(f, 0)}
+                   for f, n in expected.items() if calls.get(f, 0) < n},
         "top_kernels": [{"name": n[:90], "ms": t, "calls": c} for n, t, c in top],
     }
 
@@ -946,19 +1071,15 @@ def search_resources(kernel, row_stride: int = 0) -> dict:
     return out
 
 
-def small_kernel_resources(kernel) -> dict:
+def small_kernel_resources(kernel, **queried) -> dict:
     """GG's or the plan's registers, spills and static shared memory
-    (`ptxas_entries` of its one entry); for GG also its resident blocks per
-    SM (no dynamic shared memory)."""
+    (`ptxas_entries` of its one entry), the SMs, and what its caller queried
+    of the library (``queried``: dynamic shared memory, blocks per SM)."""
     entries = ptxas_entries(kernel)
     if not entries:
         return {"registers": "not measured (no build in this run)"}
-    out = dict(next(iter(entries.values())))
-    if kernel is GG_KERNEL:
-        out["dynamic_smem_bytes"] = 0
-        out["blocks_per_sm"] = kernel.extra_function("gg_near_far_blocks_per_sm", [])()
-    out["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
-    return out
+    return {**next(iter(entries.values())), **queried,
+            "sms": torch.cuda.get_device_properties(0).multi_processor_count}
 
 
 def fused_resources(kernel) -> dict:
@@ -1128,9 +1249,13 @@ def main() -> int:
             continue
         floor = {"ms": k["ms"], "issue_floor_ms": k["issue_floor_ms"], "bound_ms": k["bound_ms"],
                  "issue_floor_share": k["issue_floor_ms"] / k["ms"], "bound_share": k["bound_ms"] / k["ms"]}
-        if "device_ms" in k:  # bare launches, device time alone
+        if "device_ms" in k:  # GG and the plan: bare launches, device time alone
+            st = k["step"]
             floor |= {"device_ms": k["device_ms"], "device_issue_floor_share": k["issue_floor_ms"] / k["device_ms"],
-                      "step": k["step"]}
+                      "device_bound_share": k["bound_ms"] / k["device_ms"],
+                      "all_pairs_issue_floor_ms": k["all_pairs_issue_floor_ms"],
+                      "step": st | {"device_issue_floor_share": st["issue_floor_ms"] / st["device_ms"],
+                                    "device_bound_share": st["bound_ms"] / st["device_ms"]}}
         log(f"floor {k['name']}: " + json.dumps({**floor, "resources": k["resources"]}))
     log("sweep: " + json.dumps(sweep_granularity(pts_blocked, cents_w, mesh)))
     log("tables: " + json.dumps({

@@ -213,6 +213,10 @@ gg_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
 
 }  // namespace
 
+// The rays a block takes (one a lane) and the vertices it stages a pass.
+extern "C" int gg_near_far_ray_tile() { return 32; }
+extern "C" int gg_near_far_vertex_pass() { return kTile; }
+
 // Resident blocks per SM of the kernel.
 extern "C" int gg_near_far_blocks_per_sm() {
   int n = 0;

@@ -107,6 +107,13 @@ __host__ __device__ inline size_t smem_bytes(int plan_p, int n_tiles) {
          kMisc + static_cast<size_t>((n_tiles + 31) / 32) * sizeof(unsigned);  // listed mask
 }
 
+// the shared memory a block may take without opting in to more
+constexpr size_t kSmemMax = 48 * 1024;
+
+inline bool fits(int plan_p, int n_tiles) {
+  return plan_p >= 1 && n_tiles >= 1 && smem_bytes(plan_p, n_tiles) <= kSmemMax;
+}
+
 __global__ void __launch_bounds__(kThreads)
 listed_plan_kernel(const float* __restrict__ pts, const float* __restrict__ tile_c,
                    const float* __restrict__ tile_r, int* __restrict__ order,
@@ -321,6 +328,10 @@ extern "C" int listed_plan_smem(int plan_p, int n_tiles) {
   return static_cast<int>(smem_bytes(plan_p, n_tiles));
 }
 
+// 1 if the launcher takes this row size and tile count (the block's shared
+// memory fits), else 0.
+extern "C" int listed_plan_fits(int plan_p, int n_tiles) { return fits(plan_p, n_tiles) ? 1 : 0; }
+
 // Resident blocks per SM at this row size and tile count.
 extern "C" int listed_plan_blocks_per_sm(int plan_p, int n_tiles) {
   int n = 0;
@@ -333,15 +344,14 @@ extern "C" int listed_plan_blocks_per_sm(int plan_p, int n_tiles) {
 // t_pad) float32 (`listed_tables`); order, lbs: (n_pts / plan_p, n_tiles);
 // counts: (n_pts / plan_p,). Contiguous, on the stream's device.
 // One block a row. Returns cudaGetLastError(), or cudaErrorInvalidValue
-// when a block's shared memory exceeds the 48 KB that needs no opt-in.
+// when listed_plan_fits is 0.
 extern "C" int listed_plan_launch(const float* pts, const float* tile_c, const float* tile_r,
                                   int* order, int* counts, float* lbs, int n_pts, int plan_p,
                                   int n_tiles, int t_pad, void* stream) {
-  const size_t smem = smem_bytes(plan_p, n_tiles);
-  if (smem > 48 * 1024 || plan_p < 1 || n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!fits(plan_p, n_tiles)) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = n_pts / plan_p;
   if (rows > 0) {
-    listed_plan_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    listed_plan_kernel<<<rows, kThreads, smem_bytes(plan_p, n_tiles), static_cast<cudaStream_t>(stream)>>>(
         pts, tile_c, tile_r, order, counts, lbs, plan_p, n_tiles, t_pad);
   }
   return static_cast<int>(cudaGetLastError());

@@ -5,8 +5,8 @@ Replaces the TPU kernel `dual_space_nerf_tpu/ops/gg_pallas.py:_gg_kernel`
 plain PyTorch version is `geometry.sampling.gg_near_far`, re-exported here as
 `gg_near_far_plain`.
 
-Bound on the H100: instruction issue (5.6e7 ray-vertex pairs of 8 single
-FP32 instructions per 8192-ray launch, no FMA; under 0.3 MB moved). One
+Bound on the H100: instruction issue (8 single FP32 instructions per
+ray-vertex pair that the cull below keeps, no FMA; under 0.3 MB moved). One
 launch: each block takes a tile of adjacent rays, stages the vertices as
 (v - o, |v - o|^2) in shared memory, drops those that no ray of the tile
 can touch (a bound with a margin past every rounding), and tests its rays
@@ -30,8 +30,6 @@ GG_KERNEL = CudaKernel(
     "gg_near_far_launch",
     [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
 )
-RAY_TILE = 32             # rays of a block (the kernel's lanes)
-VERT_TILE = 1024          # vertices a block stages per pass
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:

@@ -313,18 +313,6 @@ def listed_plan_plain(pts: torch.Tensor, tile_c: torch.Tensor, tile_r: torch.Ten
     return order, counts, lbs
 
 
-# shared memory the plan kernel may ask for without opting in to more
-_PLAN_SMEM_MAX = 48 * 1024
-
-
-def plan_smem_bytes(plan_p: int, n_tiles: int) -> int:
-    """Shared memory of a plan kernel block (`csrc/listed_plan.cu`): the
-    witnesses twice (all, and those a row keeps) and the row's points as
-    float4, a candidate tile id and key a tile, 168 bytes of reduction
-    slots and counters, and a listed bit a tile."""
-    return 16 * (2 * n_tiles + plan_p) + 8 * n_tiles + 168 + 4 * (-(-n_tiles // 32))
-
-
 def listed_plan(pts: torch.Tensor, tile_c: torch.Tensor, tile_r: torch.Tensor,
                 n_tiles: int, plan_p: int):
     """The visit plan (`listed_plan_plain`: order, counts, lbs). CPU tensors
@@ -349,7 +337,7 @@ def listed_plan(pts: torch.Tensor, tile_c: torch.Tensor, tile_r: torch.Tensor,
     _check_table(name, "tile_r", tile_r, (8, t_pad), torch.float32, dev)
     if not 1 <= n_tiles <= t_pad:
         raise ValueError(f"{name}: {n_tiles} tiles for tables of {t_pad} columns")
-    if plan_smem_bytes(plan_p, n_tiles) > _PLAN_SMEM_MAX:
+    if not LISTED_PLAN_KERNEL.extra_function("listed_plan_fits", [_I, _I])(plan_p, n_tiles):
         raise ValueError(
             f"{name}: plan_p={plan_p} with {n_tiles} tiles exceeds the kernel's shared memory"
         )

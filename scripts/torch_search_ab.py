@@ -28,7 +28,9 @@ points, as many blocked points, a random cloud, and the training step's
    alone), and also through this tree's wrapper;
 3. times this tree's brute-force kernel at forced face splits against the
    split that `face_splits` chooses, in turns, and reports the share of
-   GG's pairs and the plan's witnesses and tiles that their culls keep.
+   GG's pairs and the plan's witnesses and tiles that this tree's culls
+   keep (`chip_smoke.gg_cull_counts`, `plan_cull_counts`), with the issue
+   floors they give and the all-pairs floors beside them.
 
 Prints one JSON line per measurement, the card line, and writes all of it
 to ``--out``.
@@ -266,43 +268,6 @@ def equal_outputs(want, fns: dict, what: str) -> None:
                 raise AssertionError(f"{what}: {name}'s output {i} differs from the plain version")
 
 
-def gg_cull_share(rays, verts, gamma, tile: int = 32) -> float:
-    """The share of (ray, vertex) pairs that GG's cull keeps (a torch
-    replica of the bound in `csrc/gg_near_far.cu`, tiles of ``tile``
-    consecutive rays)."""
-    d = rays.ray_d / torch.linalg.norm(rays.ray_d, dim=-1, keepdim=True)
-    rel = verts - rays.ray_o[0]
-    r2 = (rel * rel).sum(-1)
-    kept = 0
-    for b in range(0, d.shape[0], tile):
-        dt = d[b:b + tile]
-        a = d[min(b + tile // 2, d.shape[0] - 1)]
-        rho = float(torch.linalg.norm(dt - a, dim=-1).max()) * 1.001 + 1e-4
-        lb = torch.linalg.norm(torch.cross(rel, a.expand_as(rel), dim=-1), dim=-1) - r2.sqrt() * rho
-        kept += int((~((lb > 0) & (lb * lb > gamma * gamma + 1e-4 * r2))).sum()) * dt.shape[0]
-    return kept / (d.shape[0] * verts.shape[0])
-
-
-def plan_cull_counts(pts, tile_c, tile_r, n_tiles, plan_p) -> dict:
-    """Per row, the witnesses and tiles that the plan kernel's culls keep
-    (a torch replica of the bounds in `csrc/listed_plan.cu`), means and
-    maxima."""
-    p = pts.reshape(-1, plan_p, 3)
-    wit, lo, hi = tile_r[0:3, :n_tiles].T, tile_c[0:3, :n_tiles].T, tile_c[3:6, :n_tiles].T
-    b_lo, b_hi = p.amin(1)[:, None], p.amax(1)[:, None]                   # (rows, 1, 3)
-    d2 = ((p[:, :, None] - wit[None, None]) ** 2).sum(-1)                 # (rows, P, T)
-    t0 = d2[:, 0].argmin(-1)
-    u_max = d2.gather(2, t0[:, None, None].expand(-1, plan_p, 1)).amax(1)  # (rows, 1)
-    gap = torch.where(wit > b_hi, wit - b_hi, torch.where(wit < b_lo, b_lo - wit, 0.0))
-    w_keep = (gap * gap).sum(-1) <= u_max
-    u = d2.masked_fill(~w_keep[:, None], float("inf")).amin(-1).sqrt() * (1.0 + 1e-5) + 1e-6
-    gap = torch.where(lo > b_hi, lo - b_hi, torch.where(hi < b_lo, b_lo - hi, 0.0))
-    t_keep = (gap * gap).sum(-1) <= (u * u).amax(1, keepdim=True)
-    w, t = w_keep.sum(1).float(), t_keep.sum(1).float()
-    return {"witnesses_kept_mean": float(w.mean()), "witnesses_kept_max": int(w.max()),
-            "tiles_kept_mean": float(t.mean()), "tiles_kept_max": int(t.max())}
-
-
 def gg_section(x, others, rounds, report) -> None:
     """GG: this tree's kernel and the other trees', bit for bit and in turns
     (device time of bare launches), at the render chunk's 8192 rays and the
@@ -327,10 +292,11 @@ def gg_section(x, others, rounds, report) -> None:
         equal_outputs(want, {name: (lambda fn=fn, name=name: run(fn, name)) for name, fn in fns.items()}, label)
         t = cs.device_turns_ms(fns, rounds)
         wrap = cs.alternate_ms({"this wrapper": lambda: gg_near_far_cuda(*args, gamma)}, rounds)
-        floor, inside = cs.gg_floor_ms(rays.ray_o, rays.ray_d, mesh.verts_world, gamma)
-        report("gg", {"shape": label, "rays": rays.ray_d.shape[0], "verts": mesh.verts_world.shape[0],
-                      "inside_pairs": inside, "issue_floor_ms": floor,
-                      "cull_kept_pair_share": gg_cull_share(rays, mesh.verts_world, gamma),
+        counts = cs.gg_cull_counts(rays.ray_o, rays.ray_d, mesh.verts_world, gamma)
+        floor = cs.gg_floor(counts)
+        report("gg", {"shape": label, **counts, "kept_pair_share": floor["kept_pair_share"],
+                      "issue_floor_ms": floor["issue_floor_ms"],
+                      "all_pairs_issue_floor_ms": floor["all_pairs_issue_floor_ms"],
                       **{f"{k}_device_ms": v[0] for k, v in t.items()},
                       **{f"{k}_range": v[1] for k, v in t.items()},
                       "this_wrapper_ms": wrap["this wrapper"][0], "this_wrapper_range": wrap["this wrapper"][1],
@@ -365,10 +331,12 @@ def plan_section(x, others, rounds, report) -> None:
         wrap = cs.alternate_ms({"this wrapper": lambda: pruned_knn.listed_plan(
             pts, tile_c, tile_r, n_tiles, plan_p)}, rounds)
         q = lambda sym: LISTED_PLAN_KERNEL.extra_function(sym, [_I, _I])(plan_p, n_tiles)
+        counts = cs.plan_cull_counts(pts, tile_c, tile_r, n_tiles, plan_p)
+        floor = cs.plan_floor(counts)
         report("plan", {"shape": label, "points": pts.shape[0], "tiles": n_tiles,
                         "visits_mean": float(want[1].float().mean()),
-                        **plan_cull_counts(pts, tile_c, tile_r, n_tiles, plan_p),
-                        "issue_floor_ms": cs.issue_floor_ms(float(pts.shape[0]) * n_tiles, cs.PLAN_PAIR_OPS),
+                        **counts, "issue_floor_ms": floor["issue_floor_ms"],
+                        "all_pairs_issue_floor_ms": floor["all_pairs_issue_floor_ms"],
                         "blocks_per_sm": q("listed_plan_blocks_per_sm"), "smem_bytes": q("listed_plan_smem"),
                         **{f"{k}_device_ms": v[0] for k, v in t.items()},
                         **{f"{k}_range": v[1] for k, v in t.items()},

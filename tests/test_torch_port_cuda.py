@@ -15,6 +15,7 @@ import torch
 
 from dual_space_nerf_tpu_torch.data.synthetic import make_scene
 from dual_space_nerf_tpu_torch.ops import (
+    GG_KERNEL,
     build_face_clusters,
     build_face_tiles,
     face_centroids,
@@ -25,7 +26,9 @@ from dual_space_nerf_tpu_torch.ops import (
     nearest_face_plain,
     pruned_knn,
 )
-from dual_space_nerf_tpu_torch.ops.gg_cuda import RAY_TILE, VERT_TILE
+from torch_port_common import plan_rows
+
+RAY_TILE, VERT_TILE = 32, 1024  # csrc/gg_near_far.cu: rays a block (one a lane), vertices staged a pass
 
 pytestmark = pytest.mark.cuda
 
@@ -66,6 +69,7 @@ def test_gg_kernel_equals_plain(dev, scene, r):
 @pytest.mark.parametrize("r", [RAY_TILE - 1, RAY_TILE, RAY_TILE + 1, 2 * RAY_TILE + 1])
 def test_gg_kernel_ray_tiles(dev, scene, r):
     """Ray counts around the block's tile of rays."""
+    assert GG_KERNEL.extra_function("gg_near_far_ray_tile", [])() == RAY_TILE
     args = _rays(scene, r, dev)
     n_k, f_k = gg_near_far_cuda(*args)
     n_p, f_p = gg_near_far_plain(*args)
@@ -106,6 +110,7 @@ def test_gg_kernel_cull_on_pixel_rays(dev, scene, gamma):
 @pytest.mark.parametrize("v", [1, VERT_TILE - 1, VERT_TILE, VERT_TILE + 1, 6890])
 def test_gg_kernel_vertex_counts(dev, scene, v):
     """Vertex counts around the block's staged tile."""
+    assert GG_KERNEL.extra_function("gg_near_far_vertex_pass", [])() == VERT_TILE
     args = _rays(scene, 777, dev)
     args[4] = args[4][:v].contiguous()
     if v == 1:  # aim some rays at the one vertex
@@ -252,42 +257,13 @@ def test_listed_plan_kernel_equals_plain(dev, scene, n, plan_p):
     assert int(got[1].min()) >= 1
 
 
-def _plan_tables(kind, n_tiles, plan_p, rows, dev, seed=3):
-    """(tile_c, tile_r) of `listed_tables`' layout, (8, 128), and rows x
-    plan_p points for one kind of row: "ties" (random boxes, every odd tile
-    a copy of the one before it), "all" (boxes that all hold the points:
-    every tile listed, key 0) or "one" (boxes 10 apart, each row's points at
-    one tile's centre: that tile alone listed)."""
-    rng = np.random.default_rng(seed)
-    tile_c = np.full((8, 128), 1e15, np.float32)
-    tile_r = np.full((8, 128), 1e15, np.float32)
-    n = rows * plan_p
-    if kind == "ties":
-        mid = 4.0 * rng.random((n_tiles, 3))
-        half = 0.1 + 0.2 * rng.random((n_tiles, 3))
-        mid[1::2], half[1::2] = mid[0:n_tiles - 1:2], half[0:n_tiles - 1:2]
-        pts = mid[rng.integers(0, n_tiles, n)] + 0.3 * rng.standard_normal((n, 3))
-    elif kind == "all":
-        mid = 0.2 * rng.standard_normal((n_tiles, 3))
-        half = 1.5 + rng.random((n_tiles, 3))
-        pts = rng.random((n, 3)) - 0.5
-    else:
-        mid = 10.0 * np.stack([np.arange(n_tiles), np.zeros(n_tiles), np.zeros(n_tiles)], 1)
-        half = np.full((n_tiles, 3), 0.5)
-        pts = np.repeat(mid[rng.integers(0, n_tiles, rows)], plan_p, axis=0)
-    tile_c[0:3, :n_tiles] = (mid - half).T
-    tile_c[3:6, :n_tiles] = (mid + half).T
-    tile_r[0:3, :n_tiles] = mid.T
-    return [torch.as_tensor(a.astype(np.float32), device=dev) for a in (tile_c, tile_r, pts)]
-
-
 @pytest.mark.parametrize("plan_p", [128, 512, 2048])
 @pytest.mark.parametrize("n_tiles", [1, 100, 128])
 @pytest.mark.parametrize("kind", ["ties", "all", "one"])
 def test_listed_plan_kernel_planted_rows(dev, kind, n_tiles, plan_p):
     """Planted key ties (broken by tile id), rows with every tile listed and
     rows with one, bit for bit against the plain version."""
-    tile_c, tile_r, pts = _plan_tables(kind, n_tiles, plan_p, 5, dev)
+    tile_c, tile_r, pts = (torch.as_tensor(a, device=dev) for a in plan_rows(kind, n_tiles, plan_p, 5))
     got = pruned_knn.listed_plan(pts, tile_c, tile_r, n_tiles, plan_p)
     want = pruned_knn.listed_plan_plain(pts, tile_c, tile_r, n_tiles, plan_p)
     torch.cuda.synchronize()

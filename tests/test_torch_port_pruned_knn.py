@@ -20,6 +20,7 @@ from dual_space_nerf_tpu.ops.clustered_knn import build_face_clusters as jax_clu
 from dual_space_nerf_tpu_torch.data.synthetic import make_scene
 from dual_space_nerf_tpu_torch.ops import pruned_knn as knn
 from dual_space_nerf_tpu_torch.ops.clustered_knn import build_face_clusters
+from torch_port_common import plan_rows
 
 BLOCK_P = 256
 
@@ -192,39 +193,6 @@ def test_plan_never_drops_the_nearest_tile(mesh, rng_np, plan_p):
             assert counts.float().mean() > 4
 
 
-def _plan_tables(kind, n_tiles, rng):
-    """(tile_c, tile_r) of `listed_tables`' layout, (8, 128) float32, and 4
-    rows of 128 points for one kind of row:
-
-    - "ties": random boxes with their centres as witnesses, every odd tile
-      a copy of the tile before it, so listed keys tie in pairs;
-    - "all": boxes that all hold the unit cube, the points inside it, so
-      every tile is listed with key 0;
-    - "one": boxes 10 apart with their centres as witnesses, each row's
-      points at one tile's centre, so that tile alone is listed."""
-    t_pad, plan_p = 128, 128
-    tile_c = np.full((8, t_pad), 1e15, np.float32)
-    tile_r = np.full((8, t_pad), 1e15, np.float32)
-    if kind == "ties":
-        mid = 4.0 * rng.random((n_tiles, 3))
-        half = 0.1 + 0.2 * rng.random((n_tiles, 3))
-        mid[1::2], half[1::2] = mid[0:n_tiles - 1:2], half[0:n_tiles - 1:2]
-        pts = mid[rng.integers(0, n_tiles, 4 * plan_p)] + 0.3 * rng.standard_normal((4 * plan_p, 3))
-    elif kind == "all":
-        mid = np.zeros((n_tiles, 3)) + 0.2 * rng.standard_normal((n_tiles, 3))
-        half = 1.5 + rng.random((n_tiles, 3))
-        pts = rng.random((4 * plan_p, 3)) - 0.5
-    else:
-        mid = 10.0 * np.stack([np.arange(n_tiles), np.zeros(n_tiles), np.zeros(n_tiles)], 1)
-        half = np.full((n_tiles, 3), 0.5)
-        pts = np.repeat(mid[rng.integers(0, n_tiles, 4)], plan_p, axis=0)
-    tile_c[0:3, :n_tiles] = (mid - half).T
-    tile_c[3:6, :n_tiles] = (mid + half).T
-    tile_r[0:3, :n_tiles] = mid.T
-    return (torch.from_numpy(tile_c), torch.from_numpy(tile_r),
-            torch.from_numpy(pts.astype(np.float32)))
-
-
 def _rank_rule(keys):
     """The plan kernel's order in closed form (`csrc/listed_plan.cu`), for
     one row's keys (inf where a tile is not listed): a listed tile's rank is
@@ -253,7 +221,7 @@ def test_plan_rank_rule_is_the_stable_sort(kind, n_tiles):
     """The closed-form rank of the plan kernel gives `listed_plan_plain`'s
     stable sort: order, counts and lbs, on rows with key ties, on rows with
     every tile listed and on rows with one."""
-    tile_c, tile_r, pts = _plan_tables(kind, n_tiles, np.random.default_rng(3))
+    tile_c, tile_r, pts = (torch.from_numpy(a) for a in plan_rows(kind, n_tiles, 128, 4))
     order, counts, lbs = (a.numpy() for a in knn.listed_plan(pts, tile_c, tile_r, n_tiles, 128))
     ties = 0
     for row in range(order.shape[0]):

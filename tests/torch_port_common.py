@@ -57,3 +57,37 @@ def torch_model():
     model = DualSpaceNeRF(max_frames=MAX_FRAMES)
     model.load_state_dict(load_flax_npz(PARAMS_NPZ))
     return model
+
+
+def plan_rows(kind: str, n_tiles: int, plan_p: int, rows: int, seed: int = 3):
+    """Visit-plan inputs with planted rows, numpy float32: (tile_c, tile_r)
+    of `listed_tables`' layout, (8, 128), and rows x plan_p points, for one
+    kind of row:
+
+    - "ties": random boxes with their centres as witnesses, every odd tile
+      a copy of the tile before it, so listed keys tie in pairs;
+    - "all": boxes that all hold the unit cube, the points inside it, so
+      every tile is listed with key 0;
+    - "one": boxes 10 apart with their centres as witnesses, each row's
+      points at one tile's centre, so that tile alone is listed."""
+    rng = np.random.default_rng(seed)
+    tile_c = np.full((8, 128), 1e15, np.float32)
+    tile_r = np.full((8, 128), 1e15, np.float32)
+    n = rows * plan_p
+    if kind == "ties":
+        mid = 4.0 * rng.random((n_tiles, 3))
+        half = 0.1 + 0.2 * rng.random((n_tiles, 3))
+        mid[1::2], half[1::2] = mid[0:n_tiles - 1:2], half[0:n_tiles - 1:2]
+        pts = mid[rng.integers(0, n_tiles, n)] + 0.3 * rng.standard_normal((n, 3))
+    elif kind == "all":
+        mid = 0.2 * rng.standard_normal((n_tiles, 3))
+        half = 1.5 + rng.random((n_tiles, 3))
+        pts = rng.random((n, 3)) - 0.5
+    else:
+        mid = 10.0 * np.stack([np.arange(n_tiles), np.zeros(n_tiles), np.zeros(n_tiles)], 1)
+        half = np.full((n_tiles, 3), 0.5)
+        pts = np.repeat(mid[rng.integers(0, n_tiles, rows)], plan_p, axis=0)
+    tile_c[0:3, :n_tiles] = (mid - half).T
+    tile_c[3:6, :n_tiles] = (mid + half).T
+    tile_r[0:3, :n_tiles] = mid.T
+    return tile_c, tile_r, pts.astype(np.float32)
