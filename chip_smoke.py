@@ -21,19 +21,24 @@ Phases (any failure exits non-zero, before the last line is printed):
    FP32 instructions issued on this run's inputs; `issue_floor_ms`: 9 a
    visited pair for the searches; for GG and the plan, the pairs their
    culls keep plus the culls' own work, `gg_floor` / `plan_floor`, with the
-   all-pairs figure beside it) and their registers, spills, shared memory
-   and blocks per SM (`search_resources`, `small_kernel_resources`); GG and
-   the plan also their device time from bare launches (`device_turns_ms`)
-   beside the wrapper's event time;
+   all-pairs figure beside it; for the pruned search, the pairs of the
+   plain version's visits plus the sphere, bounds and thresholds,
+   `pruned_floor`) and their registers, spills, shared memory and blocks
+   per SM (`search_resources`, `small_kernel_resources`); GG, the plan and
+   the pruned search also their device time from bare launches
+   (`device_turns_ms`) beside the wrapper's event time. The pruned search
+   is held and timed on three inputs: the chunk's blocked world points,
+   the canonical points of the same chunk (what the exact path's second
+   search receives) and the random cloud; the sweep times its block sizes
+   in turns;
 4. renders the full 512x512 val image of the synthetic SMPL-sized scene with
    the trained fixture through `ImageRenderer.render_item` (the port's eval
-   entry point) on two paths: (a) exact full shading with the brute-force
+   entry point) on three paths: (a) exact full shading with the brute-force
    search (`configs/zju_mocap/313.yml`), (b) the production path
    (`configs/zju_mocap/313_tpu.yml`: SHADE_TOPK 16, REUSE_WARP_FACES) with
-   `KNN_IMPL: "listed"`. Each: launch counts per image, s_per_image, rays/s,
-   PSNR, and a profile of one render chunk (`profile_device`: the profiler
-   warmed up by one call, and every port kernel the profiled call launched
-   looked up in its trace);
+   `KNN_IMPL: "listed"`, (c) exact full shading with `KNN_IMPL: "pruned"`
+   (two pruned searches a chunk; held to (a) but for near-ties, PSNR >=
+   40 dB). Each: launch counts per image, s_per_image, rays/s, PSNR;
 5. renders the golden rays (`tests/fixtures/torch_port_render_golden.npz`,
    the JAX package's CPU render) on the card and holds them to its bands:
    every leg with its config's search, then the exact legs again with
@@ -53,10 +58,19 @@ Phases (any failure exits non-zero, before the last line is printed):
    512x512 train item, 5500 rays x 64 samples, the trained fixture, Adam at
    5e-4) on four paths, production or exact with `FUSED_MLP` on or off, from
    the same weights and the same draws: launch counts per step, s_per_step,
-   rays/s, device ms per step, peak memory; every loss finite, and the fused
-   and unfused gradients of the first step held to each other;
-8. prints the `kernels` JSON line, the card line, and as the last line
-   {"ok": true, "device": {...}}.
+   rays/s, peak memory; every loss finite, and the fused and unfused
+   gradients of the first step held to each other;
+8. profiles one render chunk of each path of phase 4 and one step of each
+   path of phase 7 (`profile_device`: the profiler warmed up by one call,
+   and every port kernel the profiled call launched looked up in its
+   trace): device ms by kernel family, device ms per step, busy share. They
+   run after every timed run: a profiler session leaves the host's later
+   launches slower, which inflated the host-clock times taken after it;
+9. prints the `kernels` JSON line (each kernel's launches from the path
+   that is its own: the exact image for GG, brute force and the pruned
+   search, the production image for the plan and the listed search, the
+   slim golden leg, the fused production step), the card line, and as the
+   last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -139,6 +153,10 @@ KERNEL_FAMILY = {  # each port kernel's family in `kernel_family`
     FUSED_FWD_KERNEL.name: "fused SpaceNet kernels", FUSED_BWD_KERNEL.name: "fused SpaceNet kernels",
 }
 N_TIMED_RENDERS = 3
+# the exact render with the pruned search against the one with brute force:
+# the same faces but at float32 near-ties; a search that names wrong faces
+# on a share of the points falls far below this
+PRUNED_PSNR_MIN = 40.0
 PAIR_OPS = 9.0  # 3 sub, 3 mul, 2 add, 1 compare per point-centroid pair
 # GG (csrc/gg_near_far.cu), single FP32 instructions: z0 (3 mul, 2 add), d2
 # (mul, sub) and the compare per (ray, vertex) pair the cull keeps; sub, max,
@@ -155,6 +173,12 @@ GG_PAIR_OPS, GG_INSIDE_OPS, GG_TILE_VERT_OPS, GG_RAY_OPS = 8.0, 7.0, 24.0, 10.0
 # pair without the culls: 9 + 16 = 25 a (point, tile) pair
 PLAN_WITNESS_OPS, PLAN_TILE_OPS, PLAN_POINT_OPS, PLAN_ROW_TILE_OPS = 9.0, 16.0, 20.0, 41.0
 PLAN_PAIR_OPS = PLAN_WITNESS_OPS + PLAN_TILE_OPS
+# the pruned search (csrc/pruned_knn.cu), single FP32 instructions, none
+# fused: PAIR_OPS a visited (point, centroid) pair; per point 15 (its box 6,
+# its distance to the block's center 8, the max); per (block, tile) 13 (the
+# bound: d2 8, sqrt, 2 sub; the seed's compare; the visit test); per point
+# and visited tile 1 (the threshold's max)
+PRUNED_POINT_OPS, PRUNED_BLOCK_TILE_OPS, PRUNED_VISIT_OPS = 15.0, 13.0, 1.0
 SLEEP_CYCLES = 200_000     # ~0.1 ms of device time queued ahead of a timed launch
 TRAIN_RAYS = 5500          # bench.py's train workload
 N_TIMED_STEPS = 3
@@ -561,40 +585,85 @@ def check_listed(kernel, slim: bool, pts_path, cloud, cents, mesh, brute_ids, li
     }
 
 
-def check_pruned(pts_path, cloud, cents, mesh, brute_ids, library_ms, brute_ms) -> dict:
+def pruned_floor(visits, n_tiles: int, block_p: int) -> dict:
+    """The pruned search's floors on one input, from the plain version's
+    visits per block: the pairs it must take, the FP32 operations of the
+    pairs, the sphere, the bounds and the thresholds (none fused), and
+    their issue floor."""
+    blocks, visits_sum = visits.shape[0], float(visits.sum())
+    pairs = visits_sum * block_p * pruned_knn._BLOCK_F
+    ops = (PAIR_OPS * pairs + PRUNED_POINT_OPS * blocks * block_p
+           + PRUNED_BLOCK_TILE_OPS * blocks * n_tiles + PRUNED_VISIT_OPS * visits_sum * block_p)
+    return {"pairs": pairs, "ops": ops, "issue_floor_ms": ops / PEAK_FP32_INSTR_PER_S * 1e3,
+            "visits_mean": float(visits.float().mean()), "visits_max": int(visits.max())}
+
+
+def canonical_points(pts_w, cents_w, mesh, settings):
+    """The canonical points that the exact path's second search receives
+    for world points ``pts_w`` (in their layout): the warp through the
+    brute-force world search's faces; with the canonical centroids."""
+    with torch.no_grad():
+        pts_c, _, _ = warp_world_to_canonical(pts_w, mesh, cents_w, settings,
+                                              fidx=nearest_face_cuda(pts_w, cents_w))
+    return pts_c.contiguous(), face_centroids(mesh.verts_cano, mesh.faces).contiguous()
+
+
+def check_pruned(inputs: dict, mesh, library_ms, brute_ms) -> dict:
+    """The pruned kernel against its plain version (every id equal) and
+    against the brute-force kernel (equal but for near-ties) at tighten 1
+    and 0, on each of ``inputs`` ({label: (points, centroids)}: the render
+    chunk's blocked world points, the canonical points of the same chunk,
+    a random cloud); timed on each through the wrapper (events) and as
+    bare launches (device time), with its bound, its issue floor from the
+    plain version's visits, and its resources."""
     name = PRUNED_KERNEL.name
     block_p = pruned_knn._BLOCK_P
-    cent_t, tile_c, tile_r, n_tiles = pruned_knn.pruned_tables(cents, mesh.face_perm)
-    mism, ties, stats = 0, 0, {}
-    for label, pts in (("path", pts_path), ("cloud", cloud)):
+    mism, ties, shapes = 0, 0, {}
+    for label, (pts, cents) in inputs.items():
+        tabs = pruned_knn.pruned_tables(cents, mesh.face_perm)
+        brute = nearest_face_cuda(pts, cents)
         for tighten in (1, 0):
-            ids_k = pruned_knn.pruned_search(pts, cent_t, tile_c, tile_r, n_tiles, block_p, tighten=tighten)
-            ids_p, visits = pruned_knn.pruned_search_plain(
-                pts, cent_t, tile_c, tile_r, n_tiles, block_p, tighten=tighten, with_visits=True)
+            ids_k = pruned_knn.pruned_search(pts, *tabs, block_p, tighten=tighten)
+            ids_p, visits = pruned_knn.pruned_search_plain(pts, *tabs, block_p, tighten=tighten,
+                                                           with_visits=True)
             torch.cuda.synchronize()
             mism += int((ids_k != ids_p).sum())
-            ties += near_tie_only(pts, cents, mesh.face_perm[ids_k.long()], brute_ids[label], name)
+            ties += near_tie_only(pts, cents, mesh.face_perm[ids_k.long()], brute, name)
             if tighten == 1:
-                stats[label] = {"visits_mean": float(visits.float().mean()), "visits_max": int(visits.max()),
-                                "visits_sum": int(visits.sum())}
+                floor = pruned_floor(visits, tabs[3], block_p)
+        n = pts.shape[0]
+        out = torch.empty(n, dtype=torch.int32, device=pts.device)
+        bare = {f"tighten{t}": (lambda pts=pts, tabs=tabs, t=t: pruned_knn.launch_pruned(
+            pts, *tabs, out, block_p, t)) for t in (1, 0)}
+        dev_ms = device_turns_ms(bare, rounds=11)
+        shapes[label] = {
+            "points": n, "tiles": tabs[3], **floor,
+            "wrapper_ms": time_ms(lambda pts=pts, tabs=tabs: pruned_knn.pruned_search(
+                pts, *tabs, block_p), reps=10),
+            "device_ms": dev_ms["tighten1"][0], "device_ms_range": dev_ms["tighten1"][1],
+            "tighten0_device_ms": dev_ms["tighten0"][0],
+            "bound": bound_ms(4.0 * (n * 3 + n + tabs[0].numel() + 4 * tabs[3]), floor["ops"]),
+        }
     if mism:
         raise AssertionError(f"{name}: {mism} ids differ from the plain version")
-    pts = pts_path
-    n = pts.shape[0]
-    pairs = float(stats["path"]["visits_sum"]) * block_p * 512
-    n_bytes = 4.0 * (n * 3 + n + cent_t.numel() + 4 * n_tiles)
-    b, by = bound_ms(n_bytes, PAIR_OPS * pairs)
+    pts, cents = inputs["world"]
+    tabs = pruned_knn.pruned_tables(cents, mesh.face_perm)
+    s = shapes["world"]
     return {
         "name": name, "route": "cuda",
         "source": f"dual_space_nerf_tpu_torch/csrc/{PRUNED_KERNEL.source}",
         "replaces": "dual_space_nerf_tpu/ops/pruned_knn.py:64",
         "max_abs_err": 0.0, "mismatches": mism, "near_ties_vs_brute_force": ties,
-        "ms": time_ms(lambda: pruned_knn.pruned_search(pts, cent_t, tile_c, tile_r, n_tiles, block_p), reps=10),
+        "ms": s["wrapper_ms"], "device_ms": s["device_ms"],
         "search_ms": time_ms(lambda: pruned_search_presorted(pts, cents, mesh.face_perm), reps=5),
-        "plain_ms": time_ms(lambda: pruned_knn.pruned_search_plain(
-            pts, cent_t, tile_c, tile_r, n_tiles, block_p), reps=1, warmup=0),
-        "bound_ms": b, "bound_by": by, "library_ms": library_ms, "brute_force_ms": brute_ms,
-        "shape": {"points": n, "tiles": n_tiles, "block_p": block_p, "pairs": pairs, **stats},
+        "tables_ms": time_ms(lambda: pruned_knn.pruned_tables(cents, mesh.face_perm), reps=10),
+        "plain_ms": time_ms(lambda: pruned_knn.pruned_search_plain(pts, *tabs, block_p), reps=1, warmup=0),
+        "bound_ms": s["bound"][0], "bound_by": s["bound"][1], "library_ms": library_ms,
+        "brute_force_ms": brute_ms, "issue_floor_ms": s["issue_floor_ms"],
+        "inputs": {label: {k: v for k, v in sh.items() if k != "bound"} | {"bound_ms": sh["bound"][0]}
+                   for label, sh in shapes.items()},
+        "resources": search_resources(PRUNED_KERNEL),
+        "shape": {"block_p": block_p},
     }
 
 
@@ -614,12 +683,18 @@ def sweep_granularity(pts, cents, mesh) -> dict:
                 pts, cent_t, order, counts, lbs, plan_p, slim, tighten), reps=5)
         out["listed"].append(row)
     tabs = pruned_knn.pruned_tables(cents, mesh.face_perm)
-    for block_p in (128, 256, 512, 1024):
-        out["pruned"].append({
-            "block_p": block_p,
-            "tighten1_ms": time_ms(lambda: pruned_knn.pruned_search(pts, *tabs, block_p, tighten=1), reps=5),
-            "tighten0_ms": time_ms(lambda: pruned_knn.pruned_search(pts, *tabs, block_p, tighten=0), reps=5),
-        })
+    ids = torch.empty(pts.shape[0], dtype=torch.int32, device=pts.device)
+    sizes = (128, 256, 512, 1024)
+    for tighten in (1, 0):  # device time of bare launches, the block sizes in turns
+        t = device_turns_ms({bp: (lambda bp=bp: pruned_knn.launch_pruned(pts, *tabs, ids, bp, tighten))
+                             for bp in sizes}, rounds=5)
+        for bp in sizes:
+            row = {"block_p": bp, "tighten": tighten, "device_ms": t[bp][0]}
+            if tighten == 1:
+                visits = pruned_knn.pruned_search_plain(pts, *tabs, bp, with_visits=True)[1]
+                row |= {"visits_mean": float(visits.float().mean()),
+                        "issue_floor_ms": pruned_floor(visits, tabs[3], bp)["issue_floor_ms"]}
+            out["pruned"].append(row)
     return out
 
 
@@ -716,11 +791,13 @@ def launches_now() -> dict:
 
 
 def render_path(label, cfg, model, ds, item, rays0, mesh, expect: dict, n_timed: int,
-                reference=None) -> tuple[dict, dict]:
+                reference=None) -> tuple:
     """Render the full image on one path through `ImageRenderer.render_item`:
     a warm-up, the counted run (launch counts asserted against ``expect``),
-    timed runs, finiteness, PSNR, and a profile of one chunk. Returns (the
-    images, the launch counts)."""
+    timed runs, finiteness, PSNR. Returns (the images, the launch counts, a
+    function that profiles one chunk of this path). A profiler session
+    leaves the host's later launches slower, so the profiles run after
+    every timed run of the script."""
     dev = torch.device("cuda")
     settings = RenderSettings.from_cfg(cfg)
     renderer = ImageRenderer(model, settings, ds.faces, ds.canonical_vertex,
@@ -756,15 +833,20 @@ def render_path(label, cfg, model, ds, item, rays0, mesh, expect: dict, n_timed:
     }
     if reference is not None:
         render["psnr_box_vs_exact_render"] = psnr(out["coarse_color"], reference["coarse_color"], mask)
+        render["max_abs_color_vs_exact_render"] = float(
+            np.abs(out["coarse_color"] - reference["coarse_color"]).max())
         render["max_abs_acc_vs_exact_render"] = float(
             np.abs(out["coarse_acc"] - reference["coarse_acc"]).max())
     log("render: " + json.dumps(render))
-    prof = profile_chunk(model, rays0, mesh, settings, LightState.identity(dev))
-    if isinstance(prof["device_ms"], float):
-        # device time of all chunks over the unprofiled wall time
-        prof["device_busy_share_est"] = prof["device_ms"] * render["chunks"] / (s_img * 1e3)
-    log(f"profile_chunk {label}: " + json.dumps(prof))
-    return out, launches
+
+    def profile_later() -> None:
+        prof = profile_chunk(model, rays0, mesh, settings, LightState.identity(dev))
+        if isinstance(prof["device_ms"], float):
+            # device time of all chunks over the unprofiled wall time
+            prof["device_busy_share_est"] = prof["device_ms"] * render["chunks"] / (s_img * 1e3)
+        log(f"profile_chunk {label}: " + json.dumps(prof))
+
+    return out, launches, profile_later
 
 
 # ---- the fused SpaceNet kernels -------------------------------------------
@@ -1059,6 +1141,15 @@ def search_resources(kernel, row_stride: int = 0) -> dict:
             v["blocks_per_sm"] = q("blocks_per_sm", split)
             out[label] = v
         out["block_points"] = q("block_points", 0)
+    elif kernel is PRUNED_KERNEL:
+        block_p = pruned_knn._BLOCK_P
+        v = entry_resources(kernel, rf"pruned_kernelILi{q('points_per_thread', block_p)}E")
+        v["dynamic_smem_bytes"] = 0
+        v["blocks_per_sm"] = q("blocks_per_sm", block_p)
+        out["main"] = v
+        out["blocks_per_sm_by_block_p"] = {bp: q("blocks_per_sm", bp) for bp in (128, 256, 512, 1024)}
+        out["block_points"] = block_p
+        out["points_per_thread"] = q("points_per_thread", block_p)
     else:
         wide = kernel is LISTED_KERNEL
         for label, tighten in ((("wide", 0), ("tighten", 1)) if wide else (("slim", 0),)):
@@ -1108,7 +1199,9 @@ def fused_resources(kernel) -> dict:
 def train_path(label, production: bool, fused: bool, batch, mesh, expect: dict) -> tuple:
     """`make_train_step` on one path from the fixture's weights and the same
     draws: a counted first step (launches asserted against ``expect``, its
-    gradients kept), timed steps, a profiled step. Returns (report, grads)."""
+    gradients kept), timed steps. Returns (report, grads, a function that
+    profiles one more step and adds its device time to the report; run
+    after every timed run, as `render_path`'s)."""
     dev = torch.device("cuda")
     cfg = train_cfg(production, fused)
     settings = RenderSettings.from_cfg(cfg)
@@ -1135,7 +1228,6 @@ def train_path(label, production: bool, fused: bool, batch, mesh, expect: dict) 
         m = step(state, batch, mesh, randoms=draws[1 + i])
         losses.append(float(m["loss"]))  # a host copy: the step has ended
         times.append(time.perf_counter() - t0)
-    prof = profile_device(lambda: step(state, batch, mesh, randoms=draws[-1]))
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train {label}: non-finite loss {losses}")
     s_step = statistics.median(times)
@@ -1145,13 +1237,18 @@ def train_path(label, production: bool, fused: bool, batch, mesh, expect: dict) 
         "s_per_step": s_step, "s_per_step_runs": times, "rays_per_s": TRAIN_RAYS / s_step,
         "losses": losses, "psnr_last": float(m["psnr"]),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "device_ms_per_step": prof["device_ms"],
-        "device_busy_share_est": (prof["device_ms"] / (s_step * 1e3)
-                                  if isinstance(prof["device_ms"], float) else "not measured"),
-        "profile": prof,
     }
     log(f"train {label}: " + json.dumps(report))
-    return report, grads
+
+    def profile_later() -> None:
+        prof = profile_device(lambda: step(state, batch, mesh, randoms=draws[-1]))
+        report["device_ms_per_step"] = prof["device_ms"]
+        report["device_busy_share_est"] = (prof["device_ms"] / (s_step * 1e3)
+                                           if isinstance(prof["device_ms"], float) else "not measured")
+        log(f"profile_step {label}: " + json.dumps({k: report[k] for k in (
+            "device_ms_per_step", "device_busy_share_est")} | {"profile": prof}))
+
+    return report, grads, profile_later
 
 
 def compare_grads(label, g_fused: dict, g_plain: dict) -> dict:
@@ -1234,6 +1331,8 @@ def main() -> int:
     pts_blocked = to_blocked(pts_rs).contiguous()
     cloud = random_cloud(pts_blocked.shape[0], cents_w)
     brute_ids = {"path": nearest_face_cuda(pts_blocked, cents_w), "cloud": nearest_face_cuda(cloud, cents_w)}
+    # the exact path's second search: the same chunk's canonical points
+    pts_cano, cents_c = canonical_points(pts_blocked, cents_w, mesh, settings)
     brute_ms = time_ms(lambda: nearest_face_cuda(pts_blocked, cents_w), reps=10)
     lib_ms = kernels[1]["library_ms"]
     tcents_w = face_centroids(tmesh.verts_world, tmesh.faces).contiguous()
@@ -1241,7 +1340,8 @@ def main() -> int:
                               cents_w, mesh, tcents_w, tmesh))
     kernels.append(check_listed(LISTED_KERNEL, False, pts_blocked, cloud, cents_w, mesh, brute_ids, lib_ms, brute_ms))
     kernels.append(check_listed(LISTED_SLIM_KERNEL, True, pts_blocked, cloud, cents_w, mesh, brute_ids, lib_ms, brute_ms))
-    kernels.append(check_pruned(pts_blocked, cloud, cents_w, mesh, brute_ids, lib_ms, brute_ms))
+    kernels.append(check_pruned({"world": (pts_blocked, cents_w), "canonical": (pts_cano, cents_c),
+                                 "cloud": (cloud, cents_w)}, mesh, lib_ms, brute_ms))
     for k in kernels:
         log("kernel: " + json.dumps({key: k[key] for key in k if key not in ("route", "source", "replaces")}))
     for k in kernels:  # GG, the searches and the plan: time against floor, resources
@@ -1249,13 +1349,19 @@ def main() -> int:
             continue
         floor = {"ms": k["ms"], "issue_floor_ms": k["issue_floor_ms"], "bound_ms": k["bound_ms"],
                  "issue_floor_share": k["issue_floor_ms"] / k["ms"], "bound_share": k["bound_ms"] / k["ms"]}
-        if "device_ms" in k:  # GG and the plan: bare launches, device time alone
-            st = k["step"]
+        if "device_ms" in k:  # GG, the plan, the pruned search: bare launches, device time alone
             floor |= {"device_ms": k["device_ms"], "device_issue_floor_share": k["issue_floor_ms"] / k["device_ms"],
-                      "device_bound_share": k["bound_ms"] / k["device_ms"],
-                      "all_pairs_issue_floor_ms": k["all_pairs_issue_floor_ms"],
+                      "device_bound_share": k["bound_ms"] / k["device_ms"]}
+        if "step" in k:  # GG and the plan: the training step's shapes too
+            st = k["step"]
+            floor |= {"all_pairs_issue_floor_ms": k["all_pairs_issue_floor_ms"],
                       "step": st | {"device_issue_floor_share": st["issue_floor_ms"] / st["device_ms"],
                                     "device_bound_share": st["bound_ms"] / st["device_ms"]}}
+        if "inputs" in k:  # the pruned search: each input
+            floor["inputs"] = {label: {key: v[key] for key in ("device_ms", "issue_floor_ms", "bound_ms",
+                                                                  "visits_mean")}
+                               | {"device_issue_floor_share": v["issue_floor_ms"] / v["device_ms"]}
+                               for label, v in k["inputs"].items()}
         log(f"floor {k['name']}: " + json.dumps({**floor, "resources": k["resources"]}))
     log("sweep: " + json.dumps(sweep_granularity(pts_blocked, cents_w, mesh)))
     log("tables: " + json.dumps({
@@ -1268,15 +1374,28 @@ def main() -> int:
     model = trained_model(cfg.MODEL.MAX_FRAMES).eval()
     zero = {k.name: 0 for k in KERNELS}
     # (a) exact full shading, brute-force search: two searches per chunk
-    out_exact, launches_exact = render_path(
+    out_exact, launches_exact, profile_exact = render_path(
         "exact", cfg, model, ds, item, rays0, mesh,
         {**zero, GG_KERNEL.name: n_chunks, NEAREST_KERNEL.name: 2 * n_chunks}, n_timed=2)
     # (b) production: gated shading with face reuse, one listed search per chunk
-    out_prod, launches_prod = render_path(
+    out_prod, launches_prod, profile_prod = render_path(
         "production", production_cfg(), model, ds, item, rays0, mesh,
         {**zero, GG_KERNEL.name: n_chunks, LISTED_PLAN_KERNEL.name: n_chunks,
          LISTED_KERNEL.name: n_chunks}, n_timed=N_TIMED_RENDERS,
         reference=out_exact)
+    # (c) exact full shading, the pruned search: two searches per chunk; the
+    # same image as (a) but where a near-tie names another face
+    pruned_cfg = slice_cfg()
+    pruned_cfg.MODEL.KNN_IMPL = "pruned"
+    out_pruned, launches_exact_pruned, profile_pruned = render_path(
+        "exact pruned", pruned_cfg, model, ds, item, rays0, mesh,
+        {**zero, GG_KERNEL.name: n_chunks, PRUNED_KERNEL.name: 2 * n_chunks}, n_timed=1,
+        reference=out_exact)
+    box = np.asarray(item["mask_at_box"]).reshape(H, W)
+    if psnr(out_pruned["coarse_color"], out_exact["coarse_color"], box) < PRUNED_PSNR_MIN:
+        raise AssertionError("exact pruned: the render departs from the brute-force exact render")
+    del out_prod, out_pruned
+    profiles = [profile_exact, profile_prod, profile_pruned]
 
     # ---- 5. golden rays against the JAX package's render ---------------
     with np.load(GOLDEN_NPZ) as data:
@@ -1285,8 +1404,8 @@ def main() -> int:
     golden_leg("configs", golden, model,
                {**zero, GG_KERNEL.name: 1, NEAREST_KERNEL.name: 4, LISTED_PLAN_KERNEL.name: 1,
                 LISTED_KERNEL.name: 1})
-    launches_pruned = golden_leg("pruned", golden, model, {**zero, GG_KERNEL.name: 1, PRUNED_KERNEL.name: 4},
-                                 legs=("fixed", "gg"), knn_impl="pruned")
+    golden_leg("pruned", golden, model, {**zero, GG_KERNEL.name: 1, PRUNED_KERNEL.name: 4},
+               legs=("fixed", "gg"), knn_impl="pruned")
     os.environ["DSNERF_KNN_SLIM"] = "1"  # read when a search is called
     try:
         launches_slim = golden_leg("listed slim", golden, model,
@@ -1318,21 +1437,27 @@ def main() -> int:
         ("exact", False, False, exact_base),
         ("exact fused", False, True, {**exact_base, FUSED_FWD_KERNEL.name: 1, FUSED_BWD_KERNEL.name: 1}),
     ):
-        train[label], grads[label] = train_path(label, production, fused, tbatch, tmesh, expect)
+        train[label], grads[label], profile_step = train_path(label, production, fused, tbatch, tmesh,
+                                                              expect)
+        profiles.append(profile_step)
         torch.cuda.empty_cache()
     compared = [compare_grads(path, grads[f"{path} fused"], grads[path])
                 for path in ("production", "exact")]
+
+    # ---- 8. profiles, after every timed run -------------------------------
+    for profile_later in profiles:
+        profile_later()
     log("train summary: " + json.dumps({
         label: {k: r[k] for k in ("s_per_step", "rays_per_s", "device_ms_per_step", "peak_mem_gb")}
         for label, r in train.items()} | {"grads": compared}))
 
-    # ---- 8. results ------------------------------------------------------
+    # ---- 9. results ------------------------------------------------------
     # each kernel's launches on the path that is its own
     on_path = {
         GG_KERNEL.name: launches_exact, NEAREST_KERNEL.name: launches_exact,
         LISTED_PLAN_KERNEL.name: launches_prod, LISTED_KERNEL.name: launches_prod,
         LISTED_SLIM_KERNEL.name: launches_slim,
-        PRUNED_KERNEL.name: launches_pruned,
+        PRUNED_KERNEL.name: launches_exact_pruned,
         FUSED_FWD_KERNEL.name: train["production fused"]["launches_per_step"],
         FUSED_BWD_KERNEL.name: train["production fused"]["launches_per_step"],
     }

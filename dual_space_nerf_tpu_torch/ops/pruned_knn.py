@@ -23,6 +23,9 @@ whatever the plan's granularity; finer rows list fewer tiles.
 **Pruned search** (`pruned_search_presorted`): 512-face tiles in kd order
 with bounding spheres (`pruned_tables`); the kernel bounds each block of
 ``block_p`` points by a sphere and skips tiles by sphere-to-sphere distance.
+Its kernel (`csrc/pruned_knn.cu`) holds 4 points a thread, copies the next
+candidate tile ahead with `cp.async` into a 2-stage ring, and runs the
+chunked `fminf` with the per-lane tie rule in closed form.
 
 Both want spatially coherent consecutive points (the renderer's blocked
 layout, or `morton_order`). All three kernels are bound by operations on the
@@ -623,14 +626,24 @@ def _pruned_search_cuda(pts, cent_t, tile_c, tile_r, n_tiles, block_p, block_f, 
     _check_table(name, "tile_r", tile_r, (8, t_pad), torch.float32, dev)
     if t_pad < n_tiles:
         raise ValueError(f"{name}: tile tables of {t_pad} columns for {n_tiles} tiles")
+    if cent_t.data_ptr() % 16:
+        raise ValueError(f"{name}: cent_t must be 16-byte aligned (the kernel copies 16 bytes at a time)")
     out = torch.empty((n,), dtype=torch.int32, device=dev)
+    launch_pruned(pts, cent_t, tile_c, tile_r, n_tiles, out, block_p, tighten)
+    return out
+
+
+def launch_pruned(pts, cent_t, tile_c, tile_r, n_tiles: int, out, block_p: int = _BLOCK_P,
+                  tighten: int = _TIGHTEN) -> None:
+    """One bare launch of the pruned kernel into a preallocated ``out``,
+    without the wrapper's checks (`pruned_search` makes them)."""
+    dev = pts.device
     with torch.cuda.device(dev):
         PRUNED_KERNEL.launch(
             pts.data_ptr(), cent_t.data_ptr(), tile_c.data_ptr(), tile_r.data_ptr(),
-            out.data_ptr(), n, block_p, n_tiles, n_tiles * block_f, t_pad, int(tighten),
-            stream_ptr(dev),
+            out.data_ptr(), pts.shape[0], block_p, n_tiles, n_tiles * _BLOCK_F, tile_c.shape[1],
+            int(tighten), stream_ptr(dev),
         )
-    return out
 
 
 def pruned_search(pts, cent_t, tile_c, tile_r, n_tiles: int, block_p: int = _BLOCK_P,

@@ -4,10 +4,10 @@ turns, on one NVIDIA card.
 
     git archive <commit> dual_space_nerf_tpu_torch/csrc | tar -x -C <dir>
     python3 scripts/torch_search_ab.py --other <dir>/dual_space_nerf_tpu_torch/csrc [--other ...]
-        [--sections searches,gg,plan]
+        [--sections searches,gg,plan,pruned]
 
 Each other tree's `nearest_face.cu`, `listed_knn.cu`, `listed_knn_slim.cu`,
-`gg_near_far.cu` and `listed_plan.cu` are built beside this tree's
+`gg_near_far.cu`, `listed_plan.cu` and `pruned_knn.cu` are built beside this tree's
 (`CudaKernel(csrc=...)`), named by the directory two levels above its csrc/
 (or the csrc/'s parent). A brute-force launcher without the face split has
 the signature `nearest_face_launch(pts, cents, out, n_pts, n_faces,
@@ -17,20 +17,26 @@ design) takes a (V, 4) scratch after `verts`; a plan launcher with
 stream. On the shapes of
 `chip_smoke.py` phase 3 (the render chunk's 8192 rays and 524,288 world
 points, as many blocked points, a random cloud, and the training step's
-5500 rays, 352,000 world points and 352,256 blocked points) the script:
+5500 rays, 352,000 world points and 352,256 blocked points; for the pruned
+search also the canonical points of the same chunk, which the exact path's
+second search receives) the script:
 
 1. holds every version's outputs equal, bit for bit or id for id, and to
    the plain versions;
 2. times each kernel and the other trees' in turns (this, other, ...,
    this, other, ...; CUDA events, median and range over ``--rounds``);
-   GG and the plan as bare launches into preallocated outputs with the
-   card kept busy ahead of each (`chip_smoke.device_turns_ms`: device time
-   alone), and also through this tree's wrapper;
+   GG, the plan and the pruned search as bare launches into preallocated
+   outputs with the card kept busy ahead of each
+   (`chip_smoke.device_turns_ms`: device time alone), GG and the plan also
+   through this tree's wrapper; with the SM clock and power under load;
 3. times this tree's brute-force kernel at forced face splits against the
    split that `face_splits` chooses, in turns, and reports the share of
    GG's pairs and the plan's witnesses and tiles that this tree's culls
    keep (`chip_smoke.gg_cull_counts`, `plan_cull_counts`), with the issue
-   floors they give and the all-pairs floors beside them.
+   floors they give and the all-pairs floors beside them, and the pruned
+   search's issue floor from the plain version's visits
+   (`chip_smoke.pruned_floor`) and its time with the blocks taken longest
+   visit list first and last.
 
 Prints one JSON line per measurement, the card line, and writes all of it
 to ``--out``.
@@ -66,6 +72,7 @@ from dual_space_nerf_tpu_torch.ops import (  # noqa: E402
     LISTED_PLAN_KERNEL,
     LISTED_SLIM_KERNEL,
     NEAREST_KERNEL,
+    PRUNED_KERNEL,
     face_centroids,
     gg_near_far_cuda,
     gg_near_far_plain,
@@ -119,6 +126,7 @@ def other_kernels(csrc: str) -> dict:
                                       includes=("listed_knn.cuh",), csrc=csrc),
         "gg_near_far": CudaKernel("gg_near_far.cu", "gg_near_far_launch", gg_args, csrc=csrc),
         "listed_plan": CudaKernel("listed_plan.cu", "listed_plan_launch", plan_args, csrc=csrc),
+        "pruned_knn": CudaKernel("pruned_knn.cu", "pruned_knn_launch", PRUNED_KERNEL.argtypes, csrc=csrc),
     }
 
 
@@ -145,6 +153,15 @@ def other_plan(other, pts, tile_c, tile_r, outs, plan_p):
     other["listed_plan"].launch(pts.data_ptr(), tile_c.data_ptr(), tile_r.data_ptr(),
                                 *(o.data_ptr() for o in outs), pts.shape[0], plan_p, n_tiles,
                                 tile_c.shape[1], *n_sort, stream_ptr(pts.device))
+
+
+def other_pruned(other, pts, tabs, out, block_p, tighten):
+    """One bare launch of a tree's pruned kernel into ``out`` (the launcher's
+    signature is the same in every version)."""
+    cent_t, tile_c, tile_r, n_tiles = tabs
+    other["pruned_knn"].launch(pts.data_ptr(), cent_t.data_ptr(), tile_c.data_ptr(), tile_r.data_ptr(),
+                               out.data_ptr(), pts.shape[0], block_p, n_tiles, cent_t.shape[1],
+                               tile_c.shape[1], tighten, stream_ptr(pts.device))
 
 
 def other_nearest(other, pts, cents, splits):
@@ -193,7 +210,9 @@ def inputs(dev):
     tbatch = item_to_train_batch(titem, cs.TRAIN_RAYS, dev)
     tpts = cs.train_world_points(tbatch, tmesh, settings)
     blocked = to_blocked(pts_rs).contiguous()
+    canonical, cents_c = cs.canonical_points(blocked, cents, mesh, settings)
     return {
+        "canonical": canonical, "cents_c": cents_c,
         "rays": rays0, "step_rays": tbatch.rays, "step_mesh": tmesh, "gamma": settings.gg_gamma,
         "step_blocked": cs.train_world_points(tbatch, tmesh, settings, blocked=True),
         "mesh": mesh, "cents": cents, "world": pts_rs.reshape(-1, 3).contiguous(),
@@ -207,8 +226,8 @@ def main() -> int:
     ap.add_argument("--other", required=True, action="append",
                     help="another tree's dual_space_nerf_tpu_torch/csrc (repeatable)")
     ap.add_argument("--rounds", type=int, default=11)
-    ap.add_argument("--sections", default="searches,gg,plan",
-                    help="comma-separated: searches, gg, plan")
+    ap.add_argument("--sections", default="searches,gg,plan,pruned",
+                    help="comma-separated: searches, gg, plan, pruned")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "search_ab.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -223,14 +242,16 @@ def main() -> int:
         label = parts[-3] if parts[-1] == "csrc" and parts[-2] == "dual_space_nerf_tpu_torch" else parts[-2]
         others[label] = other_kernels(d)
     sections = set(args.sections.split(","))
-    build_s = build_all([NEAREST_KERNEL, LISTED_KERNEL, LISTED_SLIM_KERNEL, LISTED_PLAN_KERNEL, GG_KERNEL,
+    build_s = build_all([NEAREST_KERNEL, LISTED_KERNEL, LISTED_SLIM_KERNEL, LISTED_PLAN_KERNEL, GG_KERNEL, PRUNED_KERNEL,
                          *(k for o in others.values() for n, k in o.items() if n not in FLAGS)])
     results = {"card": card, "build_s": build_s, "rounds": args.rounds, "nearest_face": [],
                "listed": [], "listed_even": [], "listed_order": [], "splits": [], "gg": [], "plan": [],
+               "pruned": [], "pruned_order": [],
                "ptxas": {}}
     for label, kernels in (("this", {"nearest_face": NEAREST_KERNEL, "listed_knn": LISTED_KERNEL,
                                      "listed_knn_slim": LISTED_SLIM_KERNEL, "gg_near_far": GG_KERNEL,
-                                     "listed_plan": LISTED_PLAN_KERNEL}), *others.items()):
+                                     "listed_plan": LISTED_PLAN_KERNEL, "pruned_knn": PRUNED_KERNEL}),
+                        *others.items()):
         for name, k in kernels.items():
             if name not in FLAGS:  # registers, spills and shared memory per entry
                 results["ptxas"][f"{label} {name}"] = cs.ptxas_entries(k)
@@ -250,6 +271,8 @@ def main() -> int:
         plan_section(x, others, args.rounds, report)
     if "searches" in sections:
         search_sections(x, mine, others, args.rounds, report)
+    if "pruned" in sections:
+        pruned_section(x, others, args.rounds, report)
     print(card)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
@@ -342,6 +365,60 @@ def plan_section(x, others, rounds, report) -> None:
                         **{f"{k}_range": v[1] for k, v in t.items()},
                         "this_wrapper_ms": wrap["this wrapper"][0], "this_wrapper_range": wrap["this wrapper"][1],
                         "clock_sm_power_under_load": clock_under_load(fns["this"], 4000)})
+
+
+def pruned_section(x, others, rounds, report) -> None:
+    """The pruned search: this tree's kernel and the other trees', id for id
+    with each other and with the plain version, and in turns (device time
+    of bare launches), on the render chunk's blocked world points, the
+    canonical points of the same chunk and the random cloud, at tighten 1
+    and 0, with the issue floor from the plain version's visits; then this
+    tree's kernel on the world blocks taken longest visit list first and
+    last."""
+    block_p = pruned_knn._BLOCK_P
+    for label, pts, cents in (("render blocked world 524,288", x["blocked"], x["cents"]),
+                              ("render blocked canonical 524,288", x["canonical"], x["cents_c"]),
+                              ("random cloud 524,288", x["cloud"], x["cents"])):
+        tabs = pruned_knn.pruned_tables(cents, x["mesh"].face_perm)
+        for tighten in (1, 0):
+            want, visits = pruned_knn.pruned_search_plain(pts, *tabs, block_p, tighten=tighten,
+                                                          with_visits=True)
+            outs = {name: torch.empty_like(want) for name in ("this", *others)}
+            fns = {"this": lambda: pruned_knn.launch_pruned(pts, *tabs, outs["this"], block_p, tighten)}
+            for name, o in others.items():
+                fns[name] = lambda o=o, out=outs[name]: other_pruned(o, pts, tabs, out, block_p, tighten)
+            for fn in fns.values():
+                fn()
+            torch.cuda.synchronize()
+            for name, out in outs.items():
+                if not torch.equal(out, want):
+                    raise AssertionError(f"pruned {label}: {name}'s ids differ from the plain version")
+            t = cs.device_turns_ms(fns, rounds)
+            floor = cs.pruned_floor(visits, tabs[3], block_p)
+            report("pruned", {"shape": label, "tighten": tighten, "points": pts.shape[0], "tiles": tabs[3],
+                              "block_p": block_p, **floor,
+                              **{f"{k}_device_ms": v[0] for k, v in t.items()},
+                              **{f"{k}_range": v[1] for k, v in t.items()},
+                              "this_issue_floor_share": floor["issue_floor_ms"] / t["this"][0],
+                              "clock_sm_power_under_load": clock_under_load(fns["this"], 400)})
+    # this tree's kernel on the world blocks in another order, by the plain
+    # version's visits: longest list first, and last (the same blocks, so
+    # the same pairs; the order only moves the tail)
+    tabs = pruned_knn.pruned_tables(x["cents"], x["mesh"].face_perm)
+    for bp in (256, block_p):
+        visits = pruned_knn.pruned_search_plain(x["blocked"], *tabs, bp, with_visits=True)[1]
+        blocks = x["blocked"].reshape(-1, bp, 3)
+        fns = {}
+        for order, perm in (("own", torch.arange(blocks.shape[0], device=blocks.device)),
+                            ("longest first", torch.sort(visits, descending=True, stable=True).indices),
+                            ("longest last", torch.sort(visits, stable=True).indices)):
+            p = blocks[perm].reshape(-1, 3).contiguous()
+            out = torch.empty(p.shape[0], dtype=torch.int32, device=p.device)
+            fns[order] = lambda p=p, out=out: pruned_knn.launch_pruned(p, *tabs, out, bp, 1)
+        t = cs.device_turns_ms(fns, rounds)
+        report("pruned_order", {"block_p": bp, "visits_min": int(visits.min()), "visits_max": int(visits.max()),
+                                **{f"{k} device_ms": v[0] for k, v in t.items()},
+                                **{f"{k} range": v[1] for k, v in t.items()}})
 
 
 def search_sections(x, mine, others, rounds, report) -> None:

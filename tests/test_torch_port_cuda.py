@@ -16,6 +16,7 @@ import torch
 from dual_space_nerf_tpu_torch.data.synthetic import make_scene
 from dual_space_nerf_tpu_torch.ops import (
     GG_KERNEL,
+    PRUNED_KERNEL,
     build_face_clusters,
     build_face_tiles,
     face_centroids,
@@ -26,9 +27,10 @@ from dual_space_nerf_tpu_torch.ops import (
     nearest_face_plain,
     pruned_knn,
 )
-from torch_port_common import plan_rows
+from torch_port_common import PRUNED_TIE_KINDS, plan_rows, pruned_ties
 
 RAY_TILE, VERT_TILE = 32, 1024  # csrc/gg_near_far.cu: rays a block (one a lane), vertices staged a pass
+PRUNED_PTS = 4  # csrc/pruned_knn.cu: points a thread where block_p is a multiple of 32 * 4, else 1
 
 pytestmark = pytest.mark.cuda
 
@@ -370,11 +372,16 @@ def test_listed_tie_rules_part_on_planted_ties(dev, scene):
     assert torch.equal(wide, pruned_knn.listed_search(*inputs, 128, False, False))
 
 
-@pytest.mark.parametrize("n", [128, 2048, 524_288])
-@pytest.mark.parametrize("block_p,tighten", [(128, 1), (512, 1), (1024, 0), (256, 2)])
+@pytest.mark.parametrize("n", [128, 2048, 6144, 524_288])
+@pytest.mark.parametrize("block_p", [96, 128, 256, 512, 1024])
+@pytest.mark.parametrize("tighten", [0, 1, 2])
 def test_pruned_kernel_equals_plain(dev, scene, n, block_p, tighten):
+    """Every block size the sweep of `chip_smoke.py` times (and 96: one
+    point a thread), tighten 0, 1 and 2: ids equal the plain version's."""
     if n % block_p:
         pytest.skip("n is not a whole number of blocks")
+    ppt = PRUNED_KERNEL.extra_function("pruned_knn_points_per_thread", [ctypes.c_int])(block_p)
+    assert ppt == (PRUNED_PTS if block_p % (32 * PRUNED_PTS) == 0 else 1)
     pts, cents, _, perm = _search_inputs(scene, n, dev)
     tabs = pruned_knn.pruned_tables(cents, perm)
     ids_k = pruned_knn.pruned_search(pts, *tabs, block_p, tighten=tighten)
@@ -382,6 +389,76 @@ def test_pruned_kernel_equals_plain(dev, scene, n, block_p, tighten):
     torch.cuda.synchronize()
     assert torch.equal(ids_k, ids_p)
     assert int((perm[ids_k.long()] != nearest_face_cuda(pts, cents)).sum()) <= max(1, n // 5000)
+
+
+@pytest.mark.parametrize("block_p", [128, 512])
+@pytest.mark.parametrize("kind", PRUNED_TIE_KINDS)
+def test_pruned_kernel_planted_ties(dev, kind, block_p):
+    """Planted exact ties (`pruned_ties`: the seed tile 2 holding a lane that
+    tile 0 ties, ties across lanes of non-seed tiles, a tie that a later
+    strict improvement cancels): the kernel's ids are the plain version's
+    and the expected ones, at tighten 0, 1 and 2."""
+    pts, cents, want = (torch.as_tensor(a, device=dev) for a in pruned_ties(kind))
+    pts = pts.repeat(block_p // 128, 1).contiguous()
+    tabs = pruned_knn.pruned_tables(cents, torch.arange(cents.shape[0], device=dev))
+    for tighten in (0, 1, 2):
+        ids_k = pruned_knn.pruned_search(pts, *tabs, block_p, tighten=tighten)
+        ids_p = pruned_knn.pruned_search_plain(pts, *tabs, block_p, tighten=tighten)
+        torch.cuda.synchronize()
+        assert torch.equal(ids_k, ids_p)
+        assert torch.equal(ids_k, want.repeat(block_p // 128))
+
+
+def test_pruned_kernel_one_tile(dev):
+    """A mesh of 96 faces, one tile of 512 slots (416 padded): only the seed
+    is visited."""
+    small = make_scene(n_theta=6, n_phi=8)
+    pts, cents, _, perm = _search_inputs(small, 2048, dev)
+    tabs = pruned_knn.pruned_tables(cents, perm)
+    assert tabs[3] == 1
+    for block_p, tighten in ((128, 1), (512, 0), (96, 1)):
+        pts_b = pts[: 2048 // block_p * block_p].contiguous()
+        ids_k = pruned_knn.pruned_search(pts_b, *tabs, block_p, tighten=tighten)
+        torch.cuda.synchronize()
+        assert torch.equal(ids_k, pruned_knn.pruned_search_plain(pts_b, *tabs, block_p, tighten=tighten))
+        assert int((perm[ids_k.long()].int() != nearest_face_plain(pts_b, cents)).sum()) <= 1
+
+
+def _quantised_cloud(dev, n, f, seed):
+    """Morton-sorted points and centroids on a 1/4 grid (centroid positions
+    repeat, so exact ties are common), and the pruned tables in the
+    centroids' own order: every tile spans the grid, so every block visits
+    every tile."""
+    rng = np.random.default_rng(seed)
+    cents = torch.as_tensor(rng.integers(0, 8, (f, 3)) * 0.25, dtype=torch.float32, device=dev)
+    pts = torch.as_tensor(rng.integers(0, 29, (n, 3)) * 0.0625 - 0.0625, dtype=torch.float32, device=dev)
+    pts = pts[pruned_knn.morton_order(pts)].contiguous()
+    return pts, cents, pruned_knn.pruned_tables(cents, torch.arange(f, device=dev))
+
+
+@pytest.mark.parametrize("block_p", [128, 512, 1024])
+def test_pruned_kernel_quantised_cloud_visits_every_tile(dev, block_p):
+    pts, cents, tabs = _quantised_cloud(dev, 65_536, 13_776, seed=block_p)
+    for tighten in (0, 1):
+        ids_k = pruned_knn.pruned_search(pts, *tabs, block_p, tighten=tighten)
+        ids_p, visits = pruned_knn.pruned_search_plain(pts, *tabs, block_p, tighten=tighten,
+                                                       with_visits=True)
+        torch.cuda.synchronize()
+        assert bool((visits == tabs[3]).all())
+        assert torch.equal(ids_k, ids_p)
+
+
+def test_pruned_kernel_two_calls_give_the_same_ids(dev, scene):
+    """Where a race in the copy ring would show: the same ids twice, on the
+    quantised cloud (every tile visited) and on the mesh's points (tiles
+    skipped, candidates dropped by the tightened threshold)."""
+    pts, _, tabs = _quantised_cloud(dev, 524_288, 13_776, seed=3)
+    assert torch.equal(pruned_knn.pruned_search(pts, *tabs), pruned_knn.pruned_search(pts, *tabs))
+    pts, cents, _, perm = _search_inputs(scene, 524_288, dev)
+    tabs = pruned_knn.pruned_tables(cents, perm)
+    for tighten in (0, 1):
+        a = pruned_knn.pruned_search(pts, *tabs, tighten=tighten)
+        assert torch.equal(a, pruned_knn.pruned_search(pts, *tabs, tighten=tighten))
 
 
 def test_searches_pad_ragged_tails_on_the_card(dev, scene):
@@ -422,6 +499,11 @@ def test_kernels_reject_what_they_do_not_take(dev, scene):
         pruned_knn.pruned_search_presorted(spts, cents, perm, block_p=48)
     with pytest.raises(ValueError):
         pruned_knn.pruned_search_presorted(spts, cents, perm, block_f=256)
+    cent_t, tile_c, tile_r, n_tiles = pruned_knn.pruned_tables(cents, perm)
+    shifted = torch.empty(cent_t.numel() + 1, dtype=torch.float32, device=dev)[1:].view_as(cent_t)
+    shifted.copy_(cent_t)
+    with pytest.raises(ValueError):  # the kernel copies 16 bytes at a time
+        pruned_knn.pruned_search(spts, shifted, tile_c, tile_r, n_tiles, 128)
 
 
 def _fused_inputs(n, dev, seed=0):

@@ -20,7 +20,7 @@ from dual_space_nerf_tpu.ops.clustered_knn import build_face_clusters as jax_clu
 from dual_space_nerf_tpu_torch.data.synthetic import make_scene
 from dual_space_nerf_tpu_torch.ops import pruned_knn as knn
 from dual_space_nerf_tpu_torch.ops.clustered_knn import build_face_clusters
-from torch_port_common import plan_rows
+from torch_port_common import PRUNED_TIE_KINDS, plan_rows, pruned_ties
 
 BLOCK_P = 256
 
@@ -306,6 +306,102 @@ def test_pruned_tie_rule_seed_tile_first():
                                               with_visits=True)
         assert int(visits[0]) == 2
         np.testing.assert_array_equal(ids[:127].numpy(), seed_tile * 512 + np.arange(127))
+
+
+def _pruned_closed_form(pts, cent_t, tile_c, tile_r, n_tiles, block_p, tighten=1, chunk=16):
+    """The pruned kernel's tie rule in closed form (`csrc/pruned_knn.cu`),
+    streamed as the kernel streams it: per block the plain version's
+    sphere, bounds, seed and visits; per visited tile and chunk of ``chunk``
+    lanes, each point's chunk minimum m against its running best. m < best
+    records the chunk; m == best, in a tile before the seed while the seed
+    holds the id, gives the id to the chunk's first lane at m that the seed
+    does not hold (d2(t0, l) != best). At the end the id is the first slot
+    at best from the recorded one to the end of its chunk. Returns (ids,
+    visits per block)."""
+    bf = knn._BLOCK_F
+    cents = cent_t.T.reshape(n_tiles, bf, 3)
+    tc, tr = tile_c[0:3, :n_tiles].T, tile_r[0, :n_tiles]
+    ids, visits = [], []
+    for p in pts.reshape(-1, block_p, 3):
+        ctr = 0.5 * (p.amin(0) + p.amax(0))
+        rho = torch.sqrt(knn._d2(p, ctr).amax())
+        lb = (torch.sqrt(knn._d2(tc, ctr)) - tr) - rho
+        t0 = int(knn._first_argmin(lb))
+        best = torch.full((block_p,), float("inf"))
+        slot = torch.full((block_p,), t0 * bf, dtype=torch.int64)
+        seed_d2 = knn._d2(p[:, None], cents[t0][None])                  # (P, 512)
+        thresh, seen = float("inf"), 0
+        for t in [t0] + [t for t in range(n_tiles) if t != t0]:
+            if t != t0 and not bool(lb[t] < thresh):
+                continue
+            seen += 1
+            d2 = knn._d2(p[:, None], cents[t][None])                    # (P, 512)
+            for c in range(0, bf, chunk):
+                dc = d2[:, c:c + chunk]
+                m = dc.amin(1)
+                if t < t0:  # the seed holds the id: a free lane at a tie takes it
+                    free = (dc == m[:, None]) & (seed_d2[:, c:c + chunk] != m[:, None])
+                    first_free = t * bf + c + free.int().argmax(1)
+                    take = (m == best) & (slot >= t0 * bf) & free.any(1)
+                    slot = torch.where(take, first_free, slot)
+                better = m < best
+                slot = torch.where(better, t * bf + c, slot)
+                best = torch.minimum(best, m)
+            if t == t0 or (tighten > 0 and (t + 1) % tighten == 0):
+                thresh = float(torch.sqrt(best.amax()))
+        # the first slot at best from the recorded one to the end of its chunk
+        lanes = slot[:, None] + torch.arange(chunk)
+        d2 = knn._d2(p[:, None], cent_t.T[lanes.clamp(max=n_tiles * bf - 1)])
+        hit = (d2 == best[:, None]) & (lanes < (slot // chunk + 1)[:, None] * chunk)
+        ids.append(torch.where(hit.any(1), lanes.gather(1, hit.int().argmax(1, keepdim=True))[:, 0], slot))
+        visits.append(seen)
+    return torch.cat(ids).to(torch.int32), torch.tensor(visits, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("chunk", [1, 16])
+@pytest.mark.parametrize("kind", PRUNED_TIE_KINDS)
+def test_pruned_closed_form_tie_rule_on_planted_ties(kind, chunk):
+    """The kernel's streamed tie rule equals `pruned_search_plain`'s per-lane
+    running minimum on planted exact ties: the seed tile (tile 2) holding a
+    lane that tile 0 ties, ties across lanes of two non-seed tiles, the seed
+    at one lane and a smaller slot at another, and a tie that a later strict
+    improvement cancels; per lane (chunk 1) and per chunk of 16 lanes, as the
+    kernel takes them (`csrc/pruned_knn.cu`: kChunk)."""
+    pts, cents, want = (torch.from_numpy(a) for a in pruned_ties(kind))
+    tabs = knn.pruned_tables(cents, torch.arange(cents.shape[0]))
+    plain, visits = knn.pruned_search_plain(pts, *tabs, 128, with_visits=True)
+    got, got_visits = _pruned_closed_form(pts, *tabs, 128, chunk=chunk)
+    assert visits.tolist() == got_visits.tolist() == [4]  # the seed, then every other tile
+    np.testing.assert_array_equal(plain.numpy(), want.numpy())
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+
+
+@pytest.mark.parametrize("tighten", [0, 1, 2])
+@pytest.mark.parametrize("order", ["identity", "kd"])
+def test_pruned_closed_form_tie_rule_on_quantised_clouds(order, tighten):
+    """The same on seeded points and centroids on a 1/4 grid (every
+    centroid position ~4 times over 4 tiles), where exact ties are common:
+    ids equal `pruned_search_plain`'s, in random tiles (every tile visited)
+    and in kd tiles (some skipped)."""
+    rng = np.random.default_rng(11 + tighten)
+    cents = (rng.integers(0, 8, (4 * 512, 3)) * 0.25).astype(np.float32)
+    pts = (rng.integers(0, 29, (512, 3)) * 0.0625 - 0.0625).astype(np.float32)
+    pts = torch.from_numpy(pts)[knn.morton_order(torch.from_numpy(pts))]
+    if order == "kd":
+        clusters = build_face_clusters(cents)
+        perm = torch.from_numpy(clusters[clusters >= 0].astype(np.int64))
+    else:
+        perm = torch.arange(cents.shape[0])
+    tabs = knn.pruned_tables(torch.from_numpy(cents), perm)
+    plain, visits = knn.pruned_search_plain(pts, *tabs, 128, tighten=tighten, with_visits=True)
+    got, got_visits = _pruned_closed_form(pts, *tabs, 128, tighten=tighten)
+    np.testing.assert_array_equal(got_visits.numpy(), visits.numpy())
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+    # exact ties across visited slots are common here
+    d2 = knn._d2(pts[:, None], torch.from_numpy(cents)[perm][None])
+    assert int(((d2 == d2.amin(1, keepdim=True)).sum(1) > 1).sum()) > 100
+    if order == "identity":
+        assert bool((visits == 4).all())
 
 
 def test_search_knobs_are_read_at_call_time(mesh, rng_np, monkeypatch):

@@ -91,3 +91,56 @@ def plan_rows(kind: str, n_tiles: int, plan_p: int, rows: int, seed: int = 3):
     tile_c[3:6, :n_tiles] = (mid + half).T
     tile_r[0:3, :n_tiles] = mid.T
     return tile_c, tile_r, pts.astype(np.float32)
+
+
+PRUNED_TIE_KINDS = ("seed_holds", "cross_lanes", "seed_other_lane", "cancelled")
+
+
+def pruned_ties(kind: str, seed: int = 5):
+    """Pruned-search inputs with planted exact ties, numpy float32: one
+    block of 128 points and (4 * 512, 3) centroids in kd order (identity
+    face_perm). Each tile is a shell of radius 5 around the origin, tile 2
+    of radius 6, so tile 2 is the seed (smallest lower bound) and every
+    tile is visited. Point i lies at (0, y_i, z_i) on a 1/32 grid; its
+    nearest centroids are planted at (+-1, y_i, z_i) (d2 = 1 exactly) or
+    (0.5, y_i, z_i) (d2 = 0.25) in the lanes that ``kind`` names:
+
+    - "seed_holds": tile 0 and the seed at lane i: the seed keeps the lane;
+    - "cross_lanes": tile 1 at lane i + 100 and tile 3 at lane i;
+    - "seed_other_lane": the seed at lane i + 300 and tile 1 at lane i:
+      tile 1's slot is the smaller;
+    - "cancelled": tiles 0 and 1 tie at lane i, then tile 3 at lane i + 50
+      is strictly nearer.
+
+    Returns (pts, cents, the expected kd-order ids)."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(128)
+    pts = np.stack([np.zeros(128), (i % 16 - 8) / 32.0, (i // 16 - 4) / 32.0], 1).astype(np.float32)
+    shell = rng.standard_normal((4, 512, 3))
+    shell /= np.linalg.norm(shell, axis=-1, keepdims=True)
+    cents = shell * np.array([5.0, 5.0, 6.0, 5.0])[:, None, None]
+
+    def plant(tile, lanes, x):
+        cents[tile, lanes] = pts
+        cents[tile, lanes, 0] = x
+
+    if kind == "seed_holds":
+        plant(0, i, -1.0)
+        plant(2, i, 1.0)
+        want = 2 * 512 + i
+    elif kind == "cross_lanes":
+        plant(1, i + 100, -1.0)
+        plant(3, i, 1.0)
+        want = 512 + i + 100
+    elif kind == "seed_other_lane":
+        plant(2, i + 300, 1.0)
+        plant(1, i, -1.0)
+        want = 512 + i
+    elif kind == "cancelled":
+        plant(0, i, -1.0)
+        plant(1, i, 1.0)
+        plant(3, i + 50, 0.5)
+        want = 3 * 512 + i + 50
+    else:
+        raise ValueError(kind)
+    return pts, cents.reshape(-1, 3).astype(np.float32), want.astype(np.int32)
