@@ -60,39 +60,65 @@ Phases (any failure exits non-zero, before the last line is printed):
    the same weights and the same draws: launch counts per step, s_per_step,
    rays/s, peak memory; every loss finite, and the fused and unfused
    gradients of the first step held to each other;
-8. profiles one render chunk of each path of phase 4 and one step of each
+8. drives the user's CLIs in a temporary directory (`cli_phase`): a config
+   file that the port's own reader parses (the synthetic scene at 512x512,
+   2 frames x 2 views; `313_tpu.yml`'s model block with `KNN_IMPL:
+   "listed"` and `FUSED_MLP: "on"`; 5500 rays a step), `cli.train` for
+   epochs 1-2 (8 steps), again with `--max_epochs 4` (it resumes from
+   `last_checkpoint` and runs epoch 3, step 12), then `cli.validate` and
+   `cli.test` on the last checkpoint, with validation inside the loop off
+   (DSNERF_VAL_PERIOD=0). The resumed call loads its items through the
+   forked-process loader (DSNERF_LOADER_BACKEND=process), which forks
+   after CUDA is initialised. Fails unless the step counts, the checkpoint
+   names, the launch counts per step and per render chunk are exact, every
+   logged loss, PSNR and SSIM is finite and every PNG written has the PNG
+   signature and the image's size. Prints the `train loop:` line
+   (s_per_step of epoch 3, the step call alone; each epoch's wall time
+   over its steps; epoch 1's time; the checkpoint's bytes and save
+   ms, validate's and test's s_per_image, peak memory, the card);
+9. profiles one render chunk of each path of phase 4 and one step of each
    path of phase 7 (`profile_device`: the profiler warmed up by one call,
    and every port kernel the profiled call launched looked up in its
    trace): device ms by kernel family, device ms per step, busy share. They
    run after every timed run: a profiler session leaves the host's later
    launches slower, which inflated the host-clock times taken after it;
-9. prints the `kernels` JSON line (each kernel's launches from the path
-   that is its own: the exact image for GG, brute force and the pruned
-   search, the production image for the plan and the listed search, the
-   slim golden leg, the fused production step), the card line, and as the
-   last line {"ok": true, "device": {...}}.
+10. prints the `kernels` JSON line (each kernel's launches from the path
+    that is its own: the exact image for GG, brute force and the pruned
+    search, the production image for the plan and the listed search, the
+    slim golden leg, the fused production step), the card line, and as the
+    last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import json
+import logging
 import os
 import re
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 
+from dual_space_nerf_tpu_torch.cli import test as cli_test
+from dual_space_nerf_tpu_torch.cli import train as cli_train
+from dual_space_nerf_tpu_torch.cli import validate as cli_validate
+from dual_space_nerf_tpu_torch.cli.common import load_cfg
 from dual_space_nerf_tpu_torch.data import (
     SyntheticDataset,
     item_to_mesh,
     item_to_train_batch,
     iter_ray_chunks,
+    select_dataset,
 )
 from dual_space_nerf_tpu_torch.evaluation import ImageRenderer, psnr
 from dual_space_nerf_tpu_torch.evaluation.golden import (
@@ -136,7 +162,14 @@ from dual_space_nerf_tpu_torch.renderer import (
     warp_world_to_canonical,
 )
 from dual_space_nerf_tpu_torch.renderer.pipeline import _block_layout, _fused_inputs
-from dual_space_nerf_tpu_torch.training import create_train_state, draw_randoms, make_train_step
+from dual_space_nerf_tpu_torch.training import (
+    Checkpointer,
+    create_train_state,
+    draw_randoms,
+    make_train_step,
+)
+from dual_space_nerf_tpu_torch.training import loop as train_loop
+from dual_space_nerf_tpu_torch.utils.image_io import PNG_SIGNATURE
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 operations/s
 # outside the tensor cores, an FMA counted as two operations
@@ -1284,7 +1317,211 @@ def golden_leg(label, golden, model, expect: dict, **kwargs) -> dict:
     return launches
 
 
+# ---- the user's CLIs --------------------------------------------------------
+# the synthetic scene at 512x512, 313_tpu.yml's model block with the listed
+# search and the fused kernels, bench.py's train workload (5500 rays a step);
+# read by the port's own config reader
+CLI_CFG = """\
+MODEL:
+  TYPE: "nerf"
+  COARSE_RAY_SAMPLING: 64
+  FINE_RAY_SAMPLING: -1
+  SAMPLE_METHOD: "NEAR_FAR"
+  SAME_SPACENET: False
+  sample_points_mode: "GG"
+  TKERNEL_INC_RAW: True
+  POSE_REFINEMENT: False
+  USE_DIR: True
+  LOSS: 'L2'
+  LOSSwMask: False
+  SHADE_TOPK: 16
+  REUSE_WARP_FACES: True
+  KNN_IMPL: "listed"
+  FUSED_MLP: "on"
+DATASETS:
+  TYPE: "synthetic"
+  HUMAN: "capsule"
+  SYNTHETIC_SIZE: 512
+  SYNTHETIC_FRAMES: 2
+  SYNTHETIC_VIEWS: 2
+DATALOADER:
+  NUM_WORKERS: 2
+SOLVER:
+  OPTIMIZER_NAME: "Adam"
+  MAX_EPOCHS: 3
+  BASE_LR: 0.0005
+  WEIGHT_DECAY: 0.0
+  START_ITERS: 3000
+  END_ITERS: 60000
+  LR_SCALE: 0.09
+  WARMUP_ITERS: 1000
+  CHECKPOINT_PERIOD: 1
+  LOG_PERIOD: 1
+  TRAIN_NRAYS: 5500
+TEST:
+  IMS_PER_BATCH: 1
+  RAY_CHUNK: 8192
+  light_center: []
+"""
+CLI_STEP_LINE = re.compile(r"Epoch\[(\d+)\] Iteration\[(\d+)/(\d+)\] Loss: (\S+) Psnr: (\S+)")
+
+
+def png_size(path: str) -> tuple[int, int]:
+    """(height, width) from a PNG's header; fails on anything else."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != PNG_SIGNATURE or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path}: not a PNG")
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w
+
+
+def check_pngs(root: str, expect_n: int) -> int:
+    """Every PNG under ``root`` has the image's size (render | ground truth
+    side by side under img/); returns their count, which must be ``expect_n``."""
+    paths = glob.glob(os.path.join(root, "**", "*.png"), recursive=True)
+    for path in paths:
+        want = (H, 2 * W) if f"{os.sep}img{os.sep}" in path else (H, W)
+        if png_size(path) != want:
+            raise AssertionError(f"{path}: size {png_size(path)}, expected {want}")
+    if len(paths) != expect_n:
+        raise AssertionError(f"{root}: {len(paths)} PNGs, expected {expect_n}")
+    return len(paths)
+
+
+def cli_phase(card: str) -> dict:
+    """Train (two calls, the second resuming), validate and test through
+    the port's CLIs on the card, in a temporary directory. The step calls of
+    the loop are timed on the host clock, each ended by a synchronize;
+    render_item is timed per image (it ends in the host copy)."""
+    zero = {k.name: 0 for k in KERNELS}
+    step_times, image_times = [], []
+    make_step, render_item = train_loop.make_train_step, ImageRenderer.render_item
+
+    def timed_make_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def timed(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            step_times.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    def timed_render(self, *a, **k):
+        t0 = time.perf_counter()
+        out = render_item(self, *a, **k)
+        image_times.append(time.perf_counter() - t0)
+        return out
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="dsnerf_cli_")
+    cwd = os.getcwd()
+    saved_env = {k: os.environ.get(k) for k in ("DSNERF_VAL_PERIOD", "DSNERF_LOADER_BACKEND")}
+    train_loop.make_train_step, ImageRenderer.render_item = timed_make_step, timed_render
+    os.environ["DSNERF_VAL_PERIOD"] = "0"
+    try:
+        os.chdir(work)
+        with open("cli.yml", "w", encoding="utf-8") as f:
+            f.write(CLI_CFG)
+        exp = os.path.join("EXP", "smoke")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        steps = []
+        for max_epochs, backend in ((3, "thread"), (4, "process")):  # epochs 1-2, then a resume
+            os.environ["DSNERF_LOADER_BACKEND"] = backend
+            state = cli_train.main(["-c", "cli.yml", "--exp", "smoke", "--max_epochs", str(max_epochs)])
+            steps.append(state.step)
+        train_launches = launches_now()
+        if steps != [8, 12]:
+            raise AssertionError(f"cli: steps after each train call {steps}, expected [8, 12]")
+        ckpts = sorted(n for n in os.listdir(exp) if n.endswith(".ckpt"))
+        want_ckpts = [f"model_epoch_{e:07d}.ckpt" for e in (1, 2, 3)]
+        with open(os.path.join(exp, "last_checkpoint"), encoding="utf-8") as f:
+            tag = f.read().strip()
+        if ckpts != want_ckpts or tag != want_ckpts[-1]:
+            raise AssertionError(f"cli: checkpoints {ckpts}, tag {tag!r}")
+        want = {**zero, GG_KERNEL.name: 12, LISTED_PLAN_KERNEL.name: 12, LISTED_KERNEL.name: 12,
+                FUSED_FWD_KERNEL.name: 24, FUSED_BWD_KERNEL.name: 24}
+        if train_launches != want:
+            raise AssertionError(f"cli train: launches {train_launches}, expected {want}")
+        with open(os.path.join(exp, "log.txt"), encoding="utf-8") as f:
+            log_text = f.read()
+        logged = [m.groups() for m in CLI_STEP_LINE.finditer(log_text)]
+        losses = [float(g[3]) for g in logged]
+        if len(logged) != 9 or not np.isfinite(losses).all():  # 3 lines an epoch (read one step late)
+            raise AssertionError(f"cli train: logged steps {logged}")
+        epoch_s = {int(e): float(t) for e, t in
+                   re.findall(r"Epoch (\d+) done\. Time: (\S+)\[s\]", log_text)}
+        probe = Checkpointer(os.path.join(work, "probe"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probe.save("probe", state, 3)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        del state
+        torch.cuda.empty_cache()
+
+        ckpt = os.path.join(exp, want_ckpts[-1])
+        cfg = load_cfg("cli.yml")
+        _, val_set = select_dataset(cfg, train_nrays=TRAIN_RAYS)
+        chunks = sum(-(-int(val_set[i]["ray_o"].shape[0]) // cfg.TEST.RAY_CHUNK)
+                     for i in range(len(val_set)))
+        per_chunk = {**zero, GG_KERNEL.name: 1, LISTED_PLAN_KERNEL.name: 1, LISTED_KERNEL.name: 1,
+                     FUSED_FWD_KERNEL.name: 2}
+        evals = {}
+        for label, fn, n_images in (("validate", cli_validate.main, len(val_set)),
+                                    ("test", cli_test.main, 2 * len(val_set))):
+            reset_launches()
+            del image_times[:]
+            res = fn(["-c", "cli.yml", "--exp", "smoke", "--ckpt", ckpt])
+            launched = launches_now()
+            want = {k: v * chunks * n_images // len(val_set) for k, v in per_chunk.items()}
+            if launched != want:
+                raise AssertionError(f"cli {label}: launches {launched}, expected {want}")
+            for r in (res if isinstance(res, tuple) else (res,)):
+                if not (np.isfinite(list(r.values())).all() and 0.0 < r["ssim"] <= 1.0):
+                    raise AssertionError(f"cli {label}: metrics {r}")
+            evals[label] = {"images": len(image_times), "s_per_image": statistics.median(image_times),
+                            "s_per_image_runs": list(image_times), "chunks": chunks * n_images // len(val_set),
+                            "launches": launched, "metrics": res}
+        n_val_png = check_pngs(os.path.join(exp, "vis"), 3 * len(val_set))
+        n_test_png = check_pngs(os.path.join("TEST", "smoke"), 2 * 5 * len(val_set))
+        report = {
+            "steps": steps, "s_per_step": statistics.median(step_times[8:]),
+            "s_per_step_runs": step_times[8:], "epoch1_s_warmup": epoch_s.get(1),
+            "epoch_s": epoch_s, "epoch_s_per_step": {e: t / 4 for e, t in epoch_s.items()},
+            "epoch3_loader": "process", "first_call_step_s": step_times[:8],
+            "rays_per_s": TRAIN_RAYS / statistics.median(step_times[8:]),
+            "losses_logged": losses, "psnr_logged": [float(g[4]) for g in logged],
+            "ckpt_bytes": os.path.getsize(ckpt), "ckpt_save_ms": save_ms,
+            "train_launches": train_launches,
+            "validate": evals["validate"], "test": evals["test"], "pngs": n_val_png + n_test_png,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "phase_s": time.perf_counter() - t_phase, "card": card,
+        }
+    finally:
+        train_loop.make_train_step, ImageRenderer.render_item = make_step, render_item
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        logger = logging.getLogger("NERFRender")  # holds log.txt open
+        for h in logger.handlers:
+            h.close()
+        logger.handlers = []
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    log("train loop: " + json.dumps(report))
+    return report
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script measures only on the card")
         return 2
@@ -1443,15 +1680,19 @@ def main() -> int:
         torch.cuda.empty_cache()
     compared = [compare_grads(path, grads[f"{path} fused"], grads[path])
                 for path in ("production", "exact")]
+    del grads
 
-    # ---- 8. profiles, after every timed run -------------------------------
+    # ---- 8. the train / validate / test CLIs ------------------------------
+    cli_phase(card)
+
+    # ---- 9. profiles, after every timed run -------------------------------
     for profile_later in profiles:
         profile_later()
     log("train summary: " + json.dumps({
         label: {k: r[k] for k in ("s_per_step", "rays_per_s", "device_ms_per_step", "peak_mem_gb")}
         for label, r in train.items()} | {"grads": compared}))
 
-    # ---- 9. results ------------------------------------------------------
+    # ---- 10. results -----------------------------------------------------
     # each kernel's launches on the path that is its own
     on_path = {
         GG_KERNEL.name: launches_exact, NEAREST_KERNEL.name: launches_exact,
@@ -1467,6 +1708,7 @@ def main() -> int:
             raise AssertionError(f"{k['name']}: no launch on its path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after start")
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -144,3 +144,38 @@ def pruned_ties(kind: str, seed: int = 5):
     else:
         raise ValueError(kind)
     return pts, cents.reshape(-1, 3).astype(np.float32), want.astype(np.int32)
+
+
+#: the config of the CLI tests (`test_torch_port_cli.py`): the synthetic
+#: scene at 16x16, 2 frames x 2 views, 32 rays x 8 GG samples a step, two
+#: epochs; also one of the files the config reader is held to yaml on
+TINY_CLI_CFG = """\
+# the port's CLI tests: train -> validate -> test on the CPU
+MODEL:
+  TYPE: "nerf"
+  COARSE_RAY_SAMPLING: 8
+  FINE_RAY_SAMPLING: -1
+  sample_points_mode: "GG"
+  MLP_CHUNK: 2048
+  MAX_FRAMES: 16
+DATASETS:
+  TYPE: "synthetic"
+  HUMAN: "capsule"
+  SYNTHETIC_SIZE: 16
+  SYNTHETIC_FRAMES: 2
+  SYNTHETIC_VIEWS: 2
+DATALOADER:
+  NUM_WORKERS: 2
+SOLVER:
+  MAX_EPOCHS: 3
+  BASE_LR: 0.0005
+  WEIGHT_DECAY: 0.0
+  WARMUP_ITERS: 5
+  CHECKPOINT_PERIOD: 1
+  LOG_PERIOD: 2
+  TRAIN_NRAYS: 32
+TEST:
+  IMS_PER_BATCH: 1
+  RAY_CHUNK: 512
+  light_center: []  # no shift of the novel poses' light
+"""
