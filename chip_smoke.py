@@ -76,13 +76,28 @@ Phases (any failure exits non-zero, before the last line is printed):
    (s_per_step of epoch 3, the step call alone; each epoch's wall time
    over its steps; epoch 1's time; the checkpoint's bytes and save
    ms, validate's and test's s_per_image, peak memory, the card);
-9. profiles one render chunk of each path of phase 4 and one step of each
+9. drives the CLIs on the committed ZJU-313-shaped tree (`zju_cli_phase`,
+   `.bench_cold_tree/CoreView_313`: 16 frames x 3 views of 1024x1024
+   JPEGs, read in place through symlinks in a temporary data dir that adds
+   the eval view "Camera (10)"; a stand-in SMPL pickle with the synthetic
+   topology): `cli.train` for one cold epoch over the 48 items at ratio 0.5
+   on the loader's threads, a resumed epoch over 6 items on the forked-
+   process loader, then `cli.validate`, `cli.test`, `cli.vis_lighting` (its
+   10 angles) and `cli.novel_pose_vis` (2 poses, 1024x1024) on the last
+   checkpoint, with the same model block and launch checks as phase 8.
+   Prints the `zju loop:` line (first-touch decode ms per JPEG, the decode
+   thread-seconds of the cold epoch, the time that epoch spent outside its
+   step calls, epoch 1's items/s, the resumed epoch's s per
+   step, the loop's s_per_step, each CLI's s_per_image, the undistortion
+   of one 1024x1024 frame with a nonzero distortion, which the tree's
+   cameras skip, checkpoint bytes, peak memory, the card);
+10. profiles one render chunk of each path of phase 4 and one step of each
    path of phase 7 (`profile_device`: the profiler warmed up by one call,
    and every port kernel the profiled call launched looked up in its
    trace): device ms by kernel family, device ms per step, busy share. They
    run after every timed run: a profiler session leaves the host's later
    launches slower, which inflated the host-clock times taken after it;
-10. prints the `kernels` JSON line (each kernel's launches from the path
+11. prints the `kernels` JSON line (each kernel's launches from the path
     that is its own: the exact image for GG, brute force and the pruned
     search, the production image for the plan and the listed search, the
     slim golden leg, the fused production step), the card line, and as the
@@ -91,6 +106,7 @@ Phases (any failure exits non-zero, before the last line is printed):
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import json
@@ -169,7 +185,7 @@ from dual_space_nerf_tpu_torch.training import (
     make_train_step,
 )
 from dual_space_nerf_tpu_torch.training import loop as train_loop
-from dual_space_nerf_tpu_torch.utils.image_io import PNG_SIGNATURE
+from dual_space_nerf_tpu_torch.utils.image_io import PNG_SIGNATURE, imread
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 operations/s
 # outside the tensor cores, an FMA counted as two operations
@@ -185,7 +201,7 @@ KERNEL_FAMILY = {  # each port kernel's family in `kernel_family`
     LISTED_SLIM_KERNEL.name: "tile-pruned search kernel", PRUNED_KERNEL.name: "tile-pruned search kernel",
     FUSED_FWD_KERNEL.name: "fused SpaceNet kernels", FUSED_BWD_KERNEL.name: "fused SpaceNet kernels",
 }
-N_TIMED_RENDERS = 3
+N_TIMED_RENDERS = 2  # the production image; the exact ones once (the run keeps ~95-125 s)
 # the exact render with the pruned search against the one with brute force:
 # the same faces but at float32 near-ties; a search that names wrong faces
 # on a share of the points falls far below this
@@ -1376,12 +1392,14 @@ def png_size(path: str) -> tuple[int, int]:
     return h, w
 
 
-def check_pngs(root: str, expect_n: int) -> int:
-    """Every PNG under ``root`` has the image's size (render | ground truth
-    side by side under img/); returns their count, which must be ``expect_n``."""
+def check_pngs(root: str, expect_n: int, size: tuple = (H, W)) -> int:
+    """Every PNG under ``root`` has the image's size ``size`` (render |
+    ground truth side by side under img/); returns their count, which must
+    be ``expect_n``."""
     paths = glob.glob(os.path.join(root, "**", "*.png"), recursive=True)
+    h, w = size
     for path in paths:
-        want = (H, 2 * W) if f"{os.sep}img{os.sep}" in path else (H, W)
+        want = (h, 2 * w) if f"{os.sep}img{os.sep}" in path else (h, w)
         if png_size(path) != want:
             raise AssertionError(f"{path}: size {png_size(path)}, expected {want}")
     if len(paths) != expect_n:
@@ -1389,13 +1407,16 @@ def check_pngs(root: str, expect_n: int) -> int:
     return len(paths)
 
 
-def cli_phase(card: str) -> dict:
-    """Train (two calls, the second resuming), validate and test through
-    the port's CLIs on the card, in a temporary directory. The step calls of
-    the loop are timed on the host clock, each ended by a synchronize;
-    render_item is timed per image (it ends in the host copy)."""
-    zero = {k.name: 0 for k in KERNELS}
-    step_times, image_times = [], []
+@contextlib.contextmanager
+def cli_session(prefix: str, env_keys: tuple):
+    """A temporary working directory for the CLIs, entered; the loop's step
+    calls timed on the host clock (each ended by a synchronize) and
+    render_item timed per image (it ends in the host copy). Yields (step
+    seconds, image seconds, ray chunks per image), three lists the timers
+    append to. On exit restores the variables ``env_keys`` names, the timed
+    functions, the CLI logger (it holds log.txt open) and the working
+    directory, and deletes the directory."""
+    step_times, image_times, image_chunks = [], [], []
     make_step, render_item = train_loop.make_train_step, ImageRenderer.render_item
 
     def timed_make_step(*args, **kwargs):
@@ -1411,20 +1432,43 @@ def cli_phase(card: str) -> dict:
 
         return timed
 
-    def timed_render(self, *a, **k):
+    def timed_render(self, item, *a, **k):
+        image_chunks.append(-(-int(item["ray_o"].shape[0]) // self.chunk))
         t0 = time.perf_counter()
-        out = render_item(self, *a, **k)
+        out = render_item(self, item, *a, **k)
         image_times.append(time.perf_counter() - t0)
         return out
 
-    t_phase = time.perf_counter()
-    work = tempfile.mkdtemp(prefix="dsnerf_cli_")
+    work = tempfile.mkdtemp(prefix=prefix)
     cwd = os.getcwd()
-    saved_env = {k: os.environ.get(k) for k in ("DSNERF_VAL_PERIOD", "DSNERF_LOADER_BACKEND")}
+    saved_env = {k: os.environ.get(k) for k in env_keys}
     train_loop.make_train_step, ImageRenderer.render_item = timed_make_step, timed_render
-    os.environ["DSNERF_VAL_PERIOD"] = "0"
     try:
         os.chdir(work)
+        yield step_times, image_times, image_chunks
+    finally:
+        train_loop.make_train_step, ImageRenderer.render_item = make_step, render_item
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        logger = logging.getLogger("NERFRender")
+        for h in logger.handlers:
+            h.close()
+        logger.handlers = []
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def cli_phase(card: str) -> dict:
+    """Train (two calls, the second resuming), validate and test through
+    the port's CLIs on the card, in a temporary directory (`cli_session`)."""
+    zero = {k.name: 0 for k in KERNELS}
+    t_phase = time.perf_counter()
+    with cli_session("dsnerf_cli_", ("DSNERF_VAL_PERIOD", "DSNERF_LOADER_BACKEND")) as (
+            step_times, image_times, _):
+        os.environ["DSNERF_VAL_PERIOD"] = "0"
         with open("cli.yml", "w", encoding="utf-8") as f:
             f.write(CLI_CFG)
         exp = os.path.join("EXP", "smoke")
@@ -1457,7 +1501,7 @@ def cli_phase(card: str) -> dict:
             raise AssertionError(f"cli train: logged steps {logged}")
         epoch_s = {int(e): float(t) for e, t in
                    re.findall(r"Epoch (\d+) done\. Time: (\S+)\[s\]", log_text)}
-        probe = Checkpointer(os.path.join(work, "probe"))
+        probe = Checkpointer(os.path.join(os.getcwd(), "probe"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         probe.save("probe", state, 3)
@@ -1503,20 +1547,233 @@ def cli_phase(card: str) -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "phase_s": time.perf_counter() - t_phase, "card": card,
         }
-    finally:
-        train_loop.make_train_step, ImageRenderer.render_item = make_step, render_item
-        for key, value in saved_env.items():
-            if value is None:
-                os.environ.pop(key, None)
-            else:
-                os.environ[key] = value
-        logger = logging.getLogger("NERFRender")  # holds log.txt open
-        for h in logger.handlers:
-            h.close()
-        logger.handlers = []
-        os.chdir(cwd)
-        shutil.rmtree(work, ignore_errors=True)
     log("train loop: " + json.dumps(report))
+    return report
+
+
+# ---- the user's CLIs on a ZJU-MoCap tree ------------------------------------
+# the committed ZJU-313-shaped tree of bench.py's cold epoch: annots.npy with
+# 21 cameras, 16 frames x 3 views of 1024x1024 JPEGs with mask_cihp PNGs, the
+# per-frame SMPL assets at the synthetic scene's V=6890 / F=13,776
+COLD_TREE = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".bench_cold_tree",
+                         "CoreView_313")
+ZJU_CLI_CFG = (CLI_CFG.replace('TYPE: "synthetic"', 'TYPE: "zju_mocap"')
+               .replace('HUMAN: "capsule"', 'HUMAN: "CoreView_313"')
+               .replace("  SYNTHETIC_SIZE: 512\n  SYNTHETIC_FRAMES: 2\n  SYNTHETIC_VIEWS: 2\n", "")
+               .replace("NUM_WORKERS: 2", "NUM_WORKERS: 3")  # 313_tpu.yml's
+               .replace("light_center: []", "light_center: [0.21903692, -0.17755836, 1.1463718]"))
+# frames are 0-based indices here (the tree's files are 1..16); the eval view
+# is "Camera (10)" (view 9, not a train view): camera 1's frames under the
+# name, with camera 1's parameters in annots slot 9
+ZJU_DATA_CFG = """\
+Train:
+  views: [0, 1, 2]
+  ratio: 0.5
+  begin: 0
+  end: {train_end}
+Val:
+  ratio: 0.5
+  begin: 0
+  end: 15
+  intv: 8
+Test:
+  ratio: 0.5
+  begin: 0
+  end: 15
+  intv: 8
+  novel_pose_begin: 8
+"""
+
+
+def zju_tree(work: str) -> str:
+    """A data dir whose CoreView_313 reads the committed tree in place
+    (symlinks) and adds the eval view "Camera (10)" (camera 1's frames and
+    parameters) that validate, test and novel_pose_vis read. Returns the
+    data dir; nothing is written into the committed tree."""
+    data_dir = os.path.join(work, "zju_mocap")
+    root = os.path.join(data_dir, "CoreView_313")
+    os.makedirs(os.path.join(root, "mask_cihp"))
+    for name in os.listdir(COLD_TREE):
+        if name not in ("annots.npy", "mask_cihp"):
+            os.symlink(os.path.join(COLD_TREE, name), os.path.join(root, name))
+    for name in os.listdir(os.path.join(COLD_TREE, "mask_cihp")):
+        os.symlink(os.path.join(COLD_TREE, "mask_cihp", name), os.path.join(root, "mask_cihp", name))
+    for sub in ("", "mask_cihp"):
+        os.symlink(os.path.join(COLD_TREE, sub, "Camera (1)"), os.path.join(root, sub, "Camera (10)"))
+    annots = np.load(os.path.join(COLD_TREE, "annots.npy"), allow_pickle=True).item()
+    for key in ("K", "R", "T", "D"):
+        annots["cams"][key] = list(annots["cams"][key])
+        annots["cams"][key][9] = annots["cams"][key][0]
+    np.save(os.path.join(root, "annots.npy"), annots)
+    return data_dir
+
+
+def zju_cli_phase(card: str) -> dict:
+    """The user's CLIs on the ZJU-shaped tree: `cli.train` for one cold
+    epoch over the 48 items (threads, every item a first touch: JPEG and
+    PNG decode, mask dilation, x0.5 resize, sample pools), a resumed call
+    of one epoch over 6 items on the forked-process loader, then
+    `cli.validate` (2 images), `cli.test` (2), `cli.vis_lighting` (its 10
+    angles) and `cli.novel_pose_vis` (2 poses at the branch's ratio 1,
+    1024x1024) on the last checkpoint. Launch counts exact per step and per
+    chunk rendered (`cli_session` counts the chunks of each image)."""
+    from dual_space_nerf_tpu_torch.cli import novel_pose_vis as cli_npv
+    from dual_space_nerf_tpu_torch.cli import vis_lighting as cli_vl
+    from dual_space_nerf_tpu_torch.data import zju as zju_data
+    from dual_space_nerf_tpu_torch.data.cameras import Undistorter
+    from dual_space_nerf_tpu_torch.data.smpl import write_body_model
+    from dual_space_nerf_tpu_torch.data.synthetic import make_scene
+
+    decode_ms = []
+    imread_jpeg = zju_data.imread
+
+    def timed_imread(path):
+        t0 = time.perf_counter()
+        out = imread_jpeg(path)
+        if path.endswith(".jpg"):
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    zero = {k.name: 0 for k in KERNELS}
+    t_phase = time.perf_counter()
+    env_keys = ("DSNERF_VAL_PERIOD", "DSNERF_LOADER_BACKEND", "DSNERF_ZJU_PATH", "DSNERF_SMPL_PATH")
+    zju_data.imread = timed_imread
+    try:
+        with cli_session("dsnerf_zju_", env_keys) as (step_times, image_times, image_chunks):
+            work = os.getcwd()
+            # build and load the host libraries (JPEG, PNG, remap) before
+            # anything is timed: a checkout compiles them at first use
+            first = sorted(glob.glob(os.path.join(COLD_TREE, "Camera (1)", "*.jpg")))[0]
+            frame = imread(first)
+            imread(os.path.join(COLD_TREE, "mask_cihp", "Camera (1)",
+                                os.path.basename(first)[:-4] + ".png"))
+            Undistorter()(np.zeros((8, 8), np.uint8), np.eye(3), np.array([0.1, 0.0, 0.0, 0.0, 0.0]))
+            data_dir = zju_tree(work)
+            verts = np.load(os.path.join(COLD_TREE, "X_smpl_vertices.npy")).squeeze()
+            write_body_model("SMPL_NEUTRAL.pkl", make_scene(h=8, w=8).faces, len(verts))
+            os.environ.update({"DSNERF_VAL_PERIOD": "0", "DSNERF_ZJU_PATH": data_dir,
+                               "DSNERF_SMPL_PATH": os.path.join(work, "SMPL_NEUTRAL.pkl")})
+            os.makedirs(os.path.join("data_configs", "zju_mocap"))
+            data_cfg = os.path.join("data_configs", "zju_mocap", "CoreView_313.yml")
+            with open("zju.yml", "w", encoding="utf-8") as f:
+                f.write(ZJU_CLI_CFG)
+            exp = os.path.join("EXP", "zju")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            steps, wall = [], []
+            # epoch 1: all 48 items, cold; epoch 2 (resumed): frames 1-2, 6 items
+            for train_end, max_epochs, backend in ((15, 2, "thread"), (1, 3, "process")):
+                with open(data_cfg, "w", encoding="utf-8") as f:
+                    f.write(ZJU_DATA_CFG.format(train_end=train_end))
+                os.environ["DSNERF_LOADER_BACKEND"] = backend
+                t0 = time.perf_counter()
+                state = cli_train.main(["-c", "zju.yml", "--exp", "zju", "--max_epochs", str(max_epochs)])
+                wall.append(time.perf_counter() - t0)
+                steps.append(state.step)
+            train_launches = launches_now()
+            if steps != [48, 54]:
+                raise AssertionError(f"zju: steps after each train call {steps}, expected [48, 54]")
+            n_cold_decodes = len(decode_ms)
+            per_step = {**zero, GG_KERNEL.name: 1, LISTED_PLAN_KERNEL.name: 1, LISTED_KERNEL.name: 1,
+                        FUSED_FWD_KERNEL.name: 2, FUSED_BWD_KERNEL.name: 2}
+            want = {k: v * 54 for k, v in per_step.items()}
+            if train_launches != want:
+                raise AssertionError(f"zju train: launches {train_launches}, expected {want}")
+            with open(os.path.join(exp, "log.txt"), encoding="utf-8") as f:
+                log_text = f.read()
+            logged = [m.groups() for m in CLI_STEP_LINE.finditer(log_text)]
+            losses = [float(g[3]) for g in logged]
+            if not logged or not np.isfinite(losses).all() or not np.isfinite(
+                    [float(g[4]) for g in logged]).all():
+                raise AssertionError(f"zju train: logged steps {logged}")
+            epoch_s = {int(e): float(t) for e, t in
+                       re.findall(r"Epoch (\d+) done\. Time: (\S+)\[s\]", log_text)}
+            ckpts = sorted(n for n in os.listdir(exp) if n.endswith(".ckpt"))
+            if ckpts != ["model_epoch_0000001.ckpt", "model_epoch_0000002.ckpt"]:
+                raise AssertionError(f"zju: checkpoints {ckpts}")
+            ckpt = os.path.join(exp, ckpts[-1])
+            del state
+            torch.cuda.empty_cache()
+
+            per_chunk = {**zero, GG_KERNEL.name: 1, LISTED_PLAN_KERNEL.name: 1, LISTED_KERNEL.name: 1,
+                         FUSED_FWD_KERNEL.name: 2}
+            pose_dir = os.path.join(work, "poses")
+            for sub in ("new_params", "new_vertices"):  # the sequence's poses 0 and 4
+                os.makedirs(os.path.join(pose_dir, sub))
+                for dst, src in (("0", "1"), ("4", "5")):
+                    shutil.copy(os.path.join(COLD_TREE, sub, f"{src}.npy"),
+                                os.path.join(pose_dir, sub, f"{dst}.npy"))
+            common = ["-c", "zju.yml", "--exp", "zju", "--ckpt", ckpt]
+            runs = (("validate", cli_validate.main, common, 2),
+                    ("test", cli_test.main, common, 2),
+                    ("vis_lighting", cli_vl.main, common, 10),
+                    ("novel_pose_vis", cli_npv.main,
+                     common + ["--pose_dir", pose_dir, "--n_frames", "2"], 2))
+            evals = {}
+            for label, fn, argv, n_images in runs:
+                reset_launches()
+                del image_times[:], image_chunks[:]
+                res = fn(argv)
+                launched = launches_now()
+                if len(image_times) != n_images:
+                    raise AssertionError(f"zju {label}: {len(image_times)} images, expected {n_images}")
+                want = {k: v * sum(image_chunks) for k, v in per_chunk.items()}
+                if launched != want:
+                    raise AssertionError(f"zju {label}: launches {launched}, expected {want}")
+                for r in (res if isinstance(res, tuple) else (res,) if isinstance(res, dict) else ()):
+                    if not (np.isfinite(list(r.values())).all() and -1.0 <= r["ssim"] <= 1.0):
+                        raise AssertionError(f"zju {label}: metrics {r}")
+                evals[label] = {"images": n_images, "chunks": sum(image_chunks),
+                                "s_per_image": statistics.median(image_times),
+                                "s_per_image_runs": list(image_times),
+                                "metrics": res if not isinstance(res, int) else None}
+            # what the tree's zero-distortion cameras skip: one 1024x1024
+            # frame and its mask through a fresh map cache, with a nonzero
+            # distortion
+            annots = np.load(os.path.join(COLD_TREE, "annots.npy"), allow_pickle=True).item()
+            und, cam_k = Undistorter(), np.asarray(annots["cams"]["K"][0], np.float64)
+            dist = np.array([[-0.25, 0.12, 0.001, -0.0005, -0.03]])
+            und_ms = []
+            for img in (frame, frame, frame[..., 0] > 127):
+                t0 = time.perf_counter()
+                und(img.astype(np.uint8), cam_k, dist)
+                und_ms.append((time.perf_counter() - t0) * 1e3)
+            pngs = (check_pngs(os.path.join(exp, "vis"), 3 * 2, (512, 512))
+                    + check_pngs(os.path.join("TEST", "zju"), 5 * 2, (512, 512))
+                    + check_pngs(os.path.join("vis_lighting", "zju"), 10, (512, 512))
+                    + check_pngs(os.path.join("motion_transfer", "zju"), 2 * 2, (1024, 1024)))
+            cold_s = epoch_s.get(1, wall[0])
+            report = {
+                "steps": steps, "items_epoch1": 48, "items_epoch2": 6,
+                "decode_ms_per_jpeg": statistics.median(decode_ms[:n_cold_decodes]),
+                "decode_ms_per_jpeg_runs": [min(decode_ms[:n_cold_decodes]),
+                                            max(decode_ms[:n_cold_decodes])],
+                "jpeg_decodes_epoch1": n_cold_decodes,
+                # summed over the loader's threads, which decode while the
+                # steps run: thread time, not a share of the epoch's wall time
+                "decode_thread_s_epoch1": sum(decode_ms[:n_cold_decodes]) / 1e3,
+                # the epoch's wall time less its step calls: the loop's waits
+                # on the loader, plus its draws, log lines and checkpoint save
+                "epoch1_outside_step_calls_s": cold_s - sum(step_times[:48]),
+                "cold_epoch1_s": cold_s, "cold_epoch1_items_per_s": 48 / cold_s,
+                "epoch2_process_s": epoch_s.get(2), "epoch2_process_s_per_step": epoch_s.get(2, 0.0) / 6,
+                "train_call_wall_s": wall,
+                "s_per_step": statistics.median(step_times[1:48]), "s_per_step_runs": [
+                    min(step_times[1:48]), max(step_times[1:48])], "first_step_s": step_times[0],
+                "resumed_steps_s": step_times[48:],
+                "rays_per_s": TRAIN_RAYS / statistics.median(step_times[1:48]),
+                "losses_logged": losses[:4] + losses[-2:], "n_logged": len(logged),
+                "ckpt_bytes": os.path.getsize(ckpt), "train_launches": train_launches,
+                "undistort_1024_ms": {"maps_and_remap": und_ms[0], "remap": und_ms[1],
+                                      "mask_remap": und_ms[2]},
+                "evals": evals, "pngs": pngs,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "phase_s": time.perf_counter() - t_phase, "card": card,
+            }
+    finally:
+        zju_data.imread = imread_jpeg
+    log("zju loop: " + json.dumps(report))
     return report
 
 
@@ -1613,7 +1870,7 @@ def main() -> int:
     # (a) exact full shading, brute-force search: two searches per chunk
     out_exact, launches_exact, profile_exact = render_path(
         "exact", cfg, model, ds, item, rays0, mesh,
-        {**zero, GG_KERNEL.name: n_chunks, NEAREST_KERNEL.name: 2 * n_chunks}, n_timed=2)
+        {**zero, GG_KERNEL.name: n_chunks, NEAREST_KERNEL.name: 2 * n_chunks}, n_timed=1)
     # (b) production: gated shading with face reuse, one listed search per chunk
     out_prod, launches_prod, profile_prod = render_path(
         "production", production_cfg(), model, ds, item, rays0, mesh,
@@ -1684,15 +1941,17 @@ def main() -> int:
 
     # ---- 8. the train / validate / test CLIs ------------------------------
     cli_phase(card)
+    # ---- 9. the CLIs on the ZJU-shaped tree --------------------------------
+    zju_cli_phase(card)
 
-    # ---- 9. profiles, after every timed run -------------------------------
+    # ---- 10. profiles, after every timed run -------------------------------
     for profile_later in profiles:
         profile_later()
     log("train summary: " + json.dumps({
         label: {k: r[k] for k in ("s_per_step", "rays_per_s", "device_ms_per_step", "peak_mem_gb")}
         for label, r in train.items()} | {"grads": compared}))
 
-    # ---- 10. results -----------------------------------------------------
+    # ---- 11. results -----------------------------------------------------
     # each kernel's launches on the path that is its own
     on_path = {
         GG_KERNEL.name: launches_exact, NEAREST_KERNEL.name: launches_exact,

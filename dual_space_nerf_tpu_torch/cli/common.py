@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..config import get_cfg_defaults
+from ..data.smpl import load_body_model
 from ..models import DualSpaceNeRF
 from ..renderer import RenderSettings
 from ..training import Checkpointer
@@ -55,13 +56,13 @@ def build_model(cfg, seed: int = 0) -> DualSpaceNeRF:
 
 
 def load_faces(cfg, dataset=None) -> np.ndarray:
-    """The mesh's faces: the synthetic scene's own topology."""
+    """The mesh's faces: the synthetic scene's own topology, else the SMPL
+    body-model pickle's (DSNERF_SMPL_PATH, else DATASETS.SMPL_PATH; a
+    directory holds SMPL_NEUTRAL.pkl)."""
     if cfg.DATASETS.TYPE == "synthetic":
         return np.asarray(dataset.faces, np.int32)
-    raise NotImplementedError(
-        "the SMPL body-model pickle is not read yet (ROADMAP.md queue 1, item 4); "
-        "use DATASETS.TYPE 'synthetic'"
-    )
+    smpl_path = os.environ.get("DSNERF_SMPL_PATH", cfg.DATASETS.SMPL_PATH)
+    return load_body_model(smpl_path).faces
 
 
 def load_render_state(ckpt_path: str, cfg, model=None) -> DualSpaceNeRF:

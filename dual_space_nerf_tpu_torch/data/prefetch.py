@@ -12,7 +12,11 @@ index order for the same seed.
 - ``backend="process"`` (or DSNERF_LOADER_BACKEND=process): forked worker
   processes run ``dataset[i]`` alone; the transform runs on the consumer
   thread. The pool forks after CUDA is initialised, which is safe only
-  because the children never touch CUDA.
+  because the children never touch CUDA. The real datasets' JPEG and PNG
+  decoders are C called through ctypes, which releases the GIL (so the
+  threads decode in parallel) and starts no thread pool of its own, so a
+  forked child needs no setting where the JAX package pins cv2's pool
+  (`cv2.setNumThreads(0)`).
 
 An exception in a worker or in the transform fails the epoch in the
 consumer. Abandoning an epoch (``break``, generator GC, a new ``iter()``)

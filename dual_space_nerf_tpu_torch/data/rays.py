@@ -1,8 +1,11 @@
-"""Host-side ray generation and importance pixel sampling (numpy), ZJU
-conventions, as the JAX package's `data/rays.py`.
+"""Host-side ray generation and importance pixel sampling (numpy), as the
+JAX package's `data/rays.py`.
 
-`get_rays` keeps ray_d un-normalized, and `get_near_far_zju` is the
-reference's slab test over an AABB inflated by 1 cm. The projected-box mask
+The ZJU and H36M conventions differ and both are kept: ZJU keeps ray_d
+un-normalized and `get_near_far_zju` is the reference's slab test over an
+AABB inflated by 1 cm, keeping rays that hit it exactly twice; H36M
+normalizes ray_d (`sample_rays(normalize_dirs=True)`) and
+`get_near_far_h36m` is the standard tmin/tmax slab test. The projected-box mask
 of the importance sampler is drawn here without cv2 (the card's machine has
 none): `fill_poly` follows `cv2.fillPoly` (8-connected, no sub-pixel shift)
 step for step: the edge lines by OpenCV's `clipLine` and Bresenham
@@ -61,6 +64,25 @@ def get_near_far_zju(bounds, ray_o, ray_d):
     d0 = np.linalg.norm(p_intervals[:, 0] - ro, axis=1) / norm_ray
     d1 = np.linalg.norm(p_intervals[:, 1] - ro, axis=1) / norm_ray
     return np.minimum(d0, d1), np.maximum(d0, d1), mask_at_box
+
+
+def get_near_far_h36m(bounds, ray_o, ray_d):
+    """Slab-test AABB intersection, H36M flavor. Returns (near, far,
+    mask_at_box); near/far only for the rays in the mask."""
+    norm_d = np.linalg.norm(ray_d, axis=-1, keepdims=True)
+    viewdir = ray_d / norm_d
+    viewdir[(viewdir < 1e-5) & (viewdir > -1e-10)] = 1e-5
+    viewdir[(viewdir > -1e-5) & (viewdir < 1e-10)] = -1e-5
+    tmin = (bounds[:1] - ray_o[:1]) / viewdir
+    tmax = (bounds[1:2] - ray_o[:1]) / viewdir
+    t1 = np.minimum(tmin, tmax)
+    t2 = np.maximum(tmin, tmax)
+    near = np.max(t1, axis=-1)
+    far = np.min(t2, axis=-1)
+    mask_at_box = near < far
+    near = near[mask_at_box] / norm_d[mask_at_box, 0]
+    far = far[mask_at_box] / norm_d[mask_at_box, 0]
+    return near, far, mask_at_box
 
 
 def project(xyz: np.ndarray, K: np.ndarray, RT: np.ndarray) -> np.ndarray:

@@ -1,8 +1,11 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and host decoders.
 
 Each source under `csrc/` exposes a plain C launcher and is compiled on
 first use with `nvcc` into its own shared library, loaded with `ctypes`
-(no PyTorch headers, so one build takes seconds). Libraries go to
+(no PyTorch headers, so one build takes seconds). The host-side image
+image code (`csrc/jpeg_decode.c`, `csrc/png_unfilter.c`,
+`csrc/remap_linear.c`) is plain C built the same way with the system C
+compiler (`HostLibrary`). Libraries go to
 `dual_space_nerf_tpu_torch/_build/` (ignored by git), named by a hash of
 the source and flags, so an edited source is never served a stale build.
 `build_all` starts one `nvcc` per source at once and waits for all.
@@ -18,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,6 +36,17 @@ NVCC_FLAGS = (
 )
 
 
+# No contraction into FMA: the host code repeats cv2's float arithmetic
+C_FLAGS = ("-std=c11", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
+
+
+def _cc() -> str:
+    for cand in (shutil.which("cc"), shutil.which("gcc")):
+        if cand:
+            return cand
+    raise RuntimeError("no C compiler (cc or gcc) found: the host image decoders build with it")
+
+
 def _nvcc() -> str:
     for cand in (
         shutil.which("nvcc"),
@@ -42,34 +57,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-class CudaKernel:
-    """One `csrc/<source>` library with one C launcher ``symbol``.
+class SharedLibrary:
+    """One `csrc/<source>` compiled into `_build/lib<name>_<hash>.so`.
 
     ``includes`` names the headers under `csrc/` that the source includes, so
-    that an edited header rebuilds it. The launcher takes device pointers and the stream as ``c_void_p`` and
-    returns `cudaGetLastError()` after its launch; `launch` raises if that is
-    not 0 and counts one launch. ``launches`` is a plain integer that a run
-    reads to show the kernel was on its path.
-    """
+    that an edited header rebuilds it; ``csrc`` may point at another tree's
+    sources, to compare versions. The compiler and its flags are the
+    subclass's (`_compiler`, `_flags`)."""
 
-    def __init__(self, source: str, symbol: str, argtypes: list, includes: tuple = (),
-                 csrc: str = CSRC_DIR):
+    _flags: tuple = NVCC_FLAGS
+
+    def __init__(self, source: str, includes: tuple = (), csrc: str = CSRC_DIR):
         self.source = source
-        self.symbol = symbol
-        self.argtypes = argtypes
-        self.includes = includes  # headers under csrc/ the source includes
-        self.csrc = csrc  # another tree's csrc/ builds its version, to compare
-        self.launches = 0
+        self.includes = includes
+        self.csrc = csrc
         self.build_log = ""
-        self._fn = None
-        self._extra = {}
+        self._lib = None
+        self._lock = threading.Lock()  # the loader's threads may ask at once
+
+    @staticmethod
+    def _compiler() -> str:
+        return _nvcc()
 
     @property
     def name(self) -> str:
         return os.path.splitext(self.source)[0]
 
     def library_path(self) -> str:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(self._flags).encode())
         for name in (self.source, *self.includes):
             with open(os.path.join(self.csrc, name), "rb") as f:
                 h.update(f.read())
@@ -77,15 +92,16 @@ class CudaKernel:
         return os.path.join(BUILD_DIR, f"lib{self.name}_{digest[:16]}.so")
 
     def start_build(self):
-        """Start nvcc for this source unless its library exists; returns
-        (process, temp path, library path) for `finish_build`, or None.
-        nvcc writes a per-process temp name, renamed when it is done."""
+        """Start the compiler for this source unless its library exists;
+        returns (process, temp path, library path) for `finish_build`, or
+        None. The compiler writes a per-process temp name, renamed when it
+        is done."""
         out = self.library_path()
         if os.path.exists(out):
             return None
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(self.csrc, self.source)]
+        cmd = [self._compiler(), *self._flags, "-o", tmp, os.path.join(self.csrc, self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         return proc, tmp, out
 
@@ -96,14 +112,57 @@ class CudaKernel:
         log, _ = proc.communicate()
         self.build_log = log
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {self.source}:\n{log}")
+            raise RuntimeError(f"{os.path.basename(self._compiler())} failed for {self.source}:\n{log}")
         os.replace(tmp, out)
+
+    def library(self) -> ctypes.CDLL:
+        """The loaded library, built first if it is not in the cache."""
+        if self._lib is not None:  # loaded: no lock, so a forked child never waits on one
+            return self._lib
+        with self._lock:
+            if self._lib is None:
+                self.finish_build(self.start_build())
+                self._lib = ctypes.CDLL(self.library_path())
+        return self._lib
+
+
+class HostLibrary(SharedLibrary):
+    """A plain C source for the host, built with the system C compiler."""
+
+    _flags = C_FLAGS
+
+    @staticmethod
+    def _compiler() -> str:
+        return _cc()
+
+    def function(self, symbol: str, argtypes: list, restype=ctypes.c_int):
+        fn = getattr(self.library(), symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        return fn
+
+
+class CudaKernel(SharedLibrary):
+    """One `csrc/<source>` library with one C launcher ``symbol``.
+
+    The launcher takes device pointers and the stream as ``c_void_p`` and
+    returns `cudaGetLastError()` after its launch; `launch` raises if that is
+    not 0 and counts one launch. ``launches`` is a plain integer that a run
+    reads to show the kernel was on its path.
+    """
+
+    def __init__(self, source: str, symbol: str, argtypes: list, includes: tuple = (),
+                 csrc: str = CSRC_DIR):
+        super().__init__(source, includes, csrc)
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+        self._extra = {}
 
     def _function(self):
         if self._fn is None:
-            self.finish_build(self.start_build())
-            lib = ctypes.CDLL(self.library_path())
-            fn = getattr(lib, self.symbol)
+            fn = getattr(self.library(), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
@@ -114,7 +173,7 @@ class CudaKernel:
         occupancy or size query); returns an int. Its calls count nothing."""
         self._function()
         if symbol not in self._extra:
-            fn = getattr(ctypes.CDLL(self.library_path()), symbol)
+            fn = getattr(self.library(), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             self._extra[symbol] = fn

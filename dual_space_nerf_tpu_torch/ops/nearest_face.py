@@ -157,9 +157,9 @@ KNN_IMPLS = ("auto", "listed", "pruned", "grouped", "clustered", "pallas", "xla"
 # Values this port serves, and the ROADMAP items that bring the others.
 _PORTED = ("auto", "pallas", "listed", "pruned")
 _TO_COME = {
-    "grouped": "ROADMAP queue 1, item 7 (nearest_face_grouped)",
-    "clustered": "ROADMAP queue 1, item 7 (nearest_face_clustered)",
-    "xla": "ROADMAP queue 1, item 7 (the expanded-form search, which misranks near-ties)",
+    "grouped": "ROADMAP.md queue 1, item 5 (nearest_face_grouped)",
+    "clustered": "ROADMAP.md queue 1, item 5 (nearest_face_clustered)",
+    "xla": "ROADMAP.md queue 1, item 5 (the expanded-form search, which misranks near-ties)",
 }
 
 

@@ -8,6 +8,7 @@ with a card and no JAX:
 """
 
 import ctypes
+import os
 
 import numpy as np
 import pytest
@@ -595,3 +596,64 @@ def test_fused_forward_gpe_is_the_backwards(dev, n):
     _, gpe_b, _ = fm.fused_bwd(w, x, sbar, ebar, gbar, True)
     torch.cuda.synchronize()
     assert torch.equal(gpe_f, gpe_b)
+
+
+# ---------------------------------------------------------------------------
+# the real-data pipeline on the card's machine
+# ---------------------------------------------------------------------------
+def test_jpeg_decoder_builds_and_matches_the_cpu_checksum(dev):
+    """The host JPEG decoder (`csrc/jpeg_decode.c`) built with the card
+    machine's C compiler decodes the committed tree's 48 JPEGs to the bytes
+    that `tests/test_torch_port_data.py` holds to cv2 (their checksum)."""
+    import glob
+    import hashlib
+
+    from dual_space_nerf_tpu_torch.utils.image_io import imread
+    from torch_port_common import COLD_TREE, COLD_TREE_JPEG_SHA256
+
+    digest = hashlib.sha256()
+    paths = sorted(glob.glob(f"{COLD_TREE}/**/*.jpg", recursive=True))
+    assert len(paths) == 48
+    for path in paths:
+        img = imread(path)
+        assert img.shape == (1024, 1024, 3) and img.dtype == np.uint8
+        digest.update(img.tobytes())
+    assert digest.hexdigest() == COLD_TREE_JPEG_SHA256
+
+
+def test_zju_item_through_one_fused_production_step(dev):
+    """A `Mocap` item decoded from the committed tree (ratio 0.5, 5500
+    rays), its mesh from the stand-in SMPL topology and the tree's canonical
+    vertices, through one production step with the fused kernels: finite
+    loss and PSNR, and the kernels of the step launched (GG, the plan and
+    the listed search once, the fused pair twice each)."""
+    from dual_space_nerf_tpu_torch.data import item_to_mesh, item_to_train_batch
+    from dual_space_nerf_tpu_torch.data.zju import Mocap
+    from dual_space_nerf_tpu_torch.evaluation.golden import train_cfg
+    from dual_space_nerf_tpu_torch.models import DualSpaceNeRF
+    from dual_space_nerf_tpu_torch.ops import KERNELS
+    from dual_space_nerf_tpu_torch.renderer import RenderSettings
+    from dual_space_nerf_tpu_torch.training import create_train_state, draw_randoms, make_train_step
+    from torch_port_common import COLD_TREE
+
+    cfg = train_cfg(production=True, fused=True)
+    ds = Mocap("CoreView_313", 0.5, 5500, 0, 15, (0, 1, 2), data_dir=os.path.dirname(COLD_TREE))
+    item = ds[5]
+    assert item["img"].shape == (512, 512, 3)
+    faces = make_scene(h=8, w=8).faces
+    batch = item_to_train_batch(item, 5500, dev)
+    mesh = item_to_mesh(item, faces, ds.canonical_vertex, dev)
+    model = DualSpaceNeRF(max_frames=cfg.MODEL.MAX_FRAMES, code_dim=cfg.MODEL.CODE_DIM,
+                          backbone_dim=cfg.MODEL.BACKBONE_DIM,
+                          generator=torch.Generator().manual_seed(0)).to(dev)
+    state = create_train_state(model, cfg)
+    settings = RenderSettings.from_cfg(cfg)
+    randoms = draw_randoms(5500, settings.n_samples, torch.Generator(device=dev).manual_seed(0), dev)
+    for k in KERNELS:
+        k.launches = 0
+    metrics = make_train_step(settings, device=dev)(state, batch, mesh, randoms)
+    torch.cuda.synchronize()
+    assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
+    launched = {k.name: k.launches for k in KERNELS}
+    want = {"gg_near_far": 1, "listed_plan": 1, "listed_knn": 1, "fused_mlp_fwd": 2, "fused_mlp_bwd": 2}
+    assert launched == {k.name: want.get(k.name, 0) for k in KERNELS}

@@ -11,6 +11,11 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAMS_NPZ = os.path.join(REPO, "bench", "r5", "abhq_exact_s233_params.npz")
 MAX_FRAMES = 16  # the trained fixture's embedding table
+# the committed ZJU-313-shaped tree (16 frames x 3 views of 1024 x 1024 JPEGs)
+COLD_TREE = os.path.join(REPO, ".bench_cold_tree", "CoreView_313")
+# sha256 of its JPEGs decoded by `utils/image_io.py::imread` (= cv2.imread),
+# in sorted path order: the CPU test and the card test both hold it
+COLD_TREE_JPEG_SHA256 = "2a3c2ca1adc44fda7fa82de09a49bea450036752dd52f493a67cfbc625fed95d"
 
 
 def slice_cfg(get_cfg_defaults, n_samples: int = 64):
@@ -179,3 +184,25 @@ TEST:
   RAY_CHUNK: 512
   light_center: []  # no shift of the novel poses' light
 """
+
+
+def flax_ckpt_to_npz(ckpt: str, path) -> str:
+    """The params of a JAX package checkpoint (flax msgpack) as the flat
+    ``.npz`` that the port's `Checkpointer.load_params_only` reads."""
+    from flax import serialization
+
+    with open(ckpt, "rb") as f:
+        tree = serialization.msgpack_restore(bytearray(f.read()))["params"]
+    flat = {}
+
+    def walk(node, prefix):
+        for key, value in node.items():
+            name = f"{prefix}/{key}" if prefix else key
+            if isinstance(value, dict):
+                walk(value, name)
+            else:
+                flat[name] = np.asarray(value)
+
+    walk(tree, "")
+    np.savez(path, **flat)
+    return str(path)
