@@ -7,7 +7,9 @@ Phases (any failure exits non-zero, before the last line is printed):
 1. device check: a CUDA card must be present; prints its name and power
    limit as nvidia-smi reports them;
 2. builds every CUDA kernel of the port from `dual_space_nerf_tpu_torch/csrc`
-   (one nvcc per source, in parallel) and prints the build seconds;
+   (one nvcc per source, in parallel) and prints the build seconds, and the
+   registers, spills, shared memory and blocks per SM of the fused pair's
+   bfloat16-fed entry points (`fused_resources`);
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the render gives it (the first 8192-ray chunk of the 512x512 val
    image: 524,288 points) and on a seeded random cloud, and times kernel,
@@ -38,7 +40,12 @@ Phases (any failure exits non-zero, before the last line is printed):
    (`configs/zju_mocap/313_tpu.yml`: SHADE_TOPK 16, REUSE_WARP_FACES) with
    `KNN_IMPL: "listed"`, (c) exact full shading with `KNN_IMPL: "pruned"`
    (two pruned searches a chunk; held to (a) but for near-ties, PSNR >=
-   40 dB). Each: launch counts per image, s_per_image, rays/s, PSNR;
+   40 dB), (d) the production path with `FUSED_MLP: "on"` and `FUSED_FAST`
+   (the bfloat16-fed fused forward, two a chunk; held to (b) at PSNR >=
+   FAST_PSNR_MIN), (e) the exact path with `FUSED_MLP: "on"` and
+   `FINE_RAY_SAMPLING: 64` (the searches and the fused forward again on 64
+   + 64 samples; its fine_* images finite). Each: launch counts per image,
+   s_per_image, rays/s, PSNR;
 5. renders the golden rays (`tests/fixtures/torch_port_render_golden.npz`,
    the JAX package's CPU render) on the card and holds them to its bands:
    every leg with its config's search, then the exact legs again with
@@ -53,13 +60,24 @@ Phases (any failure exits non-zero, before the last line is printed):
    the backward; each kernel and its chain in turns, median and range);
    reports where kernel and plain version part at ReLU kinks, also for a
    randomly initialised SpaceNet, and each kernel's registers, spills,
-   shared memory, scratch, blocks per SM and share of its bound;
+   shared memory, scratch, blocks per SM and share of its bound; then the
+   same for the bfloat16-fed pair (`FUSED_FAST`): bit for bit against its
+   fast plain versions in its own order of sums, and against those in
+   torch's order with the points where the two orders round an operand or
+   a mask the other way counted and left out (`fused_variant`), each
+   kernel timed in turns with the float32 kernel and the unfused bfloat16
+   chain (SpaceNet at compute_dtype bfloat16 + autograd), its bound at the
+   bf16 tensor-core rate of its type and at the FP32 rate it runs at;
 7. trains: `training.make_train_step` on `bench.py`'s train workload (the
    512x512 train item, 5500 rays x 64 samples, the trained fixture, Adam at
-   5e-4) on four paths, production or exact with `FUSED_MLP` on or off, from
-   the same weights and the same draws: launch counts per step, s_per_step,
-   rays/s, peak memory; every loss finite, and the fused and unfused
-   gradients of the first step held to each other;
+   5e-4) on four paths, production or exact with `FUSED_MLP` on or off, and
+   three more: (e) production fused with `FUSED_FAST`, (f) production
+   unfused with `MATMUL_PRECISION: "bf16"`, (g) exact fused with
+   `FINE_RAY_SAMPLING: 64`; from the same weights and the same draws: launch
+   counts per step, s_per_step, rays/s, peak memory; every loss finite, the
+   fused and unfused gradients of the first step held to each other, (e)'s
+   to the fused path's within FAST_STEP_GRAD_TOL and (f)'s to the unfused
+   path's within BF16_STEP_GRAD_TOL;
 8. drives the user's CLIs in a temporary directory (`cli_phase`): a config
    file that the port's own reader parses (the synthetic scene at 512x512,
    2 frames x 2 views; `313_tpu.yml`'s model block with `KNN_IMPL:
@@ -91,6 +109,11 @@ Phases (any failure exits non-zero, before the last line is printed):
    step, the loop's s_per_step, each CLI's s_per_image, the undistortion
    of one 1024x1024 frame with a nonzero distortion, which the tree's
    cameras skip, checkpoint bytes, peak memory, the card);
+then extracts a mesh (`mesh_phase`): `Visualizer3D` on the trained fixture
+   and the val item at resolution 128 (2,097,152 grid points through the warp
+   and `density_grid`), the density volume and the marching tetrahedra timed
+   apart, `extract_mesh` to an .obj and `render_turntable` to two PNGs, the
+   `mesh:` line;
 10. profiles one render chunk of each path of phase 4 and one step of each
    path of phase 7 (`profile_device`: the profiler warmed up by one call,
    and every port kernel the profiled call launched looked up in its
@@ -100,7 +123,8 @@ Phases (any failure exits non-zero, before the last line is printed):
 11. prints the `kernels` JSON line (each kernel's launches from the path
     that is its own: the exact image for GG, brute force and the pruned
     search, the production image for the plan and the listed search, the
-    slim golden leg, the fused production step), the card line, and as the
+    slim golden leg, the fused production step, and for the bfloat16-fed
+    pair the fused fast production step), the card line, and as the
     last line {"ok": true, "device": {...}}.
 """
 
@@ -148,8 +172,12 @@ from dual_space_nerf_tpu_torch.evaluation.golden import (
 )
 from dual_space_nerf_tpu_torch.geometry import sample_along_rays, stratified_z
 from dual_space_nerf_tpu_torch.models import DualSpaceNeRF
+from dual_space_nerf_tpu_torch.cli.common import compute_dtype
+from dual_space_nerf_tpu_torch.evaluation.visualizer import Visualizer3D
 from dual_space_nerf_tpu_torch.ops import (
+    FUSED_BWD_FAST_KERNEL,
     FUSED_BWD_KERNEL,
+    FUSED_FWD_FAST_KERNEL,
     FUSED_FWD_KERNEL,
     GG_KERNEL,
     KERNELS,
@@ -186,11 +214,15 @@ from dual_space_nerf_tpu_torch.training import (
 )
 from dual_space_nerf_tpu_torch.training import loop as train_loop
 from dual_space_nerf_tpu_torch.utils.image_io import PNG_SIGNATURE, imread
+from dual_space_nerf_tpu_torch.utils.mesh_extract import marching_tetrahedra
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 operations/s
 # outside the tensor cores, an FMA counted as two operations
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+# dense bfloat16 on the tensor cores: the fast pair's bound (its products'
+# type, bf16 x bf16 with float32 sums)
+PEAK_BF16_PER_S = 989e12
 # single FP32 instructions issued per second: 132 SMs x 128 lanes x 1.98 GHz
 # (67 TFLOP/s counts an FMA as two operations)
 PEAK_FP32_INSTR_PER_S = 33.5e12
@@ -200,6 +232,7 @@ KERNEL_FAMILY = {  # each port kernel's family in `kernel_family`
     LISTED_PLAN_KERNEL.name: "listed plan kernel", LISTED_KERNEL.name: "tile-pruned search kernel",
     LISTED_SLIM_KERNEL.name: "tile-pruned search kernel", PRUNED_KERNEL.name: "tile-pruned search kernel",
     FUSED_FWD_KERNEL.name: "fused SpaceNet kernels", FUSED_BWD_KERNEL.name: "fused SpaceNet kernels",
+    FUSED_FWD_FAST_KERNEL.name: "fused SpaceNet kernels", FUSED_BWD_FAST_KERNEL.name: "fused SpaceNet kernels",
 }
 N_TIMED_RENDERS = 2  # the production image; the exact ones once (the run keeps ~95-125 s)
 # the exact render with the pruned search against the one with brute force:
@@ -231,8 +264,29 @@ PRUNED_POINT_OPS, PRUNED_BLOCK_TILE_OPS, PRUNED_VISIT_OPS = 15.0, 13.0, 1.0
 SLEEP_CYCLES = 200_000     # ~0.1 ms of device time queued ahead of a timed launch
 TRAIN_RAYS = 5500          # bench.py's train workload
 N_TIMED_STEPS = 3
+# the production image with the bfloat16-fed fused forward against the
+# float32 production image (box PSNR): bfloat16 operands move every color a
+# little (measured on an H100: 66.2 dB); a kernel that computed something
+# else falls far below this
+FAST_PSNR_MIN = 55.0
+# the first step's gradients, per tensor, over the float32 path's largest
+# entry: the fused fast path against the fused one (measured on an H100:
+# 0.081, `nerf.stage1.4.weight`; the JAX package's own band between its fast
+# and exact pair is 0.25), the bf16 networks against the float32 ones
+# (measured 0.104, the lighting MLP's first bias): ~3x the measured
+FAST_STEP_GRAD_TOL = 0.25
+BF16_STEP_GRAD_TOL = 0.3
+MESH_RESOLUTION = 128      # the mesh phase's grid: 2,097,152 points
 FWD_TOL, BWD_TOL = 1e-5, 2e-5  # the CPU tests' bands against the JAX package
 KINK = 1e-6                # see fused_mlp.kink_distances
+# the bfloat16-fed pair (fast): equal bit for bit to its plain versions in
+# its own order of sums (`fused_variant`); against those in torch's order,
+# where a bfloat16 rounding or a ReLU mask goes the other way at a share of
+# the points (`fused_mlp.order_flips`), those points are left out as kinks
+# are. Reported beside them: the share of all points with a forward operand
+# within TIE_ULPS float32 ulps of a bfloat16 rounding tie
+# (`fused_mlp.bf16_tie_ulps`), and the flipped points' median distance
+TIE_ULPS = 4
 
 
 def log(msg: str) -> None:
@@ -865,8 +919,8 @@ def render_path(label, cfg, model, ds, item, rays0, mesh, expect: dict, n_timed:
         t0 = time.perf_counter()
         renderer.render_item(item)
         times.append(time.perf_counter() - t0)
-    for name, img in out.items():
-        vals = img if name != "coarse_disp" else img[out["coarse_acc"] > 1e-3]
+    for name, img in out.items():  # disparity where the ray holds opacity
+        vals = img if not name.endswith("_disp") else img[out[name[:-len("disp")] + "acc"] > 1e-3]
         if not np.isfinite(vals).all():
             raise AssertionError(f"{label}: {name}: non-finite values in the render")
     n_rays = int(item["ray_o"].shape[0])
@@ -920,11 +974,16 @@ def fused_macs(with_color: bool, backward: bool) -> float:
     return n
 
 
-def fused_bound(n: int, with_color: bool, backward: bool) -> tuple[float, str]:
+def fused_bound(n: int, with_color: bool, backward: bool, peak: float = PEAK_FP32_PER_S) -> tuple[float, str]:
+    """The fused chain's bound on ``n`` points: its bytes over the memory
+    rate against its operations over ``peak`` (FP32 on the CUDA cores, or
+    PEAK_BF16_PER_S: the tensor cores, for the fast pair's bf16 products)."""
     per_point = (87 + 1 + (66 if with_color else 0)) if not backward else (
         87 + 1 + 87 + ((3 + 63 + 63) if with_color else 0))
     n_bytes = 4.0 * (n * per_point + fused_mlp.W_FLOATS + (fused_mlp.G_FLOATS if backward else 0))
-    return bound_ms(n_bytes, 2.0 * fused_macs(with_color, backward) * n)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2.0 * fused_macs(with_color, backward) * n / peak * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def train_world_points(batch, mesh, settings, blocked: bool = False) -> torch.Tensor:
@@ -982,16 +1041,16 @@ def unfused_chain(model, pts_c, code, pf, with_color: bool, cots=None):
             sum((o * c).sum() for o, c in zip(outs, cots)).backward()
 
 
-def fused_chain(model, pts_c, code, pf, with_color: bool, cots):
+def fused_chain(model, pts_c, code, pf, with_color: bool, cots, fast: bool = False):
     """The same through the fused kernels' autograd functions."""
     with torch.enable_grad():
         pc = pts_c.detach().requires_grad_(True)
         pe, cp = _fused_inputs(pc, code, pf, 1.0)
         params = fused_mlp.nerf_params(model.nerf)
         if with_color:
-            outs = fused_mlp.fused_sigma_essence_normal(params, pe, cp)
+            outs = fused_mlp.fused_sigma_essence_normal(params, pe, cp, fast=fast)
         else:
-            outs = (fused_mlp.fused_sigma(params, pe, cp),)
+            outs = (fused_mlp.fused_sigma(params, pe, cp, fast=fast),)
         model.zero_grad(set_to_none=True)
         sum((o * c).sum() for o, c in zip(outs, cots)).backward()
 
@@ -1017,119 +1076,209 @@ def flip_report(got, want, band: float, kinks) -> dict:
     }
 
 
-def fused_variant(w, wflat, x, with_color: bool, gen) -> tuple[dict, tuple]:
+def fused_variant(w, wflat, x, with_color: bool, gen, fast: bool = False) -> tuple[dict, tuple]:
     """One variant of the fused pair against its plain versions on ``x``.
     Points within KINK of a ReLU's kink are left out of the mask-dependent
     outputs (gpe, xbar) and, for the weight gradients, their cotangents are
     zeroed; everything else is held to the bands. A second backward with
     every cotangent reports what the left-out points do (`flip_report`).
-    Returns the report and the cotangents the check used."""
+
+    fast: the bfloat16-fed kernels. First against the fast plain versions
+    in the kernels' own order of sums (`in_order`): sigma, essence, gpe and
+    xbar equal bit for bit at every point, and the weight gradients, whose
+    sums over the points run in another order, within BWD_TOL of scale with
+    every cotangent. Then against the fast plain versions in torch's order:
+    the points where the two plain versions round an operand to another
+    bfloat16 value or take a ReLU mask the other way (`order_flips`: their
+    only difference is the order of the sums) are counted and left out in
+    place of the kinks, and the rest is held to the bands, the weight gradients included. Returns
+    the report and the cotangents the check used."""
     dev = x.device
     n = x.shape[0]
-    kinks = fused_mlp.kink_distances(w, x)
+    kinks = fused_mlp.kink_distances(w, x, fast)
     keep = kinks.amin(1) > KINK
-    v = {"with_color": with_color, "points": n, "kink_points_left_out": int((~keep).sum()),
-         "kink_share_left_out": float((~keep).float().mean())}
-    got = fused_mlp.fused_fwd(w, x, with_color, wflat)
-    want = fused_mlp.fused_fwd_plain(w, x, with_color)
-    errs = [_rel_err(got[0], want[0])]
-    if with_color:
-        errs += [_rel_err(got[1], want[1]), _rel_err(got[2], want[2], keep)]
-        v["gpe_flips"] = flip_report(got[2], want[2], FWD_TOL, kinks)
-    v["fwd_max_abs_err"], v["fwd_max_rel_err"] = max(e[0] for e in errs), max(e[1] for e in errs)
+    left = "" if fast else "_left_out"  # fast: the two orders' masks are compared instead
+    v = {"with_color": with_color, "fast": fast, "points": n,
+         f"kink_points{left}": int((~keep).sum()), f"kink_share{left}": float((~keep).float().mean())}
+    got = fused_mlp.fused_fwd(w, x, with_color, wflat, fast)
+    want = fused_mlp.fused_fwd_plain(w, x, with_color, fast)
     rnd = lambda *sh: torch.randn(*sh, dtype=torch.float32, device=dev, generator=gen)
     cots = (rnd(n), rnd(n, 3), rnd(n, 63)) if with_color else (rnd(n), None, None)
-    xb, gp, gr = fused_mlp.fused_bwd(w, x, *cots, with_color, wflat)
-    xb_p, _, gr_p = fused_mlp.fused_bwd_plain(w, x, *cots, with_color)
+    xb, gp, gr = fused_mlp.fused_bwd(w, x, *cots, with_color, wflat, fast)
+    xb_p, _, gr_p = fused_mlp.fused_bwd_plain(w, x, *cots, with_color, fast)
     if with_color and not torch.equal(got[2], gp):  # the same routines on the same rows
         raise AssertionError("fused kernels: the forward's gpe differs from the backward's")
+    if fast:
+        ordered = fused_mlp.fused_fwd_plain(w, x, with_color, True, in_order=True)
+        xb_o, gp_o, gr_o = fused_mlp.fused_bwd_plain(w, x, *cots, with_color, True, in_order=True)
+        same = [torch.equal(a, b) for a, b in zip(got, ordered) if a is not None] + [torch.equal(xb, xb_o)]
+        same += [torch.equal(gp, gp_o)] if with_color else []
+        g_ord = {k: _rel_err(gr[k].reshape(t.shape), t)[1] for k, t in gr_o.items()}
+        worst = max(g_ord, key=g_ord.get)
+        v |= {"in_order_bit_equal": all(same), "in_order_unequal_points": sum(
+                  int((a != b).reshape(n, -1).any(1).sum()) for a, b in
+                  zip((*got, xb, gp), (*ordered, xb_o, gp_o)) if a is not None),
+              "grads_vs_in_order_max_rel_err": g_ord[worst], "grads_vs_in_order_worst": worst}
+        if not all(same) or g_ord[worst] > BWD_TOL:
+            raise AssertionError(f"fast fused kernels differ from their plain versions in their order: {v}")
+        flips = fused_mlp.order_flips(w, x, *cots, with_color)
+        ties = fused_mlp.bf16_tie_ulps(w, x)
+        v |= {"order_flip_points": int(flips.sum()), "order_flip_share": float(flips.float().mean()),
+              "order_flips_at_kinks": int((flips & ~keep).sum()),
+              "order_flip_tie_ulps_median": float(ties[flips].float().median()) if bool(flips.any()) else None,
+              "near_tie_share": float((ties <= TIE_ULPS).float().mean()), "tie_ulps": TIE_ULPS,
+              "fast_vs_f32_sigma_rel": _rel_err(want[0], fused_mlp.fused_fwd_plain(w, x, False)[0])[1]}
+        keep = ~flips  # the kinks' masks are among the two orders' (reported above)
+    errs = [_rel_err(got[0], want[0], keep if fast else None)]
+    if with_color:
+        errs += [_rel_err(got[1], want[1], keep if fast else None), _rel_err(got[2], want[2], keep)]
+        v["gpe_flips"] = flip_report(got[2], want[2], FWD_TOL, kinks)
+    v["fwd_max_abs_err"], v["fwd_max_rel_err"] = max(e[0] for e in errs), max(e[1] for e in errs)
     v["xbar_flips"] = flip_report(xb, xb_p, BWD_TOL, kinks)
     v["grads_all_cotangents_max_rel_err"] = max(_rel_err(gr[k].reshape(t.shape), t)[1] for k, t in gr_p.items())
     kept = tuple(c * (keep if c.dim() == 1 else keep[:, None]) if c is not None else None for c in cots)
-    xb, gp, gr = fused_mlp.fused_bwd(w, x, *kept, with_color, wflat)
-    xb_p, gp_p, gr_p = fused_mlp.fused_bwd_plain(w, x, *kept, with_color)
-    errs = [_rel_err(xb, xb_p, keep)] + [_rel_err(gr[k].reshape(t.shape), t) for k, t in gr_p.items()]
+    xb, gp, gr = fused_mlp.fused_bwd(w, x, *kept, with_color, wflat, fast)
+    xb_p, gp_p, gr_p = fused_mlp.fused_bwd_plain(w, x, *kept, with_color, fast)
+    errs = [_rel_err(xb, xb_p, keep)]
     if with_color:
         errs.append(_rel_err(gp, gp_p, keep))
     v["bwd_max_abs_err"], v["bwd_max_rel_err"] = max(e[0] for e in errs), max(e[1] for e in errs)
+    g_errs = {k: _rel_err(gr[k].reshape(t.shape), t) for k, t in gr_p.items()}
+    worst = max(g_errs, key=lambda k: g_errs[k][1])
+    v["grads_max_rel_err"], v["grads_worst"] = g_errs[worst][1], worst
+    v["bwd_max_abs_err"] = max(v["bwd_max_abs_err"], max(e[0] for e in g_errs.values()))
     torch.cuda.synchronize()
-    if v["fwd_max_rel_err"] > FWD_TOL or v["bwd_max_rel_err"] > BWD_TOL:
+    if v["fwd_max_rel_err"] > FWD_TOL or v["bwd_max_rel_err"] > BWD_TOL or v["grads_max_rel_err"] > BWD_TOL:
         raise AssertionError(f"fused kernels differ from their plain versions: {v}")
+    v["bwd_max_rel_err"] = max(v["bwd_max_rel_err"], v["grads_max_rel_err"])
     return v, kept
+
+
+def small_batch_flips(w, x, with_color: bool, gen, sizes=(1, 65, 100), big: int = 6400) -> dict:
+    """The fast pair at a few points: why the plain versions in torch's
+    order part from the kernels more often there. Per size n, the points
+    (of the first n) where the fast plain forward on the n points parts
+    beyond the bands from the same plain forward on ``big`` points (the
+    same inputs: only the order of torch's sums can change with the batch),
+    and the `order_flips` of each batch on those points."""
+    xs = x[:big].contiguous()
+    gen_cots = lambda m: (torch.randn(m, device=x.device, generator=gen),
+                          *((torch.randn(m, 3, device=x.device, generator=gen),
+                             torch.randn(m, 63, device=x.device, generator=gen)) if with_color else (None, None)))
+    cots = gen_cots(big)
+    flips_big = fused_mlp.order_flips(w, xs, *cots, with_color)
+    whole = fused_mlp.fused_fwd_plain(w, xs, with_color, True)
+    out = {}
+    for m in sizes:
+        part = fused_mlp.fused_fwd_plain(w, xs[:m].contiguous(), with_color, True)
+        moved = torch.zeros(m, dtype=torch.bool, device=x.device)
+        for a, b in zip(part, whole):
+            if a is not None:
+                moved |= (a - b[:m]).abs().reshape(m, -1).amax(1) > FWD_TOL * (float(b.abs().max()) + 1e-30)
+        head = tuple(c[:m].contiguous() if c is not None else None for c in cots)
+        out[m] = {"plain_moved_with_batch_points": int(moved.sum()),
+                  "order_flips_of_batch": int(fused_mlp.order_flips(w, xs[:m].contiguous(), *head,
+                                                                     with_color).sum()),
+                  "order_flips_in_big_batch": int(flips_big[:m].sum())}
+    return out
 
 
 def check_fused_random(n: int = 352_000) -> None:
     """The same check on a randomly initialised SpaceNet and seeded inputs
-    (as `tests/test_torch_port_cuda.py` makes them), both variants."""
+    (as `tests/test_torch_port_cuda.py` makes them), both variants, float32
+    and bfloat16-fed."""
     dev = torch.device("cuda")
     model = DualSpaceNeRF(max_frames=4, generator=torch.Generator().manual_seed(0)).to(dev)
     w = {k: v.detach() for k, v in fused_mlp.pack(fused_mlp.nerf_params(model.nerf)).items()}
     gen = torch.Generator(device=dev).manual_seed(0)
     x = fused_mlp.build_x(posenc(0.3 * torch.randn(n, 3, device=dev, generator=gen), 10),
                           torch.randn(n, 24, device=dev, generator=gen))
+    for fast in (False, True):
+        for with_color in (False, True):
+            v, _ = fused_variant(w, fused_mlp.flat_weights(w), x, with_color, gen, fast)
+            log("fused random weights: " + json.dumps(v))
     for with_color in (False, True):
-        v, _ = fused_variant(w, fused_mlp.flat_weights(w), x, with_color, gen)
-        log("fused random weights: " + json.dumps(v))
+        log(f"fused fast small batches (with_color {with_color}): "
+            + json.dumps(small_batch_flips(w, x, with_color, gen)))
 
 
-def check_fused(model, pts_c, code, pf, x_all) -> tuple[dict, dict]:
+def check_fused(model, pts_c, code, pf, x_all, fast: bool = False, model_bf16=None) -> tuple[dict, dict]:
     """Both fused kernels in both variants against their plain versions at
     the training step's shapes (`fused_variant`), and timed. Returns the
     forward and backward kernel rows (their numbers per production step:
-    the density pass over 352,000 points plus the color pass over 88,000)."""
+    the density pass over 352,000 points plus the color pass over 88,000).
+
+    fast: the bfloat16-fed pair, each kernel timed in turns with the
+    float32 kernel and with the unfused bfloat16 chain (``model_bf16``:
+    SpaceNet at compute_dtype bfloat16, cuBLAS + autograd), its bound at the
+    bf16 tensor-core rate of its products' type and, beside it, at the FP32
+    rate this first form runs at."""
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     w = {k: v.detach() for k, v in fused_mlp.pack(fused_mlp.nerf_params(model.nerf)).items()}
     wflat = fused_mlp.flat_weights(w)
     gen = torch.Generator(device=dev).manual_seed(11)
+    chain_model = model_bf16 if fast else model
     variants = []
     for with_color in (False, True):
         for n in FUSED_SIZES:
             x = x_all[:n].contiguous()
-            v, (sbar, ebar, gbar) = fused_variant(w, wflat, x, with_color, gen)
+            v, (sbar, ebar, gbar) = fused_variant(w, wflat, x, with_color, gen, fast)
             if n != FUSED_SIZES[2]:
-                v["fwd_plain_ms"] = time_ms(lambda: fused_mlp.fused_fwd_plain(w, x, with_color), reps=3)
-                v["bwd_plain_ms"] = time_ms(lambda: fused_mlp.fused_bwd_plain(w, x, sbar, ebar, gbar, with_color),
-                                            reps=3)
-                v["fwd_bound_ms"], v["fwd_bound_by"] = fused_bound(n, with_color, False)
-                v["bwd_bound_ms"], v["bwd_bound_by"] = fused_bound(n, with_color, True)
+                v["fwd_plain_ms"] = time_ms(lambda: fused_mlp.fused_fwd_plain(w, x, with_color, fast), reps=3)
+                v["bwd_plain_ms"] = time_ms(
+                    lambda: fused_mlp.fused_bwd_plain(w, x, sbar, ebar, gbar, with_color, fast), reps=3)
+                # the bound at the peak of the products' type: bf16 x bf16 with
+                # float32 sums (tensor cores) for the fast pair, else FP32
+                peak = PEAK_BF16_PER_S if fast else PEAK_FP32_PER_S
+                v["fwd_bound_ms"], v["fwd_bound_by"] = fused_bound(n, with_color, False, peak)
+                v["bwd_bound_ms"], v["bwd_bound_by"] = fused_bound(n, with_color, True, peak)
+                if fast:  # and at the FP32 rate this first form runs at
+                    v["fwd_bound_fp32_ms"] = fused_bound(n, with_color, False)[0]
+                    v["bwd_bound_fp32_ms"] = fused_bound(n, with_color, True)[0]
                 pc = pts_c[:n]
                 cots = [sbar] + ([ebar, torch.randn(n, 3, device=dev, generator=gen)] if with_color else [])
-                # each kernel and its unfused chain in turns, in this call
-                for alt in ({
-                    "fwd": lambda: fused_mlp.fused_fwd(w, x, with_color, wflat),
-                    "unfused_fwd": lambda: unfused_chain(model, pc, code, pf, with_color),
-                }, {
-                    "bwd": lambda: fused_mlp.fused_bwd(w, x, sbar, ebar, gbar, with_color, wflat),
-                    "unfused_fwd_bwd": lambda: unfused_chain(model, pc, code, pf, with_color, cots),
-                }):
+                # each kernel and its unfused chain in turns, in this call; the
+                # fast pair also with the float32 kernel
+                fwd = {"fwd": lambda: fused_mlp.fused_fwd(w, x, with_color, wflat, fast),
+                       "unfused_fwd": lambda: unfused_chain(chain_model, pc, code, pf, with_color)}
+                bwd = {"bwd": lambda: fused_mlp.fused_bwd(w, x, sbar, ebar, gbar, with_color, wflat, fast),
+                       "unfused_fwd_bwd": lambda: unfused_chain(chain_model, pc, code, pf, with_color, cots)}
+                if fast:
+                    fwd["fwd_f32"] = lambda: fused_mlp.fused_fwd(w, x, with_color, wflat)
+                    bwd["bwd_f32"] = lambda: fused_mlp.fused_bwd(w, x, sbar, ebar, gbar, with_color, wflat)
+                for alt in (fwd, bwd):
                     for key, (med, spread) in alternate_ms(alt, rounds=5).items():
                         v[f"{key}_ms"], v[f"{key}_ms_range"] = med, spread
                 for tag in ("fwd", "bwd"):
                     v[f"{tag}_bound_share"] = v[f"{tag}_bound_ms"] / v[f"{tag}_ms"]
-                v["fused_fwd_bwd_ms"] = time_ms(lambda: fused_chain(model, pc, code, pf, with_color, cots),
+                v["fused_fwd_bwd_ms"] = time_ms(lambda: fused_chain(model, pc, code, pf, with_color, cots, fast),
                                                 reps=3)
             variants.append(v)
             log("fused: " + json.dumps(v))
     model.zero_grad(set_to_none=True)
     step = [v for v in variants if (v["points"], v["with_color"]) in ((352_000, False), (88_000, True))]
     exact = next(v for v in variants if (v["points"], v["with_color"]) == (352_000, True))
-    for kernel, tag, unfused in ((FUSED_FWD_KERNEL, "fwd", "unfused_fwd"),
-                                 (FUSED_BWD_KERNEL, "bwd", "unfused_fwd_bwd")):
-        keys = (f"{tag}_ms", f"{tag}_bound_ms", f"{unfused}_ms")
-        log(f"fused_{tag}: " + json.dumps({
+    kernels = ((FUSED_FWD_FAST_KERNEL, "fwd", "unfused_fwd"), (FUSED_BWD_FAST_KERNEL, "bwd", "unfused_fwd_bwd")) \
+        if fast else ((FUSED_FWD_KERNEL, "fwd", "unfused_fwd"), (FUSED_BWD_KERNEL, "bwd", "unfused_fwd_bwd"))
+    for kernel, tag, unfused in kernels:
+        keys = (f"{tag}_ms", f"{tag}_bound_ms", f"{unfused}_ms") + (
+            (f"{tag}_f32_ms", f"{tag}_bound_fp32_ms") if fast else ())
+        log(f"{kernel.name}: " + json.dumps({
             **fused_resources(kernel),
             "production_step": {key: sum(v[key] for v in step) for key in keys},
             "exact_step": {key: exact[key] for key in keys},
             "production_bound_share": sum(v[f"{tag}_bound_ms"] for v in step) / sum(v[f"{tag}_ms"] for v in step),
             "exact_bound_share": exact[f"{tag}_bound_share"],
             "ranges_ms": {f"{v['points']} {'color' if v['with_color'] else 'density'}":
-                          {tag: v[f"{tag}_ms_range"], unfused: v[f"{unfused}_ms_range"]}
+                          {key: v[f"{key}_ms_range"] for key in (tag, unfused) + ((f"{tag}_f32",) if fast else ())}
                           for v in variants if f"{tag}_ms_range" in v},
         }))
     rows = {}
-    for kernel, tag, replaces in ((FUSED_FWD_KERNEL, "fwd", "294"), (FUSED_BWD_KERNEL, "bwd", "311")):
+    for kernel, tag, _ in kernels:
+        replaces = "294" if tag == "fwd" else "311"
         bounds = [v[f"{tag}_bound_ms"] for v in step]
+        unfused = "unfused_fwd" if tag == "fwd" else "unfused_fwd_bwd"
         rows[tag] = {
             "name": kernel.name, "route": "cuda",
             "source": f"dual_space_nerf_tpu_torch/csrc/{kernel.source}",
@@ -1141,9 +1290,15 @@ def check_fused(model, pts_c, code, pf, x_all) -> tuple[dict, dict]:
             "bound_ms": sum(bounds), "bound_by": step[0][f"{tag}_bound_by"],
             "library_ms": None,
             "bound_share": sum(bounds) / sum(v[f"{tag}_ms"] for v in step),
-            "unfused_chain_ms": sum(v["unfused_fwd_ms" if tag == "fwd" else "unfused_fwd_bwd_ms"] for v in step),
+            ("unfused_bf16_chain_ms" if fast else "unfused_chain_ms"): sum(v[f"{unfused}_ms"] for v in step),
             "note": "per production step: density-only at 352,000 points + with color at 88,000",
         }
+        if fast:
+            rows[tag] |= {"f32_kernel_ms": sum(v[f"{tag}_f32_ms"] for v in step),
+                          "bound_fp32_ms": sum(v[f"{tag}_bound_fp32_ms"] for v in step),
+                          "order_flip_share_max": max(v["order_flip_share"] for v in variants),
+                          "note": rows[tag]["note"] + "; bound_ms at the bf16 tensor-core rate of its "
+                                  "products' type, bound_fp32_ms at the FP32 rate this first form runs at"}
     return rows["fwd"], rows["bwd"]
 
 
@@ -1224,15 +1379,19 @@ def small_kernel_resources(kernel, **queried) -> dict:
 
 def fused_resources(kernel) -> dict:
     """A fused kernel's registers and spilled bytes (stores + loads) per
-    variant (`entry_resources`); its dynamic shared memory and resident
-    blocks per SM (the occupancy query the wrapper sizes its grid by), its
-    tile and its scratch per block."""
+    variant (`entry_resources`, from the build log of its library: a fast
+    launcher's ``base`` built it, the same template with FAST set); its
+    dynamic shared memory and resident blocks per SM (the occupancy query
+    the wrapper sizes its grid by), its tile and its scratch per block (the
+    same for both variants, asked of the base)."""
     dev = torch.device("cuda")
+    built = kernel.base or kernel
+    fast = kernel.base is not None
     out = {}
     for label, color in (("density", 0), ("with_color", 1)):
-        v = entry_resources(kernel, rf"{kernel.name}_kernelILb{color}E")
+        v = entry_resources(built, rf"{built.name}_kernelILb{color}ELb{int(fast)}E")
         out[label] = {k: v[k] for k in ("registers", "kernel_spill_bytes", "functions_spill_bytes") if k in v}
-    query = lambda sym, color=0: kernel.extra_function(f"{kernel.name}_{sym}", [ctypes.c_int])(color)
+    query = lambda sym, color=0: built.extra_function(f"{built.name}_{sym}", [ctypes.c_int])(color)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, color in (("density", False), ("with_color", True)):
         blocks = fused_mlp._blocks(kernel, f"{kernel.name}_blocks", dev, color)
@@ -1245,20 +1404,26 @@ def fused_resources(kernel) -> dict:
 
 
 # ---- the training step -------------------------------------------------------
-def train_path(label, production: bool, fused: bool, batch, mesh, expect: dict) -> tuple:
+def train_path(label, production: bool, fused: bool, batch, mesh, expect: dict,
+               model_opts: dict | None = None) -> tuple:
     """`make_train_step` on one path from the fixture's weights and the same
     draws: a counted first step (launches asserted against ``expect``, its
-    gradients kept), timed steps. Returns (report, grads, a function that
-    profiles one more step and adds its device time to the report; run
-    after every timed run, as `render_path`'s)."""
+    gradients kept), timed steps. ``model_opts``: MODEL keys set over
+    `train_cfg`'s (FUSED_FAST, MATMUL_PRECISION, FINE_RAY_SAMPLING). Returns
+    (report, grads, a function that profiles one more step and adds its
+    device time to the report; run after every timed run, as
+    `render_path`'s)."""
     dev = torch.device("cuda")
     cfg = train_cfg(production, fused)
+    for key, value in (model_opts or {}).items():
+        cfg.MODEL[key] = value
     settings = RenderSettings.from_cfg(cfg)
-    model = trained_model(cfg.MODEL.MAX_FRAMES).to(dev)
+    model = trained_model(cfg.MODEL.MAX_FRAMES, compute_dtype(cfg)).to(dev)
     state = create_train_state(model, cfg)
     step = make_train_step(settings, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
-    draws = [draw_randoms(TRAIN_RAYS, settings.n_samples, gen, dev) for _ in range(N_TIMED_STEPS + 2)]
+    draws = [draw_randoms(TRAIN_RAYS, settings.n_samples, gen, dev, settings.n_fine)
+             for _ in range(N_TIMED_STEPS + 2)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1281,7 +1446,8 @@ def train_path(label, production: bool, fused: bool, batch, mesh, expect: dict) 
         raise AssertionError(f"train {label}: non-finite loss {losses}")
     s_step = statistics.median(times)
     report = {
-        "path": label, "rays": TRAIN_RAYS, "points": TRAIN_RAYS * settings.n_samples,
+        "path": label, "rays": TRAIN_RAYS, "points": TRAIN_RAYS * (2 * settings.n_samples + settings.n_fine)
+        if settings.n_fine else TRAIN_RAYS * settings.n_samples,
         "launches_per_step": launches, "first_step_s": first_s,
         "s_per_step": s_step, "s_per_step_runs": times, "rays_per_s": TRAIN_RAYS / s_step,
         "losses": losses, "psnr_last": float(m["psnr"]),
@@ -1300,9 +1466,9 @@ def train_path(label, production: bool, fused: bool, batch, mesh, expect: dict) 
     return report, grads, profile_later
 
 
-def compare_grads(label, g_fused: dict, g_plain: dict) -> dict:
+def compare_grads(label, g_fused: dict, g_plain: dict, tol: float = 1e-3) -> dict:
     """Per tensor max |fused - unfused| over the unfused max: the worst is
-    reported; a NaN or a ratio above 1e-3 fails the run."""
+    reported; a NaN or a ratio above ``tol`` fails the run."""
     ratios = {}
     for n, b in g_plain.items():
         a = g_fused[n]
@@ -1312,8 +1478,8 @@ def compare_grads(label, g_fused: dict, g_plain: dict) -> dict:
     worst = max(ratios, key=ratios.get)
     out = {"path": label, "worst_tensor": worst, "worst_ratio": ratios[worst],
            "tensors_beyond_2e-5": sorted(k for k, r in ratios.items() if r > BWD_TOL)}
-    log("grads fused vs unfused: " + json.dumps(out))
-    if ratios[worst] > 1e-3:
+    log(f"grads {label}: " + json.dumps(out))
+    if ratios[worst] > tol:
         raise AssertionError(f"train {label}: fused and unfused gradients differ: {out}")
     return out
 
@@ -1331,6 +1497,64 @@ def golden_leg(label, golden, model, expect: dict, **kwargs) -> dict:
     if launches != expect:
         raise AssertionError(f"golden {label}: launches {launches}, expected {expect}")
     return launches
+
+
+# ---- the mesh extraction ----------------------------------------------------
+def mesh_phase(model, ds, item, settings, card: str) -> dict:
+    """`Visualizer3D` on the trained fixture and the val item's posed mesh at
+    MESH_RESOLUTION: the density volume (the warp's brute-force search and
+    `density_grid` in chunks of 100,000 grid points) and the marching
+    tetrahedra timed apart, then the user's entry points: `extract_mesh`
+    to an .obj (the same mesh) and `render_turntable` to two PNGs. Fails
+    unless the mesh is non-empty and inside the item's bounds (within a grid
+    step), the launches are the chunks' searches and every file has its
+    signature. Prints the `mesh:` line."""
+    dev = torch.device("cuda")
+    mesh = item_to_mesh(item, ds.faces, ds.canonical_vertex, dev)
+    bounds = np.asarray(item["bounds"], np.float64)
+    viz = Visualizer3D(model, settings, resolution=MESH_RESOLUTION, device=dev)
+    n_points = MESH_RESOLUTION ** 3
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        t0 = time.perf_counter()
+        grid, origin, spacing = viz.density_volume(mesh, bounds, 0, item["poses"])  # ends in a host copy
+        density_s = time.perf_counter() - t0
+        launches = launches_now()
+        want = {**{k.name: 0 for k in KERNELS}, NEAREST_KERNEL.name: -(-n_points // viz.chunk)}
+        if launches != want:
+            raise AssertionError(f"mesh: launches {launches}, expected {want}")
+        t0 = time.perf_counter()
+        verts, faces = marching_tetrahedra(grid, viz.level, origin, spacing)
+        marching_s = time.perf_counter() - t0
+        obj = os.path.join(tmp, "mesh.obj")
+        t0 = time.perf_counter()
+        v2, f2 = viz.extract_mesh(mesh, bounds, 0, item["poses"], out_path=obj)
+        extract_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        frames = viz.render_turntable(mesh, bounds, 0, item["poses"], out_dir=os.path.join(tmp, "turntable"),
+                                      n_views=2, size=512)
+        turntable_s = time.perf_counter() - t0
+        if len(faces) == 0 or not (np.array_equal(v2, verts) and np.array_equal(f2, faces)):
+            raise AssertionError(f"mesh: {len(faces)} faces, or extract_mesh gave another mesh")
+        if (verts < bounds[0] - spacing).any() or (verts > bounds[1] + spacing).any():
+            raise AssertionError("mesh: vertices outside the item's bounds")
+        with open(obj, encoding="ascii") as f:
+            lines = f.read().splitlines()
+        if sum(ln.startswith("v ") for ln in lines) != len(verts) or sum(
+                ln.startswith("f ") for ln in lines) != len(faces):
+            raise AssertionError("mesh: the .obj does not hold the mesh")
+        pngs = sorted(glob.glob(os.path.join(tmp, "turntable", "mesh_*.png")))
+        if len(pngs) != 2 or any(png_size(p) != (512, 512) for p in pngs):
+            raise AssertionError(f"mesh: turntable PNGs {pngs}")
+        if not all((fr.sum(-1) > 0).mean() > 0.01 for fr in frames):
+            raise AssertionError("mesh: an empty turntable frame")
+        out = {"resolution": MESH_RESOLUTION, "grid_points": n_points, "density_volume_s": density_s,
+               "grid_points_per_s": n_points / density_s, "marching_tetrahedra_s": marching_s,
+               "extract_mesh_s": extract_s, "render_turntable_2_views_s": turntable_s,
+               "vertices": int(len(verts)), "faces": int(len(faces)), "obj_bytes": os.path.getsize(obj),
+               "occupied_share": float((grid > viz.level).mean()), "launches": launches, "card": card}
+    log("mesh: " + json.dumps(out))
+    return out
 
 
 # ---- the user's CLIs --------------------------------------------------------
@@ -1794,6 +2018,8 @@ def main() -> int:
         for line in k.build_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log(f"ptxas {k.name}: {line.strip()}")
+    for k in (FUSED_FWD_FAST_KERNEL, FUSED_BWD_FAST_KERNEL):  # entry points of the f32 pair's libraries
+        log(f"resources {k.name}: " + json.dumps(fused_resources(k)))
 
     cfg = slice_cfg()
     settings = RenderSettings.from_cfg(cfg)
@@ -1888,8 +2114,36 @@ def main() -> int:
     box = np.asarray(item["mask_at_box"]).reshape(H, W)
     if psnr(out_pruned["coarse_color"], out_exact["coarse_color"], box) < PRUNED_PSNR_MIN:
         raise AssertionError("exact pruned: the render departs from the brute-force exact render")
-    del out_prod, out_pruned
-    profiles = [profile_exact, profile_prod, profile_pruned]
+    del out_pruned
+    # (d) production with the bfloat16-fed fused forward: two launches a
+    # chunk (density, then color), held to the float32 production image
+    fast_cfg = production_cfg()
+    fast_cfg.MODEL.FUSED_MLP, fast_cfg.MODEL.FUSED_FAST = "on", True
+    out_fast, launches_fast_img, profile_fast = render_path(
+        "production fused fast", fast_cfg, model, ds, item, rays0, mesh,
+        {**zero, GG_KERNEL.name: n_chunks, LISTED_PLAN_KERNEL.name: n_chunks, LISTED_KERNEL.name: n_chunks,
+         FUSED_FWD_FAST_KERNEL.name: 2 * n_chunks}, n_timed=N_TIMED_RENDERS, reference=out_exact)
+    fast_psnr = psnr(out_fast["coarse_color"], out_prod["coarse_color"], box)
+    log("render production fused fast: " + json.dumps({
+        "psnr_box_vs_f32_production": fast_psnr, "floor_db": FAST_PSNR_MIN,
+        "max_abs_color_vs_f32_production": float(np.abs(out_fast["coarse_color"] - out_prod["coarse_color"]).max())}))
+    if fast_psnr < FAST_PSNR_MIN:
+        raise AssertionError(f"production fused fast: {fast_psnr:.2f} dB against the f32 production image")
+    # (e) exact, fused, with the fine pass (64 + 64 samples): the searches
+    # and the fused forward run again on the fine samples
+    fine_cfg = slice_cfg()
+    fine_cfg.MODEL.FUSED_MLP, fine_cfg.MODEL.FINE_RAY_SAMPLING = "on", 64
+    out_fine, launches_fine_img, profile_fine = render_path(
+        "exact fused fine", fine_cfg, model, ds, item, rays0, mesh,
+        {**zero, GG_KERNEL.name: n_chunks, NEAREST_KERNEL.name: 4 * n_chunks,
+         FUSED_FWD_KERNEL.name: 2 * n_chunks}, n_timed=1, reference=out_exact)
+    if not {"fine_color", "fine_acc", "fine_depth", "fine_disp"} <= set(out_fine):
+        raise AssertionError(f"exact fused fine: no fine images ({sorted(out_fine)})")
+    log("render exact fused fine: " + json.dumps({
+        "psnr_box_fine_vs_coarse": psnr(out_fine["fine_color"], out_fine["coarse_color"], box),
+        "psnr_box_fine_vs_gt": psnr(out_fine["fine_color"], item["img"], box)}))
+    del out_prod, out_fast, out_fine
+    profiles = [profile_exact, profile_prod, profile_pruned, profile_fast, profile_fine]
 
     # ---- 5. golden rays against the JAX package's render ---------------
     with np.load(GOLDEN_NPZ) as data:
@@ -1913,36 +2167,55 @@ def main() -> int:
     fmodel = trained_model(cfg.MODEL.MAX_FRAMES).to(dev)
     pts_c, fcode, fpf, x_all = fused_check_inputs(fmodel, tbatch, tmesh, settings, tpts_w)
     fwd_row, bwd_row = check_fused(fmodel, pts_c, fcode, fpf, x_all)
+    # the bfloat16-fed pair, timed with the float32 pair and the unfused bf16 chain
+    fmodel16 = trained_model(cfg.MODEL.MAX_FRAMES, torch.bfloat16).to(dev)
+    ffwd_row, fbwd_row = check_fused(fmodel, pts_c, fcode, fpf, x_all, fast=True, model_bf16=fmodel16)
     check_fused_random()
-    kernels += [fwd_row, bwd_row]
-    for k in (fwd_row, bwd_row):
+    kernels += [fwd_row, bwd_row, ffwd_row, fbwd_row]
+    for k in (fwd_row, bwd_row, ffwd_row, fbwd_row):
         log("kernel: " + json.dumps({key: k[key] for key in k if key not in ("route", "source", "replaces")}))
-    del fmodel, pts_c, x_all
+    del fmodel, fmodel16, pts_c, x_all
 
     # ---- 7. one training step on four paths ------------------------------
     base = {GG_KERNEL.name: 1}
     prod_base = {**zero, **base, LISTED_PLAN_KERNEL.name: 1, LISTED_KERNEL.name: 1}
     exact_base = {**zero, **base, NEAREST_KERNEL.name: 2}
     train, grads = {}, {}
-    for label, production, fused, expect in (
-        ("production", True, False, prod_base),
-        ("production fused", True, True,
+    step_profiles = {}
+    for label, production, fused, opts, expect in (
+        ("production", True, False, None, prod_base),
+        ("production fused", True, True, None,
          {**prod_base, FUSED_FWD_KERNEL.name: 2, FUSED_BWD_KERNEL.name: 2}),
-        ("exact", False, False, exact_base),
-        ("exact fused", False, True, {**exact_base, FUSED_FWD_KERNEL.name: 1, FUSED_BWD_KERNEL.name: 1}),
+        ("exact", False, False, None, exact_base),
+        ("exact fused", False, True, None, {**exact_base, FUSED_FWD_KERNEL.name: 1, FUSED_BWD_KERNEL.name: 1}),
+        # (e) the bfloat16-fed fused pair; (f) the networks in bfloat16
+        # (cuBLAS); (g) the fine pass, 64 + 64 samples: the searches and the
+        # fused pair run again on the 128 samples of each ray
+        ("production fused fast", True, True, {"FUSED_FAST": True},
+         {**prod_base, FUSED_FWD_FAST_KERNEL.name: 2, FUSED_BWD_FAST_KERNEL.name: 2}),
+        ("production bf16", True, False, {"MATMUL_PRECISION": "bf16"}, prod_base),
+        ("exact fused fine", False, True, {"FINE_RAY_SAMPLING": 64},
+         {**exact_base, NEAREST_KERNEL.name: 4, FUSED_FWD_KERNEL.name: 2, FUSED_BWD_KERNEL.name: 2}),
     ):
-        train[label], grads[label], profile_step = train_path(label, production, fused, tbatch, tmesh,
-                                                              expect)
-        profiles.append(profile_step)
+        train[label], grads[label], step_profiles[label] = train_path(label, production, fused, tbatch, tmesh,
+                                                                      expect, opts)
         torch.cuda.empty_cache()
-    compared = [compare_grads(path, grads[f"{path} fused"], grads[path])
+    profiles += list(step_profiles.values())
+    compared = [compare_grads(f"{path}: fused vs unfused", grads[f"{path} fused"], grads[path])
                 for path in ("production", "exact")]
+    compared.append(compare_grads("production: fused fast vs fused", grads["production fused fast"],
+                                  grads["production fused"], FAST_STEP_GRAD_TOL))
+    compared.append(compare_grads("production: bf16 vs f32", grads["production bf16"], grads["production"],
+                                  BF16_STEP_GRAD_TOL))
     del grads
 
     # ---- 8. the train / validate / test CLIs ------------------------------
     cli_phase(card)
     # ---- 9. the CLIs on the ZJU-shaped tree --------------------------------
     zju_cli_phase(card)
+
+    # ---- the mesh extraction -------------------------------------------------
+    mesh_phase(trained_model(cfg.MODEL.MAX_FRAMES), ds, item, settings, card)
 
     # ---- 10. profiles, after every timed run -------------------------------
     for profile_later in profiles:
@@ -1960,15 +2233,17 @@ def main() -> int:
         PRUNED_KERNEL.name: launches_exact_pruned,
         FUSED_FWD_KERNEL.name: train["production fused"]["launches_per_step"],
         FUSED_BWD_KERNEL.name: train["production fused"]["launches_per_step"],
+        FUSED_FWD_FAST_KERNEL.name: train["production fused fast"]["launches_per_step"],
+        FUSED_BWD_FAST_KERNEL.name: train["production fused fast"]["launches_per_step"],
     }
     for k in kernels:
         k["launches"] = on_path[k["name"]][k["name"]]
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']}: no launch on its path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_fp32_ms")  # the last: the fast pair's
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after start")
-    print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))
+    print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k} for k in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,7 @@ import torch
 
 from ..config import get_cfg_defaults
 from ..data.smpl import load_body_model
-from ..models import DualSpaceNeRF
+from ..models import DualSpaceNeRF, compute_dtype
 from ..renderer import RenderSettings
 from ..training import Checkpointer
 
@@ -38,20 +38,16 @@ def epoch_from_ckpt(ckpt_path: str) -> int:
 
 
 def build_model(cfg, seed: int = 0) -> DualSpaceNeRF:
-    """DualSpaceNeRF at the config's widths, on the CPU, initialised as
-    torch's defaults from a generator seeded with ``seed`` (not flax's
-    initialisation: parity runs carry weights across with
+    """DualSpaceNeRF at the config's widths and compute dtype, on the CPU,
+    initialised as torch's defaults from a generator seeded with ``seed``
+    (not flax's initialisation: parity runs carry weights across with
     `models/convert.py`)."""
-    if cfg.MODEL.MATMUL_PRECISION != "f32":
-        raise NotImplementedError(
-            f"MODEL.MATMUL_PRECISION={cfg.MODEL.MATMUL_PRECISION!r} is not ported yet "
-            "(ROADMAP.md queue 1, item 5)"
-        )
     return DualSpaceNeRF(
         max_frames=cfg.MODEL.MAX_FRAMES,
         code_dim=cfg.MODEL.CODE_DIM,
         backbone_dim=cfg.MODEL.BACKBONE_DIM,
         generator=torch.Generator().manual_seed(seed),
+        compute_dtype=compute_dtype(cfg),
     )
 
 

@@ -30,6 +30,17 @@
 //   with color both pairs: ~4 MB per tile without color, ~8.5 MB with
 //   (~65 / ~135 KB per point);
 // - the weights, 2.1 MB (3.6 MB with the transposes) from L2.
+//
+// fused_mlp_bwd_fast_launch is the JAX kernel's fast=True: the same kernel
+// built with the core's FAST flag (fused_mlp_tiled.cuh's header). Every
+// operand of every product is rounded to bfloat16, weights, activations and
+// the cotangent rows of the chains and of the weight gradients alike; the
+// ReLU masks, the bias gradients, k8's gradient sums (sbar h7 and gb7) and
+// the rank-1 term sbar k8 read float32, as the JAX body's jnp.sum and
+// elementwise products do. Its bound is at the rate of its type, bf16
+// products with float32 sums on the tensor cores (989 TFLOP/s dense on an
+// H100 SXM, ~1.4 ms a production step); this first form runs them as FP32
+// FMAs on the CUDA cores (67 TFLOP/s) until its tensor-core redesign.
 #include "fused_mlp_tiled.cuh"
 
 using namespace fmlp_tiled;
@@ -42,7 +53,7 @@ using fmlp::G_FLOATS;
 
 // Every routine of the tiled core ends on a barrier; the barriers here order
 // the per-thread loops between them.
-template <bool COLOR>
+template <bool COLOR, bool FAST>
 __global__ void __launch_bounds__(NT, 2)
 fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sbar,
                      const float* __restrict__ ebar, const float* __restrict__ gbar,
@@ -65,32 +76,35 @@ fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sbar
       load_rows(row(s, R_GBAR), gbar, PE, t0, n);
     }
     __syncthreads();
-    backbone(sm, s, w);  // h1..h7, the forward's
+    backbone<FAST>(sm, s, w);  // h1..h7, the forward's
 
     // ---- first order: the sigma and essence cotangents ----
     if (COLOR) {
-      essence_hidden(sm, s, w);  // e1 = relu(h7 K9 + b9), the forward's
+      essence_hidden<FAST>(sm, s, w);  // e1 = relu(h7 K9 + b9), the forward's
       // the narrow essence head, per thread: de1 = (ebar K10^T) * (z9 > 0),
       // and z9 > 0 exactly where e1 > 0
       for (int i = threadIdx.x; i < E * P; i += NT) {
         const int j = i / P, p = i - j * P;
         float z = 0.f;
-        for (int k = 0; k < 3; ++k) z = fmaf(row(s, R_EB + k)[p], __ldg(w + O_K10T + k * E + j), z);
+        for (int k = 0; k < 3; ++k)
+          z = fmaf(op<FAST>(row(s, R_EB + k)[p]), op<FAST>(__ldg(w + O_K10T + k * E + j)), z);
         row(s, R_DE1)[i] = row(s, R_E1)[i] > 0.f ? z : 0.f;
       }
-      // K10 (E, 3) and b10: one owner thread per element
+      // K10 (E, 3) and b10: one owner thread per element (FAST rounds K10's
+      // factors, not b10's sum)
       for (int i = threadIdx.x; i < E * 3 + 3; i += NT) {
         const float* a = i < E * 3 ? row(s, R_E1 + i / 3) : nullptr;
         const float* b = row(s, R_EB + (i < E * 3 ? i % 3 : i - E * 3));
         float acc = 0.f;
-        for (int p = 0; p < P; ++p) acc = a != nullptr ? fmaf(a[p], b[p], acc) : acc + b[p];
+        for (int p = 0; p < P; ++p)
+          acc = a != nullptr ? fmaf(op<FAST>(a[p]), op<FAST>(b[p]), acc) : acc + b[p];
         G[i < E * 3 ? O_K10 + i : O_B10 + i - E * 3] += acc;
       }
       __syncthreads();
-      wgrad<false>(sm, G + O_K9, W, E, hrow(s, 7), row(s, R_DE1), nullptr, nullptr, G + O_B9);
+      wgrad<false, FAST>(sm, G + O_K9, W, E, hrow(s, 7), row(s, R_DE1), nullptr, nullptr, G + O_B9);
     }
     // dz7 = m7 * (sbar k8 + de1 K9^T)
-    layer<RANK1 | MASK, true>(sm, dzrow(s, 7), W,
+    layer<RANK1 | MASK, true, W, FAST>(sm, dzrow(s, 7), W,
                               COLOR ? wide(row(s, R_DE1), E, w + O_K9T) : none(), none(), nullptr,
                               hrow(s, 7), row(s, R_SB), w + O_K8);
     // k8 and b8: sums of sbar h7 and of sbar over the tile, one owner each
@@ -106,10 +120,11 @@ fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sbar
       G[O_B8] += sb;
     }
     // dz6 = m6 (dz7 K7^T), ..., dz4 = m4 (dz5 K5a^T), ..., dz1
-    for (int l = 7; l >= 2; --l) masked(sm, dzrow(s, l - 1), dzrow(s, l), w + ktw(l), hrow(s, l - 1));
+    for (int l = 7; l >= 2; --l)
+      masked<FAST>(sm, dzrow(s, l - 1), dzrow(s, l), w + ktw(l), hrow(s, l - 1));
     // xbar = dz1 K1^T, plus dz5 K5b^T on the pe lanes (the skip layer); the
     // transposes' rows are 87 and 63 floats: 4-byte copies
-    layer<0, false, 128>(sm, row(s, R_OUT), IN, {dzrow(s, 1), w + O_K1T, W, IN, IN},
+    layer<0, false, 128, FAST>(sm, row(s, R_OUT), IN, {dzrow(s, 1), w + O_K1T, W, IN, IN},
                          {dzrow(s, 5), w + O_K5BT, W, PE, PE}, nullptr, nullptr, nullptr, nullptr);
     store_rows(xbar, row(s, R_OUT), IN, t0, n);
 
@@ -118,25 +133,25 @@ fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sbar
     float* gb = row(s, R_GB);
     float* gb_next = row(s, R_GB + W);
     if (COLOR) {
-      g_chain(sm, s, w);  // u7..u1 and gpe, the forward's
+      g_chain<FAST>(sm, s, w);  // u7..u1 and gpe, the forward's
       store_rows(gpe, row(s, R_OUT2), PE, t0, n);
-      layer<MASK, true>(sm, gb, W, wide(row(s, R_GBAR), PE, w + O_K1), none(), nullptr,
+      layer<MASK, true, W, FAST>(sm, gb, W, wide(row(s, R_GBAR), PE, w + O_K1), none(), nullptr,
                         hrow(s, 1), nullptr, nullptr);
     }
 
     // ---- the weight gradients: Kbar_l += h_{l-1}^T dz_l (+ gb_{l-1}^T u_l
     // with color, gb running up the chain: gb_l = m_l (gb_{l-1} K_l), gb5 =
     // m5 (gb4 K5a + gbar K5b)) ----
-    wgrad<COLOR>(sm, G + O_K1, IN, W, row(s, R_X), dzrow(s, 1), row(s, R_GBAR), urow(s, 1),
+    wgrad<COLOR, FAST>(sm, G + O_K1, IN, W, row(s, R_X), dzrow(s, 1), row(s, R_GBAR), urow(s, 1),
                  G + O_B1);
     for (int l = 2; l <= 7; ++l) {
-      wgrad<COLOR>(sm, G + kw(l), W, W, hrow(s, l - 1), dzrow(s, l), gb, urow(s, l),
+      wgrad<COLOR, FAST>(sm, G + kw(l), W, W, hrow(s, l - 1), dzrow(s, l), gb, urow(s, l),
                    G + O_B1 + (l - 1) * W);
       if (l == 5)
-        wgrad<COLOR>(sm, G + O_K5B, PE, W, row(s, R_X), dzrow(s, 5), row(s, R_GBAR), urow(s, 5),
+        wgrad<COLOR, FAST>(sm, G + O_K5B, PE, W, row(s, R_X), dzrow(s, 5), row(s, R_GBAR), urow(s, 5),
                      nullptr);
       if (COLOR) {
-        layer<MASK, true>(sm, gb_next, W, wide(gb, W, w + kw(l)),
+        layer<MASK, true, W, FAST>(sm, gb_next, W, wide(gb, W, w + kw(l)),
                           l == 5 ? wide(row(s, R_GBAR), PE, w + O_K5B) : none(), nullptr,
                           hrow(s, l), nullptr, nullptr);
         float* tmp = gb; gb = gb_next; gb_next = tmp;
@@ -165,33 +180,63 @@ __global__ void fused_mlp_reduce_kernel(const float* __restrict__ partials, int 
   out[e] = acc;
 }
 
-// the dynamic shared memory of both variants on the current device (before
+// the dynamic shared memory of the variants on the current device (before
 // the occupancy query and the launch)
+template <bool FAST>
 static cudaError_t allow_smem() {
-  cudaError_t e = cudaFuncSetAttribute(fused_mlp_bwd_kernel<true>,
+  cudaError_t e = cudaFuncSetAttribute(fused_mlp_bwd_kernel<true, FAST>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(fused_mlp_bwd_kernel<false>,
+  return cudaFuncSetAttribute(fused_mlp_bwd_kernel<false, FAST>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
 }
 
-extern "C" int fused_mlp_bwd_blocks(int with_color) {
+template <bool FAST>
+static int grid_blocks(int with_color) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return -1;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return -1;
-  if (allow_smem() != cudaSuccess) return -1;
+  if (allow_smem<FAST>() != cudaSuccess) return -1;
   cudaError_t err = with_color
-      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_bwd_kernel<true>, NT,
-                                                      SMEM_BYTES)
-      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_bwd_kernel<false>, NT,
-                                                      SMEM_BYTES);
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_bwd_kernel<true, FAST>,
+                                                      NT, SMEM_BYTES)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_bwd_kernel<false, FAST>,
+                                                      NT, SMEM_BYTES);
   if (err != cudaSuccess) return -1;
   return sms * per_sm;
 }
 
-extern "C" int fused_mlp_bwd_scratch(int) { return SCRATCH_FLOATS; }
+template <bool FAST>
+static int launch(const float* x, const float* sbar, const float* ebar, const float* gbar,
+                  const float* w, float* xbar, float* gpe, float* partials, float* grads,
+                  float* scratch, int n, int with_color, int blocks, void* stream) {
+  const int ntiles = (n + P - 1) / P;
+  const int grid = blocks < ntiles ? blocks : ntiles;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = allow_smem<FAST>();
+  if (err != cudaSuccess) return (int)err;
+  if (grid > 0) {
+    if (with_color) {
+      fused_mlp_bwd_kernel<true, FAST><<<grid, NT, SMEM_BYTES, st>>>(
+          x, sbar, ebar, gbar, w, xbar, gpe, partials, scratch, n);
+    } else {
+      fused_mlp_bwd_kernel<false, FAST><<<grid, NT, SMEM_BYTES, st>>>(
+          x, sbar, ebar, gbar, w, xbar, gpe, partials, scratch, n);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  fused_mlp_reduce_kernel<<<(G_FLOATS + 255) / 256, 256, 0, st>>>(partials, grid > 0 ? grid : 0,
+                                                                 grads);
+  return (int)cudaGetLastError();
+}
 
-// the tile size, the dynamic shared bytes of a block
+// resident blocks of the persistent grid of each variant; scratch floats,
+// tile points and dynamic shared bytes of a block (both variants': the
+// wrappers ask the float32 kernel's names)
+extern "C" int fused_mlp_bwd_blocks(int with_color) { return grid_blocks<false>(with_color); }
+extern "C" int fused_mlp_bwd_fast_blocks(int with_color) { return grid_blocks<true>(with_color); }
+extern "C" int fused_mlp_bwd_scratch(int) { return SCRATCH_FLOATS; }
 extern "C" int fused_mlp_bwd_tile(int) { return P; }
 extern "C" int fused_mlp_bwd_smem(int) { return SMEM_BYTES; }
 
@@ -203,23 +248,16 @@ extern "C" int fused_mlp_bwd_launch(const float* x, const float* sbar, const flo
                                     const float* gbar, const float* w, float* xbar, float* gpe,
                                     float* partials, float* grads, float* scratch, int n,
                                     int with_color, int blocks, void* stream) {
-  const int ntiles = (n + P - 1) / P;
-  const int grid = blocks < ntiles ? blocks : ntiles;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = allow_smem();
-  if (err != cudaSuccess) return (int)err;
-  if (grid > 0) {
-    if (with_color) {
-      fused_mlp_bwd_kernel<true><<<grid, NT, SMEM_BYTES, st>>>(x, sbar, ebar, gbar, w, xbar, gpe,
-                                                               partials, scratch, n);
-    } else {
-      fused_mlp_bwd_kernel<false><<<grid, NT, SMEM_BYTES, st>>>(x, sbar, ebar, gbar, w, xbar, gpe,
-                                                                partials, scratch, n);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  fused_mlp_reduce_kernel<<<(G_FLOATS + 255) / 256, 256, 0, st>>>(partials, grid > 0 ? grid : 0,
-                                                                 grads);
-  return (int)cudaGetLastError();
+  return launch<false>(x, sbar, ebar, gbar, w, xbar, gpe, partials, grads, scratch, n,
+                       with_color, blocks, stream);
+}
+
+// the same with bfloat16 feeds
+extern "C" int fused_mlp_bwd_fast_launch(const float* x, const float* sbar, const float* ebar,
+                                         const float* gbar, const float* w, float* xbar,
+                                         float* gpe, float* partials, float* grads,
+                                         float* scratch, int n, int with_color, int blocks,
+                                         void* stream) {
+  return launch<true>(x, sbar, ebar, gbar, w, xbar, gpe, partials, grads, scratch, n,
+                      with_color, blocks, stream);
 }

@@ -81,11 +81,12 @@ def train_cfg(production: bool, fused: bool):
     return cfg
 
 
-def trained_model(max_frames: int = 16):
-    """DualSpaceNeRF carrying the trained fixture's weights (on the CPU)."""
+def trained_model(max_frames: int = 16, compute_dtype=None):
+    """DualSpaceNeRF carrying the trained fixture's weights (on the CPU), at
+    ``compute_dtype`` (`models/spacenet.py`; None: float32)."""
     from ..models import DualSpaceNeRF, load_flax_npz
 
-    model = DualSpaceNeRF(max_frames=max_frames)
+    model = DualSpaceNeRF(max_frames=max_frames, compute_dtype=compute_dtype)
     model.load_state_dict(load_flax_npz(TRAINED_NPZ))
     return model
 

@@ -3,7 +3,8 @@
 Rays inside the AABB mask are rendered in fixed-size chunks and scattered
 back into the H x W canvas, as the JAX package's `evaluation/render_image.py`
 does. Every chunk is queued on the device first; the outputs are then
-concatenated there and copied to the host once per image.
+concatenated there and copied to the host once per image. With the fine
+pass (settings.n_fine > 0) the fine outputs ride in the same copy.
 """
 
 from __future__ import annotations
@@ -37,27 +38,30 @@ class ImageRenderer:
     def render_item(self, item: dict, light: LightState | None = None,
                     frame_override: int | None = None) -> dict[str, np.ndarray]:
         """Full-image float32 arrays: coarse_color (H, W, 3) and
-        coarse_disp/acc/depth (H, W, 1)."""
+        coarse_disp/acc/depth (H, W, 1); with the fine pass fine_color and
+        fine_disp/acc/depth too."""
         dev = self.device
         light = LightState.identity(dev) if light is None else LightState(
             *(t.to(dev) for t in light)
         )
         mesh = item_to_mesh(item, self.faces, self.verts_cano, dev)
+        passes = ("coarse", "fine") if self.settings.n_fine > 0 else ("coarse",)
+        keys = [(("" if p == "coarse" else "fine_") + k, c, p) for p in passes for k, c in _KEYS]
         parts = []
         for rays, valid in iter_ray_chunks(item, self.chunk, dev, frame_override):
             out = render_rays(self.model, rays, mesh, self.settings, light, device=dev)
             parts.append(torch.cat(
-                [out[k].reshape(rays.ray_o.shape[0], c)[:valid] for k, c in _KEYS], dim=1
+                [out[k].reshape(rays.ray_o.shape[0], c)[:valid] for k, c, _ in keys], dim=1
             ))
         H, W = item["img"].shape[:2]
         mask = np.asarray(item["mask_at_box"]).reshape(-1).astype(bool)
-        width = sum(c for _, c in _KEYS)
+        width = sum(c for _, c, _ in keys)
         canvas = np.zeros((H * W, width), np.float32)
         if parts:  # one device-to-host copy per image
             canvas[mask] = torch.cat(parts).cpu().numpy()
         images, col = {}, 0
-        for (k, c), name in zip(_KEYS, ("color", "disp", "acc", "depth")):
-            images[f"coarse_{name}"] = canvas[:, col:col + c].reshape(H, W, c)
+        for (k, c, p), name in zip(keys, ("color", "disp", "acc", "depth") * len(passes)):
+            images[f"{p}_{name}"] = canvas[:, col:col + c].reshape(H, W, c)
             col += c
         return images
 

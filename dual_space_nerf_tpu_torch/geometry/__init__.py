@@ -6,7 +6,7 @@ from .barycentric import (
     triangle_normal,
 )
 from .compositing import RayOutputs, composite
-from .sampling import gg_near_far, sample_along_rays, stratified_z
+from .sampling import gg_near_far, sample_along_rays, sample_pdf, stratified_z
 
 __all__ = [
     "barycentric_map",
@@ -18,5 +18,6 @@ __all__ = [
     "composite",
     "gg_near_far",
     "sample_along_rays",
+    "sample_pdf",
     "stratified_z",
 ]

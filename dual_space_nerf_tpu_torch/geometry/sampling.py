@@ -1,6 +1,7 @@
 """Along-ray sample placement.
 
 - ``stratified_z`` / ``sample_along_rays``: NeRF stratified sampling.
+- ``sample_pdf``: hierarchical (importance) sampling of the fine pass.
 - ``gg_near_far``: "geometry-guided" per-ray [near, far] tightening to the
   union of gamma-spheres around every mesh vertex. This is the plain PyTorch
   version of the CUDA kernel in `ops/gg_cuda.py`, which holds it against this
@@ -43,6 +44,52 @@ def sample_along_rays(
     """pts = o + d * z. ray_o/ray_d: (..., 3), z_vals: (..., S) -> (..., S, 3).
     ray_d is not normalized: z is in units of ||ray_d||."""
     return ray_o[..., None, :] + ray_d[..., None, :] * z_vals[..., None]
+
+
+def _linspace(start: float, stop: float, num: int, device=None) -> torch.Tensor:
+    """float32 ``jnp.linspace(start, stop, num)``'s formula: start (1 -
+    i/(num-1)) + stop i/(num-1), the last one stop itself (XLA may round an
+    element another way in its last bit; torch.linspace uses another
+    formula)."""
+    start_t = torch.tensor(start, dtype=torch.float32, device=device)
+    stop_t = torch.tensor(stop, dtype=torch.float32, device=device)
+    if num == 1:
+        return start_t[None]
+    step = torch.arange(num - 1, dtype=torch.float32, device=device) / float(num - 1)
+    return torch.cat([start_t * (1 - step) + stop_t * step, stop_t[None]])
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
+               u: torch.Tensor | None = None) -> torch.Tensor:
+    """Hierarchical (importance) sampling of z values from coarse weights,
+    the JAX package's `geometry/sampling.py::sample_pdf`: inverse-CDF
+    sampling of the weights + 1e-5.
+
+    bins: (R, B) sorted z midpoints; weights: (R, B-1). At eval (``u``
+    None) the samples are the CDF strata's midpoints; in training ``u``
+    (R, n_samples) uniform [0, 1) numbers, drawn by the caller, jitter
+    them within their strata. Returns (R, n_samples) z values."""
+    weights = weights + 1e-5
+    pdf = weights / weights.sum(-1, keepdim=True)
+    cdf = torch.cat([torch.zeros_like(pdf[..., :1]), torch.cumsum(pdf, dim=-1)], dim=-1)  # (R, B)
+    if u is None:
+        u = _linspace(0.5 / n_samples, 1.0 - 0.5 / n_samples, n_samples, cdf.device)
+        u = u.expand(*cdf.shape[:-1], n_samples)
+    else:
+        strata = torch.arange(n_samples, dtype=torch.float32, device=cdf.device) / n_samples
+        u = strata + u / n_samples
+    u = u.contiguous()
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = torch.clamp(inds - 1, 0, cdf.shape[-1] - 2)
+    above = torch.clamp(inds, 1, cdf.shape[-1] - 1)
+    cdf_below = torch.take_along_dim(cdf, below, dim=-1)
+    cdf_above = torch.take_along_dim(cdf, above, dim=-1)
+    bins_below = torch.take_along_dim(bins, below, dim=-1)
+    bins_above = torch.take_along_dim(bins, above, dim=-1)
+    gap = cdf_above - cdf_below
+    denom = torch.where(gap < 1e-10, 1.0, gap)
+    t = (u - cdf_below) / denom
+    return bins_below + t * (bins_above - bins_below)
 
 
 def norm3(v: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,12 @@ Same architecture and arithmetic as the JAX package's `models/spacenet.py`:
   1, then ELU + 1 multiplies the essence.
 - ``PoseMLP``: 23 joints x (quaternion - identity) (92) -> 64 -> 64 -> 16.
 
-Parameters are float32 whatever torch's default dtype is. Module and
-parameter names are the reference's state-dict names
+Parameters are float32 whatever torch's default dtype is. With
+``compute_dtype=torch.bfloat16`` (`MODEL.MATMUL_PRECISION: "bf16"`) the
+backbone, the essence head's hidden layer and the lighting MLP compute in
+bfloat16 (`layers.Linear`), and the density head, the essence output layer
+and the lighting's ELU in float32, as the JAX package's modules do. Module
+and parameter names are the reference's state-dict names
 (`nerf.stage1.0.weight`, `lighting_mlp.lights_encoding.4.bias`,
 `pose_mlp.2.weight`, ...), so reference `.pth` state dicts load as they are.
 """
@@ -24,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.posenc import posenc, posenc_dim
-from .layers import mlp, torch_default_init_
+from .layers import Linear, mlp, torch_default_init_
 
 
 def rod2quat(rot_vecs: torch.Tensor) -> torch.Tensor:
@@ -42,24 +46,30 @@ class SpaceNet(nn.Module):
     """Canonical-space density + essence-color field."""
 
     def __init__(self, max_frames: int = 500, code_dim: int = 8, essence_dim: int = 3,
-                 backbone_dim: int = 256, pe_freqs: int = 10, pose_dim: int = 16):
+                 backbone_dim: int = 256, pe_freqs: int = 10, pose_dim: int = 16,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.code_dim = code_dim
         self.pe_freqs = pe_freqs
+        self.compute_dtype = compute_dtype
         pe_dim = posenc_dim(3, pe_freqs)
         if code_dim > 0:
             self.embedding = nn.Embedding(max_frames, code_dim, dtype=torch.float32)
             in_dim = code_dim + pe_dim + pose_dim
         else:
             in_dim = pe_dim
-        self.stage1 = mlp(in_dim, [backbone_dim] * 4, activate_final=True)
-        self.stage2 = mlp(backbone_dim + pe_dim, [backbone_dim] * 3, activate_final=True)
-        self.density_net = nn.Sequential(nn.Linear(backbone_dim, 1, dtype=torch.float32))
+        self.stage1 = mlp(in_dim, [backbone_dim] * 4, activate_final=True,
+                          compute_dtype=compute_dtype)
+        self.stage2 = mlp(backbone_dim + pe_dim, [backbone_dim] * 3, activate_final=True,
+                          compute_dtype=compute_dtype)
+        # the heads' outer layers in float32: the density feeds the
+        # second-order normal and the compositing exponent
+        self.density_net = nn.Sequential(Linear(backbone_dim, 1))
         self.rgb_net = nn.Sequential(
             nn.ReLU(),
-            nn.Linear(backbone_dim, backbone_dim // 2, dtype=torch.float32),
+            Linear(backbone_dim, backbone_dim // 2, compute_dtype),
             nn.ReLU(),
-            nn.Linear(backbone_dim // 2, essence_dim, dtype=torch.float32),
+            Linear(backbone_dim // 2, essence_dim),
         )
 
     def forward(self, pos: torch.Tensor, code: torch.Tensor, pose_feat: torch.Tensor,
@@ -74,23 +84,35 @@ class SpaceNet(nn.Module):
         else:
             x = pe
         x = self.stage1(x)
-        x = self.stage2(torch.cat([x, pe], dim=-1))
+        x = self.stage2(torch.cat([x, pe.to(x.dtype)], dim=-1))
+        head = self.density_net[0].weight.dtype  # float32 (float64 in conditioning checks)
+        density = self.density_net(x.to(head))
         if density_only:
-            return None, self.density_net(x)
-        return self.rgb_net(x), self.density_net(x)
+            return None, density
+        return self.rgb_net[3](self.rgb_net[:3](x).to(head)), density
 
 
 class LightingMLP(nn.Module):
     """World-space scalar lighting multiplier."""
 
-    def __init__(self, width: int = 128):
+    def __init__(self, width: int = 128, compute_dtype: torch.dtype | None = None):
         super().__init__()
-        self.lights_encoding = mlp(9, [width, width, 1])
+        self.lights_encoding = mlp(9, [width, width, 1], compute_dtype=compute_dtype)
 
     def forward(self, normal, xyz_world, view_dir_world, essence):
         view = view_dir_world / torch.linalg.norm(view_dir_world, dim=-1, keepdim=True)
         x = self.lights_encoding(torch.cat([normal, xyz_world, view], dim=-1))
-        return (F.elu(x) + 1.0) * essence
+        return (F.elu(x.to(essence.dtype)) + 1.0) * essence
+
+
+def compute_dtype(cfg) -> torch.dtype | None:
+    """MODEL.MATMUL_PRECISION, the one place it is read: "bf16" computes
+    the networks' products in bfloat16 (float32 parameters and optimizer
+    state), "f32" in float32 (None); anything else raises."""
+    prec = cfg.MODEL.MATMUL_PRECISION
+    if prec not in ("f32", "bf16"):
+        raise ValueError(f"MODEL.MATMUL_PRECISION={prec!r}: expected 'f32' or 'bf16'")
+    return torch.bfloat16 if prec == "bf16" else None
 
 
 class DualSpaceNeRF(nn.Module):
@@ -99,12 +121,15 @@ class DualSpaceNeRF(nn.Module):
     owns the parameters and the sub-functions it calls."""
 
     def __init__(self, max_frames: int = 500, code_dim: int = 8, essence_dim: int = 3,
-                 backbone_dim: int = 256, generator: torch.Generator | None = None):
+                 backbone_dim: int = 256, generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.max_frames = max_frames
         self.code_dim = code_dim
-        self.nerf = SpaceNet(max_frames, code_dim, essence_dim, backbone_dim)
-        self.lighting_mlp = LightingMLP()
+        self.compute_dtype = compute_dtype
+        self.nerf = SpaceNet(max_frames, code_dim, essence_dim, backbone_dim,
+                             compute_dtype=compute_dtype)
+        self.lighting_mlp = LightingMLP(compute_dtype=compute_dtype)
         self.pose_mlp = mlp(92, [64, 64, 16])
         if generator is not None:
             torch_default_init_(self, generator)

@@ -1,5 +1,7 @@
 from .clustered_knn import build_face_clusters
+from .fused_mlp import BWD_FAST_KERNEL as FUSED_BWD_FAST_KERNEL
 from .fused_mlp import BWD_KERNEL as FUSED_BWD_KERNEL
+from .fused_mlp import FWD_FAST_KERNEL as FUSED_FWD_FAST_KERNEL
 from .fused_mlp import FWD_KERNEL as FUSED_FWD_KERNEL
 from .fused_mlp import fused_sigma, fused_sigma_essence_normal, nerf_params
 from .gg_cuda import GG_KERNEL, gg_near_far_cuda, gg_near_far_plain
@@ -26,10 +28,13 @@ from .pruned_knn import (
 
 #: every CUDA kernel of the port, for builds and launch counts
 KERNELS = (GG_KERNEL, NEAREST_KERNEL, LISTED_PLAN_KERNEL, LISTED_KERNEL, LISTED_SLIM_KERNEL,
-           PRUNED_KERNEL, FUSED_FWD_KERNEL, FUSED_BWD_KERNEL)
+           PRUNED_KERNEL, FUSED_FWD_KERNEL, FUSED_BWD_KERNEL, FUSED_FWD_FAST_KERNEL,
+           FUSED_BWD_FAST_KERNEL)
 
 __all__ = [
+    "FUSED_BWD_FAST_KERNEL",
     "FUSED_BWD_KERNEL",
+    "FUSED_FWD_FAST_KERNEL",
     "FUSED_FWD_KERNEL",
     "GG_KERNEL",
     "KERNELS",

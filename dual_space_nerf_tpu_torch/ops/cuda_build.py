@@ -89,7 +89,8 @@ class SharedLibrary:
             with open(os.path.join(self.csrc, name), "rb") as f:
                 h.update(f.read())
         digest = h.hexdigest()
-        return os.path.join(BUILD_DIR, f"lib{self.name}_{digest[:16]}.so")
+        stem = os.path.splitext(self.source)[0]
+        return os.path.join(BUILD_DIR, f"lib{stem}_{digest[:16]}.so")
 
     def start_build(self):
         """Start the compiler for this source unless its library exists;
@@ -148,17 +149,33 @@ class CudaKernel(SharedLibrary):
     The launcher takes device pointers and the stream as ``c_void_p`` and
     returns `cudaGetLastError()` after its launch; `launch` raises if that is
     not 0 and counts one launch. ``launches`` is a plain integer that a run
-    reads to show the kernel was on its path.
+    reads to show the kernel was on its path. ``name`` (default: the
+    source's stem) tells apart two kernels of one library, which is built
+    once.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list, includes: tuple = (),
-                 csrc: str = CSRC_DIR):
+                 csrc: str = CSRC_DIR, name: str | None = None):
         super().__init__(source, includes, csrc)
+        self._label = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.base = None
         self._fn = None
         self._extra = {}
+
+    @classmethod
+    def entry_of(cls, base: "CudaKernel", symbol: str, name: str) -> "CudaKernel":
+        """Another launcher of ``base``'s library, with its own name and
+        launch count; ``.base`` is ``base``, whose build log holds both."""
+        kernel = cls(base.source, symbol, base.argtypes, base.includes, base.csrc, name=name)
+        kernel.base = base
+        return kernel
+
+    @property
+    def name(self) -> str:
+        return self._label or super().name
 
     def _function(self):
         if self._fn is None:

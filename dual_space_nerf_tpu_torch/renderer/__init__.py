@@ -3,6 +3,7 @@ from .pipeline import (
     MeshBundle,
     RayBatch,
     RenderSettings,
+    density_grid,
     normal_canonical_to_world,
     render_rays,
     resolve_mlp_chunk,
@@ -15,6 +16,7 @@ __all__ = [
     "MeshBundle",
     "RayBatch",
     "RenderSettings",
+    "density_grid",
     "normal_canonical_to_world",
     "render_rays",
     "resolve_mlp_chunk",

@@ -25,20 +25,26 @@ gathers from a slot-ordered face table.
 `MODEL.FUSED_MLP: "on"` runs SpaceNet's density, essence and normal chain
 through the fused kernels of `ops/fused_mlp.py` (hand-derived second-order
 backward): the density pass over all samples in one call, the color pass in
-one call. "auto" is off, as in the JAX package.
+one call. "auto" is off, as in the JAX package. `MODEL.FUSED_FAST` feeds
+their products bfloat16 operands (float32 sums); without `FUSED_MLP` it
+changes nothing, as in the JAX package. `MODEL.MATMUL_PRECISION: "bf16"` is
+the model's compute dtype (`models/spacenet.py`), not a render setting.
+
+`MODEL.FINE_RAY_SAMPLING > 0` adds the hierarchical pass: `sample_pdf`
+draws n_fine more z values from the coarse pass's weights, and the whole
+chain runs again on the sorted S + n_fine values of each ray; its outputs
+come back as `fine_*` beside the coarse ones.
 
 Training (`render_rays(train=True, randoms=...)`) builds the autograd graph:
 z is stratified with the passed-in uniforms, the passed-in normal noise
 (scaled by raw_noise_std) is added to sigma before compositing, the normal
 keeps its graph (second order), and the selection weights of the gated path
-are detached.
+are detached. The fine pass takes its own uniforms and noise.
 
-Not ported yet, and refused when asked for: hierarchical sampling
-(FINE_RAY_SAMPLING), the grouped, clustered and xla searches, bf16 matrix
-products and the fused kernels' bf16 feeds (FUSED_FAST). The JAX package's
-REMAT (rematerialization) and FUSED_BLOCK (the TPU kernels' grid block)
-change no number; the port does not read them: it keeps the whole graph, and
-its fused kernels tile by 32 points.
+Not ported yet, and refused when asked for: the grouped, clustered and xla
+searches. The JAX package's REMAT (rematerialization) and FUSED_BLOCK (the
+TPU kernels' grid block) change no number; the port does not read them: it
+keeps the whole graph, and its fused kernels tile by 64 points.
 """
 
 from __future__ import annotations
@@ -54,9 +60,11 @@ from ..geometry import (
     composite,
     project_point2mesh,
     sample_along_rays,
+    sample_pdf,
     stratified_z,
     transparent_mask,
 )
+from ..models import compute_dtype
 from ..ops import (
     face_centroids,
     gg_near_far_cuda,
@@ -170,8 +178,12 @@ class RenderSettings:
     # deviation; both draw on the randoms passed to render_rays
     perturb: float = 1.0
     raw_noise_std: float = 1.0
-    # SpaceNet through the fused kernels (ops/fused_mlp.py)
+    # SpaceNet through the fused kernels (ops/fused_mlp.py); fused_fast:
+    # their bfloat16-fed variants (read only with fused_mlp)
     fused_mlp: bool = False
+    fused_fast: bool = False
+    # hierarchical samples per ray of the fine pass (FINE_RAY_SAMPLING); 0: none
+    n_fine: int = 0
 
     def __post_init__(self):
         if self.mlp_chunk < 1:
@@ -185,19 +197,18 @@ class RenderSettings:
             raise ValueError(f"RenderSettings.shade_topk={self.shade_topk}: expected >= 0")
         if self.block_sc < 1:
             raise ValueError(f"RenderSettings.block_sc={self.block_sc}: expected >= 1")
+        if self.n_fine < 0:
+            raise ValueError(f"RenderSettings.n_fine={self.n_fine}: expected >= 0")
         check_knn_impl(self.knn_impl)
 
     @classmethod
     def from_cfg(cls, cfg) -> "RenderSettings":
         """Settings from a config tree. Raises NotImplementedError for the
-        options whose code paths are not ported yet (see ROADMAP.md)."""
+        searches that are not ported yet (see ROADMAP.md), ValueError for a
+        MATMUL_PRECISION that `models.compute_dtype` refuses (the model
+        reads it: `cli/common.py::build_model`)."""
         shade_topk = max(cfg.MODEL.SHADE_TOPK, 0)
-        if cfg.MODEL.FUSED_FAST:
-            raise NotImplementedError("MODEL.FUSED_FAST (bf16 feeds of the fused kernels) is not ported yet")
-        if cfg.MODEL.FINE_RAY_SAMPLING > 0:
-            raise NotImplementedError("MODEL.FINE_RAY_SAMPLING > 0 (hierarchical pass) is not ported yet")
-        if cfg.MODEL.MATMUL_PRECISION != "f32":
-            raise NotImplementedError("MODEL.MATMUL_PRECISION other than 'f32' is not ported yet")
+        compute_dtype(cfg)
         return cls(
             n_samples=cfg.MODEL.COARSE_RAY_SAMPLING,
             sample_mode=cfg.MODEL.sample_points_mode,
@@ -208,6 +219,8 @@ class RenderSettings:
             perturb=float(cfg.MODEL.perturb),
             raw_noise_std=float(cfg.MODEL.raw_noise_std),
             fused_mlp=resolve_fused(cfg.MODEL.FUSED_MLP),
+            fused_fast=bool(cfg.MODEL.FUSED_FAST),
+            n_fine=max(cfg.MODEL.FINE_RAY_SAMPLING, 0),
         )
 
 
@@ -272,16 +285,23 @@ def warp_world_to_canonical(
     centroids_w: torch.Tensor,
     settings: RenderSettings,
     fidx: torch.Tensor | None = None,
+    ray_d_w: torch.Tensor | None = None,
 ):
     """Barycentric-project points onto their nearest posed triangle and
     rebuild them on the same canonical triangle.
 
-    pts_w: (N, 3). Returns (pts_cano (N, 3), tmask (N,), face_idx (N,)).
-    fidx: optional precomputed nearest-face ids."""
+    pts_w: (N, 3). Returns (pts_cano (N, 3), tmask (N,), face_idx (N,)),
+    and with ``ray_d_w`` (N, 3) world directions a fourth, their canonical
+    unit directions: pts_w + ray_d_w carried through the same triangle,
+    minus pts_cano, normalised (the JAX package's ray_d_cano; the render
+    path does not use it). fidx: optional precomputed nearest-face ids."""
     if fidx is None:
         fidx = _search(pts_w, centroids_w, mesh, settings, mesh.world_tables, False)
-    pts_c, tmask, _, _ = _warp_chunk(pts_w, fidx, _faces_table(mesh))
-    return pts_c, tmask, fidx
+    pts_c, tmask, tris_w, tris_c = _warp_chunk(pts_w, fidx, _faces_table(mesh))
+    if ray_d_w is None:
+        return pts_c, tmask, fidx
+    uv2, h2 = project_point2mesh(pts_w + ray_d_w, tris_w)
+    return pts_c, tmask, fidx, _safe_unit(barycentric_map(uv2, h2, tris_c) - pts_c)
 
 
 def _transport_normal(pts_c, normal_local, tris_c, tris_w) -> torch.Tensor:
@@ -336,7 +356,8 @@ def _point_network(model, settings, pts_w, pts_c, dir_w, code, pose_feat, code_s
     training backward), or the fused kernels' gpe."""
     if _use_fused(settings, model):
         pe, cp = _fused_inputs(pts_c, code, pose_feat, code_scale)
-        sigma, essence, normal_local = fused_sigma_essence_normal(nerf_params(model.nerf), pe, cp)
+        sigma, essence, normal_local = fused_sigma_essence_normal(nerf_params(model.nerf), pe, cp,
+                                                                  fast=settings.fused_fast)
     else:
         train = torch.is_grad_enabled()
         with torch.enable_grad():
@@ -441,7 +462,7 @@ def render_rays(
     light: LightState,
     device: str | torch.device | None = None,
     train: bool = False,
-    randoms: tuple[torch.Tensor, torch.Tensor] | None = None,
+    randoms: tuple[torch.Tensor, ...] | None = None,
 ) -> dict[str, torch.Tensor]:
     """Render one chunk of rays.
 
@@ -451,29 +472,49 @@ def render_rays(
     stratify z when settings.perturb > 0, the normals times
     settings.raw_noise_std are added to sigma when raw_noise_std > 0 (the JAX
     package draws them from `fold_in(rng, step)`, `pipeline.py:573-594`).
+    With settings.n_fine > 0 two more follow: uniforms (R, n_fine) that
+    jitter the fine samples within their CDF strata in every training step,
+    perturb or not (the JAX package's `fold_in(rng, 1)`), and the fine
+    pass's normals (R, S + n_fine) (its rng_noise at the fine pass's shape).
 
     Runs on CUDA unless ``device`` says otherwise; every input and the model
     must already be on that device. Returns color (R, 3), disp_map/acc_map/
-    depth_map (R,), weights/z_vals (R, S)."""
+    depth_map (R,), weights/z_vals (R, S); with n_fine > 0 the fine pass's
+    as fine_color, ..., fine_z_vals (R, S + n_fine)."""
     dev = resolve_device(device)
     _check_devices(dev, model, batch.ray_o, batch.ray_d, batch.near, batch.far,
                    batch.body_pose, mesh.verts_world, mesh.verts_cano, mesh.faces,
                    light.rot)
-    t_rand = noise = None
+    r, s, nf = batch.ray_o.shape[0], settings.n_samples, settings.n_fine
+    t_rand = noise = u_fine = noise_fine = None
     if train:
-        if randoms is None:
-            raise ValueError("render_rays(train=True) needs randoms=(uniforms, normals)")
-        r, s = batch.ray_o.shape[0], settings.n_samples
-        for t in randoms:
-            if tuple(t.shape) != (r, s) or t.device != dev:
-                raise ValueError(f"render_rays: randoms must be ({r}, {s}) on {dev}")
+        shapes = [(r, s), (r, s)] + ([(r, nf), (r, s + nf)] if nf > 0 else [])
+        if randoms is None or len(randoms) != len(shapes):
+            raise ValueError(f"render_rays(train=True) needs {len(shapes)} randoms: uniforms and "
+                             "normals (and the fine pass's, with n_fine > 0)")
+        for t, shape in zip(randoms, shapes):
+            if tuple(t.shape) != shape or t.device != dev:
+                raise ValueError(f"render_rays: randoms must be {shapes} on {dev}")
         if settings.perturb > 0:
             t_rand = randoms[0]
+        if nf > 0:  # the JAX package jitters the fine samples whatever perturb is
+            u_fine = randoms[2]
         if settings.raw_noise_std > 0:
             noise = randoms[1] * settings.raw_noise_std
+            noise_fine = randoms[3] * settings.raw_noise_std if nf > 0 else None
     with torch.set_grad_enabled(train):
         z_vals = sample_z(batch, mesh, settings, t_rand)
-        return _render_with_z(model, batch, mesh, settings, light, z_vals, noise)
+        out = _render_with_z(model, batch, mesh, settings, light, z_vals, noise)
+        if nf > 0:
+            # the hierarchical pass (the JAX package's `render_rays`, its
+            # `:599-618`): n_fine z values from the coarse weights, the
+            # whole chain again on the sorted union
+            mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+            z_fine = sample_pdf(mids.detach(), out["weights"][..., 1:-1].detach(), nf, u_fine)
+            z_all = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1).values
+            fine = _render_with_z(model, batch, mesh, settings, light, z_all, noise_fine)
+            out.update({f"fine_{k}": v for k, v in fine.items()})
+        return out
 
 
 def sample_z(batch: RayBatch, mesh: MeshBundle, settings: RenderSettings,
@@ -591,7 +632,8 @@ def _gated_shading(model, batch: RayBatch, mesh: MeshBundle, settings: RenderSet
         pf = pose_feat.expand(pc.shape[0], pf_dim)
         if fused:
             density = fused_sigma(nerf_params(model.nerf),
-                                  *_fused_inputs(pc, code, pf, light.code_scale))
+                                  *_fused_inputs(pc, code, pf, light.code_scale),
+                                  fast=settings.fused_fast)
         else:
             density = model.sigma_essence(pc, code, pf, light.code_scale, density_only=True)[1][:, 0]
         sigmas.append(torch.where(tmask, 0.0, density))
@@ -634,3 +676,22 @@ def _gated_shading(model, batch: RayBatch, mesh: MeshBundle, settings: RenderSet
     nearest = nearest_selected(top_idx, s)                           # (R, S)
     color = torch.take_along_dim(color_sel.reshape(r, k, 3), nearest[..., None], dim=1)
     return _outputs(composite(color, sigma, z_vals, batch.ray_d, noise), z_vals)
+
+
+def density_grid(model, pts_c: torch.Tensor, frame: int, body_pose: torch.Tensor,
+                 settings: RenderSettings, code_scale: float = 1.0) -> torch.Tensor:
+    """Density-only query of canonical points (mesh extraction), the JAX
+    package's `density_grid`: pts_c (N, 3) -> sigma (N,) in slices of
+    settings.mlp_chunk points, with the frame's code and the pose feature
+    of ``body_pose`` (23, 3). Builds no autograd graph; runs where the model
+    and the points are."""
+    with torch.no_grad():
+        code = model.frame_code(frame)
+        pose_feat = model.pose_feature(body_pose)
+        scale = torch.tensor(code_scale, dtype=pts_c.dtype, device=pts_c.device)
+        out = []
+        for a in range(0, pts_c.shape[0], settings.mlp_chunk):
+            pc = pts_c[a:a + settings.mlp_chunk]
+            pf = pose_feat.expand(pc.shape[0], pose_feat.shape[-1])
+            out.append(model.sigma_essence(pc, code, pf, scale, density_only=True)[1][:, 0])
+        return torch.cat(out) if out else pts_c.new_zeros((0,))

@@ -134,7 +134,7 @@ def do_train(
 
             for batch_idx, (batch, geom) in enumerate(loader):
                 gen.manual_seed(step_seed(seed, state.step))
-                randoms = draw_randoms(nrays, settings.n_samples, gen, dev)
+                randoms = draw_randoms(nrays, settings.n_samples, gen, dev, settings.n_fine)
                 metrics = step_fn(state, batch, geom, randoms)
 
                 if pending is not None:

@@ -43,11 +43,17 @@ def create_train_state(model, cfg) -> TrainState:
     return TrainState(model, opt, sched, 0)
 
 
-def draw_randoms(r: int, s: int, generator: torch.Generator, device) -> tuple:
-    """(uniforms (R, S) in [0, 1), standard normals (R, S)) of one step."""
+def draw_randoms(r: int, s: int, generator: torch.Generator, device, n_fine: int = 0) -> tuple:
+    """(uniforms (R, S) in [0, 1), standard normals (R, S)) of one step; with
+    n_fine > 0 also the fine pass's (uniforms (R, n_fine), normals (R, S +
+    n_fine)), as `render_rays` takes them."""
     u = torch.rand((r, s), generator=generator, dtype=torch.float32, device=device)
     z = torch.randn((r, s), generator=generator, dtype=torch.float32, device=device)
-    return u, z
+    if n_fine <= 0:
+        return u, z
+    uf = torch.rand((r, n_fine), generator=generator, dtype=torch.float32, device=device)
+    zf = torch.randn((r, s + n_fine), generator=generator, dtype=torch.float32, device=device)
+    return u, z, uf, zf
 
 
 def make_train_step(settings: RenderSettings, loss_type: str = "L2", loss_with_mask: bool = False,
@@ -56,10 +62,14 @@ def make_train_step(settings: RenderSettings, loss_type: str = "L2", loss_with_m
 
     One update on ``device`` (CUDA unless asked otherwise; the model, batch
     and mesh must be there). ``randoms`` = (uniforms, normals) of shape
-    (R, S), as `draw_randoms` makes them. Every parameter that the loss does
-    not reach gets a zero gradient, so that Adam steps every parameter with
-    one count, as optax does. After the step each parameter's ``.grad`` holds
-    its gradient. Metrics: loss, psnr and each loss term, as 0-d tensors."""
+    (R, S), and with settings.n_fine > 0 the fine pass's two, as
+    `draw_randoms` makes them. With the fine pass its loss terms join the
+    coarse ones as ``fine_<term>`` (`fine_loss_rgb`), as in the JAX
+    package. Every parameter that the loss does not reach gets a zero
+    gradient, so that Adam steps every parameter with one count, as optax
+    does. After the step each parameter's ``.grad`` holds its gradient.
+    Metrics: loss, psnr (of the coarse colors) and each loss term, as 0-d
+    tensors."""
     loss_fn = make_loss(loss_type, loss_with_mask)
     dev = resolve_device(device)
 
@@ -71,6 +81,9 @@ def make_train_step(settings: RenderSettings, loss_type: str = "L2", loss_with_m
         out = render_rays(model, batch.rays, mesh, settings, light, device=dev, train=True,
                           randoms=randoms)
         losses = loss_fn(out, batch.rgb, batch.occupancy)
+        if settings.n_fine > 0:
+            fine = {k[len("fine_"):]: v for k, v in out.items() if k.startswith("fine_")}
+            losses.update({f"fine_{k}": v for k, v in loss_fn(fine, batch.rgb, batch.occupancy).items()})
         total = sum(losses.values())
         total.backward()
         for p in model.parameters():

@@ -598,6 +598,99 @@ def test_fused_forward_gpe_is_the_backwards(dev, n):
     assert torch.equal(gpe_f, gpe_b)
 
 
+@pytest.mark.parametrize("n", [1, _TILE + 1, 100, 100 * _TILE, 88_000])
+@pytest.mark.parametrize("with_color", [True, False])
+def test_fast_fused_kernels_match_fast_plain(dev, n, with_color):
+    """The `_fast` entry points, on the tile edges and at the step's color
+    pass. Against `fused_fwd_plain` / `fused_bwd_plain` with fast=True in
+    the kernels' own order of every per-point sum (``in_order``): sigma,
+    essence, gpe and xbar equal bit for bit, and the weight gradients,
+    whose sums over the points run in another order, within 2e-5 of scale,
+    every point and every cotangent kept. Against the same in torch's
+    order: the points where the two orders round an operand to another
+    bfloat16 value or take a ReLU mask the other way (`order_flips`) are
+    left out and their cotangents zeroed, the rest held to the float32
+    pair's bands (forward 1e-5, backward and weight gradients 2e-5). The
+    forward's gpe equals the backward's; the fast kernel is not the float32
+    one."""
+    fm, w, x, sbar, ebar, gbar = _fused_inputs(n, dev, seed=3)
+    if not with_color:
+        ebar = gbar = None
+    got = fm.fused_fwd(w, x, with_color, fast=True)
+    xb, gp, grads = fm.fused_bwd(w, x, sbar, ebar, gbar, with_color, fast=True)
+    want = fm.fused_fwd_plain(w, x, with_color, fast=True, in_order=True)
+    xb_o, gp_o, grads_o = fm.fused_bwd_plain(w, x, sbar, ebar, gbar, with_color, fast=True, in_order=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+    assert torch.equal(xb, xb_o)
+    if with_color:
+        assert torch.equal(gp, gp_o) and torch.equal(gp, got[2])
+    for k, v in grads_o.items():
+        assert _close(grads[k].reshape(v.shape), v, 2e-5), k
+    keep = ~fm.order_flips(w, x, sbar, ebar, gbar, with_color)
+    assert bool(keep.any())
+    plain = fm.fused_fwd_plain(w, x, with_color, fast=True)
+    for a, b in zip(got, plain):
+        assert a is None or _close(a, b, 1e-5, keep)
+    zero = lambda c: c * (keep if c.dim() == 1 else keep[:, None]) if c is not None else None
+    xb, gp, grads = fm.fused_bwd(w, x, zero(sbar), zero(ebar), zero(gbar), with_color, fast=True)
+    xb_p, gp_p, grads_p = fm.fused_bwd_plain(w, x, zero(sbar), zero(ebar), zero(gbar), with_color, fast=True)
+    torch.cuda.synchronize()
+    assert _close(xb, xb_p, 2e-5, keep)
+    if with_color:
+        assert _close(gp, gp_p, 2e-5, keep)
+    for k, v in grads_p.items():
+        assert _close(grads[k].reshape(v.shape), v, 2e-5), k
+    assert not _close(got[0], fm.fused_fwd(w, x, with_color)[0], 1e-5)
+
+
+def test_fused_fast_production_step(dev):
+    """One production step (313_tpu.yml, the listed search, FUSED_MLP on,
+    FUSED_FAST) on the synthetic train item: finite loss and gradients,
+    within 0.25 of the float32 fused step's gradients per tensor (bfloat16
+    operands; the JAX package's own band between its fast and exact pair,
+    `tests/test_fused_mlp.py`), and the fast pair launched twice each, the
+    float32 pair never."""
+    from dual_space_nerf_tpu_torch.data import SyntheticDataset, item_to_mesh, item_to_train_batch
+    from dual_space_nerf_tpu_torch.evaluation.golden import train_cfg
+    from dual_space_nerf_tpu_torch.models import DualSpaceNeRF
+    from dual_space_nerf_tpu_torch.ops import KERNELS
+    from dual_space_nerf_tpu_torch.renderer import RenderSettings
+    from dual_space_nerf_tpu_torch.training import create_train_state, draw_randoms, make_train_step
+
+    ds = SyntheticDataset(split="train", nrays=5500, n_frames=1, n_views=1, h=512, w=512)
+    item = ds[0]
+    batch = item_to_train_batch(item, 5500, dev)
+    mesh = item_to_mesh(item, ds.faces, ds.canonical_vertex, dev)
+    grads = {}
+    for fast in (False, True):
+        cfg = train_cfg(production=True, fused=True)
+        cfg.MODEL.FUSED_FAST = fast
+        settings = RenderSettings.from_cfg(cfg)
+        assert settings.fused_fast is fast
+        model = DualSpaceNeRF(max_frames=cfg.MODEL.MAX_FRAMES,
+                              generator=torch.Generator().manual_seed(0)).to(dev)
+        state = create_train_state(model, cfg)
+        randoms = draw_randoms(5500, settings.n_samples, torch.Generator(device=dev).manual_seed(0), dev)
+        for k in KERNELS:
+            k.launches = 0
+        metrics = make_train_step(settings, device=dev)(state, batch, mesh, randoms)
+        torch.cuda.synchronize()
+        assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
+        grads[fast] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        launched = {k.name: k.launches for k in KERNELS}
+        pair = ("fused_mlp_fwd_fast", "fused_mlp_bwd_fast") if fast else ("fused_mlp_fwd", "fused_mlp_bwd")
+        want = {"gg_near_far": 1, "listed_plan": 1, "listed_knn": 1, pair[0]: 2, pair[1]: 2}
+        assert launched == {k.name: want.get(k.name, 0) for k in KERNELS}
+    ratios = {}
+    for n, g in grads[True].items():
+        assert torch.isfinite(g).all(), n
+        ratios[n] = float((g - grads[False][n]).abs().max()) / (float(grads[False][n].abs().max()) + 1e-12)
+    worst = max(ratios, key=ratios.get)
+    assert ratios[worst] <= 0.25, (worst, ratios[worst])
+
+
 # ---------------------------------------------------------------------------
 # the real-data pipeline on the card's machine
 # ---------------------------------------------------------------------------

@@ -142,24 +142,36 @@ def test_render_item_novel_pose_light_matches_jax(item, renderers, identity_rend
 
 def test_unported_settings_raise():
     cfg = slice_cfg(get_cfg_defaults)
-    for key, value in (("FUSED_FAST", True), ("FINE_RAY_SAMPLING", 8), ("KNN_IMPL", "grouped"),
-                       ("KNN_IMPL", "clustered"), ("KNN_IMPL", "xla")):
+    for key, value in (("KNN_IMPL", "grouped"), ("KNN_IMPL", "clustered"), ("KNN_IMPL", "xla")):
         bad = cfg.clone()
         bad.MODEL[key] = value
         with pytest.raises(NotImplementedError):
             RenderSettings.from_cfg(bad)
+    bad = cfg.clone()
+    bad.MODEL.MATMUL_PRECISION = "f16"  # neither of the two the JAX package documents
+    with pytest.raises(ValueError):
+        RenderSettings.from_cfg(bad)
 
 
 @pytest.mark.parametrize("key,value,field", [
     ("SHADE_TOPK", 16, "shade_topk"), ("REUSE_WARP_FACES", True, "reuse_warp_faces"),
     ("KNN_IMPL", "listed", "knn_impl"), ("KNN_IMPL", "pruned", "knn_impl"),
-    ("FUSED_MLP", "on", "fused_mlp"),
+    ("FUSED_MLP", "on", "fused_mlp"), ("FUSED_FAST", True, "fused_fast"),
+    ("FINE_RAY_SAMPLING", 8, "n_fine"), ("MATMUL_PRECISION", "bf16", None),
 ])
 def test_ported_settings_are_accepted(key, value, field):
+    """Each option reaches its setting; MATMUL_PRECISION is the model's
+    compute dtype (`cli/common.py::build_model`), which the settings accept."""
+    from dual_space_nerf_tpu_torch.cli.common import compute_dtype
+
     cfg = slice_cfg(get_cfg_defaults)
     cfg.MODEL[key] = value
+    settings = RenderSettings.from_cfg(cfg)
+    if field is None:
+        assert compute_dtype(cfg) is torch.bfloat16
+        return
     want = True if (key, value) == ("FUSED_MLP", "on") else value
-    assert getattr(RenderSettings.from_cfg(cfg), field) == want
+    assert getattr(settings, field) == want
 
 
 @pytest.mark.parametrize("novel", [False, True])
