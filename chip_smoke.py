@@ -61,13 +61,15 @@ Phases (any failure exits non-zero, before the last line is printed):
    reports where kernel and plain version part at ReLU kinks, also for a
    randomly initialised SpaceNet, and each kernel's registers, spills,
    shared memory, scratch, blocks per SM and share of its bound; then the
-   same for the bfloat16-fed pair (`FUSED_FAST`): bit for bit against its
-   fast plain versions in its own order of sums, and against those in
-   torch's order with the points where the two orders round an operand or
-   a mask the other way counted and left out (`fused_variant`), each
-   kernel timed in turns with the float32 kernel and the unfused bfloat16
-   chain (SpaceNet at compute_dtype bfloat16 + autograd), its bound at the
-   bf16 tensor-core rate of its type and at the FP32 rate it runs at;
+   same for the bfloat16-fed pair (`FUSED_FAST`, bf16 products on the
+   tensor cores): against the oracle of its plain versions, every sum in
+   float64 rounded once (`fused_mlp.check_fast_kernels`: the points beyond
+   the bands against the two float32 plain orders' count, the gradients,
+   the weight-gradient pass on the kernel's own operands, two launches and
+   a second grid size), each kernel timed in turns with the float32 kernel
+   and the unfused bfloat16 chain (SpaceNet at compute_dtype bfloat16 +
+   autograd), its bound at the bf16 tensor-core rate of its type, and the
+   tensor-core and FP32 instructions of its SASS (`sass_counts`);
 7. trains: `training.make_train_step` on `bench.py`'s train workload (the
    512x512 train item, 5500 rays x 64 samples, the trained fixture, Adam at
    5e-4) on four paths, production or exact with `FUSED_MLP` on or off, and
@@ -279,14 +281,7 @@ BF16_STEP_GRAD_TOL = 0.3
 MESH_RESOLUTION = 128      # the mesh phase's grid: 2,097,152 points
 FWD_TOL, BWD_TOL = 1e-5, 2e-5  # the CPU tests' bands against the JAX package
 KINK = 1e-6                # see fused_mlp.kink_distances
-# the bfloat16-fed pair (fast): equal bit for bit to its plain versions in
-# its own order of sums (`fused_variant`); against those in torch's order,
-# where a bfloat16 rounding or a ReLU mask goes the other way at a share of
-# the points (`fused_mlp.order_flips`), those points are left out as kinks
-# are. Reported beside them: the share of all points with a forward operand
-# within TIE_ULPS float32 ulps of a bfloat16 rounding tie
-# (`fused_mlp.bf16_tie_ulps`), and the flipped points' median distance
-TIE_ULPS = 4
+ALT_BLOCKS = 66            # the fast pair's second grid: a quarter of two blocks an SM
 
 
 def log(msg: str) -> None:
@@ -1083,62 +1078,37 @@ def fused_variant(w, wflat, x, with_color: bool, gen, fast: bool = False) -> tup
     zeroed; everything else is held to the bands. A second backward with
     every cotangent reports what the left-out points do (`flip_report`).
 
-    fast: the bfloat16-fed kernels. First against the fast plain versions
-    in the kernels' own order of sums (`in_order`): sigma, essence, gpe and
-    xbar equal bit for bit at every point, and the weight gradients, whose
-    sums over the points run in another order, within BWD_TOL of scale with
-    every cotangent. Then against the fast plain versions in torch's order:
-    the points where the two plain versions round an operand to another
-    bfloat16 value or take a ReLU mask the other way (`order_flips`: their
-    only difference is the order of the sums) are counted and left out in
-    place of the kinks, and the rest is held to the bands, the weight gradients included. Returns
-    the report and the cotangents the check used."""
+    fast: the bfloat16-fed kernels, held to the oracle of their plain
+    versions instead (`fused_mlp.check_fast_kernels`), with the same
+    cotangents. Returns the report and the cotangents the check used."""
     dev = x.device
     n = x.shape[0]
-    kinks = fused_mlp.kink_distances(w, x, fast)
-    keep = kinks.amin(1) > KINK
-    left = "" if fast else "_left_out"  # fast: the two orders' masks are compared instead
-    v = {"with_color": with_color, "fast": fast, "points": n,
-         f"kink_points{left}": int((~keep).sum()), f"kink_share{left}": float((~keep).float().mean())}
-    got = fused_mlp.fused_fwd(w, x, with_color, wflat, fast)
-    want = fused_mlp.fused_fwd_plain(w, x, with_color, fast)
     rnd = lambda *sh: torch.randn(*sh, dtype=torch.float32, device=dev, generator=gen)
     cots = (rnd(n), rnd(n, 3), rnd(n, 63)) if with_color else (rnd(n), None, None)
-    xb, gp, gr = fused_mlp.fused_bwd(w, x, *cots, with_color, wflat, fast)
-    xb_p, _, gr_p = fused_mlp.fused_bwd_plain(w, x, *cots, with_color, fast)
+    if fast:
+        v = {"fast": True, **fused_mlp.check_fast_kernels(w, x, cots, with_color, ALT_BLOCKS)}
+        v["kink_share"] = float((fused_mlp.kink_distances(w, x, True).amin(1) <= KINK).float().mean())
+        return v, cots
+    kinks = fused_mlp.kink_distances(w, x)
+    keep = kinks.amin(1) > KINK
+    v = {"with_color": with_color, "fast": fast, "points": n,
+         "kink_points_left_out": int((~keep).sum()), "kink_share_left_out": float((~keep).float().mean())}
+    got = fused_mlp.fused_fwd(w, x, with_color, wflat)
+    want = fused_mlp.fused_fwd_plain(w, x, with_color)
+    xb, gp, gr = fused_mlp.fused_bwd(w, x, *cots, with_color, wflat)
+    xb_p, _, gr_p = fused_mlp.fused_bwd_plain(w, x, *cots, with_color)
     if with_color and not torch.equal(got[2], gp):  # the same routines on the same rows
         raise AssertionError("fused kernels: the forward's gpe differs from the backward's")
-    if fast:
-        ordered = fused_mlp.fused_fwd_plain(w, x, with_color, True, in_order=True)
-        xb_o, gp_o, gr_o = fused_mlp.fused_bwd_plain(w, x, *cots, with_color, True, in_order=True)
-        same = [torch.equal(a, b) for a, b in zip(got, ordered) if a is not None] + [torch.equal(xb, xb_o)]
-        same += [torch.equal(gp, gp_o)] if with_color else []
-        g_ord = {k: _rel_err(gr[k].reshape(t.shape), t)[1] for k, t in gr_o.items()}
-        worst = max(g_ord, key=g_ord.get)
-        v |= {"in_order_bit_equal": all(same), "in_order_unequal_points": sum(
-                  int((a != b).reshape(n, -1).any(1).sum()) for a, b in
-                  zip((*got, xb, gp), (*ordered, xb_o, gp_o)) if a is not None),
-              "grads_vs_in_order_max_rel_err": g_ord[worst], "grads_vs_in_order_worst": worst}
-        if not all(same) or g_ord[worst] > BWD_TOL:
-            raise AssertionError(f"fast fused kernels differ from their plain versions in their order: {v}")
-        flips = fused_mlp.order_flips(w, x, *cots, with_color)
-        ties = fused_mlp.bf16_tie_ulps(w, x)
-        v |= {"order_flip_points": int(flips.sum()), "order_flip_share": float(flips.float().mean()),
-              "order_flips_at_kinks": int((flips & ~keep).sum()),
-              "order_flip_tie_ulps_median": float(ties[flips].float().median()) if bool(flips.any()) else None,
-              "near_tie_share": float((ties <= TIE_ULPS).float().mean()), "tie_ulps": TIE_ULPS,
-              "fast_vs_f32_sigma_rel": _rel_err(want[0], fused_mlp.fused_fwd_plain(w, x, False)[0])[1]}
-        keep = ~flips  # the kinks' masks are among the two orders' (reported above)
-    errs = [_rel_err(got[0], want[0], keep if fast else None)]
+    errs = [_rel_err(got[0], want[0])]
     if with_color:
-        errs += [_rel_err(got[1], want[1], keep if fast else None), _rel_err(got[2], want[2], keep)]
+        errs += [_rel_err(got[1], want[1]), _rel_err(got[2], want[2], keep)]
         v["gpe_flips"] = flip_report(got[2], want[2], FWD_TOL, kinks)
     v["fwd_max_abs_err"], v["fwd_max_rel_err"] = max(e[0] for e in errs), max(e[1] for e in errs)
     v["xbar_flips"] = flip_report(xb, xb_p, BWD_TOL, kinks)
     v["grads_all_cotangents_max_rel_err"] = max(_rel_err(gr[k].reshape(t.shape), t)[1] for k, t in gr_p.items())
     kept = tuple(c * (keep if c.dim() == 1 else keep[:, None]) if c is not None else None for c in cots)
-    xb, gp, gr = fused_mlp.fused_bwd(w, x, *kept, with_color, wflat, fast)
-    xb_p, gp_p, gr_p = fused_mlp.fused_bwd_plain(w, x, *kept, with_color, fast)
+    xb, gp, gr = fused_mlp.fused_bwd(w, x, *kept, with_color, wflat)
+    xb_p, gp_p, gr_p = fused_mlp.fused_bwd_plain(w, x, *kept, with_color)
     errs = [_rel_err(xb, xb_p, keep)]
     if with_color:
         errs.append(_rel_err(gp, gp_p, keep))
@@ -1152,35 +1122,6 @@ def fused_variant(w, wflat, x, with_color: bool, gen, fast: bool = False) -> tup
         raise AssertionError(f"fused kernels differ from their plain versions: {v}")
     v["bwd_max_rel_err"] = max(v["bwd_max_rel_err"], v["grads_max_rel_err"])
     return v, kept
-
-
-def small_batch_flips(w, x, with_color: bool, gen, sizes=(1, 65, 100), big: int = 6400) -> dict:
-    """The fast pair at a few points: why the plain versions in torch's
-    order part from the kernels more often there. Per size n, the points
-    (of the first n) where the fast plain forward on the n points parts
-    beyond the bands from the same plain forward on ``big`` points (the
-    same inputs: only the order of torch's sums can change with the batch),
-    and the `order_flips` of each batch on those points."""
-    xs = x[:big].contiguous()
-    gen_cots = lambda m: (torch.randn(m, device=x.device, generator=gen),
-                          *((torch.randn(m, 3, device=x.device, generator=gen),
-                             torch.randn(m, 63, device=x.device, generator=gen)) if with_color else (None, None)))
-    cots = gen_cots(big)
-    flips_big = fused_mlp.order_flips(w, xs, *cots, with_color)
-    whole = fused_mlp.fused_fwd_plain(w, xs, with_color, True)
-    out = {}
-    for m in sizes:
-        part = fused_mlp.fused_fwd_plain(w, xs[:m].contiguous(), with_color, True)
-        moved = torch.zeros(m, dtype=torch.bool, device=x.device)
-        for a, b in zip(part, whole):
-            if a is not None:
-                moved |= (a - b[:m]).abs().reshape(m, -1).amax(1) > FWD_TOL * (float(b.abs().max()) + 1e-30)
-        head = tuple(c[:m].contiguous() if c is not None else None for c in cots)
-        out[m] = {"plain_moved_with_batch_points": int(moved.sum()),
-                  "order_flips_of_batch": int(fused_mlp.order_flips(w, xs[:m].contiguous(), *head,
-                                                                     with_color).sum()),
-                  "order_flips_in_big_batch": int(flips_big[:m].sum())}
-    return out
 
 
 def check_fused_random(n: int = 352_000) -> None:
@@ -1197,9 +1138,6 @@ def check_fused_random(n: int = 352_000) -> None:
         for with_color in (False, True):
             v, _ = fused_variant(w, fused_mlp.flat_weights(w), x, with_color, gen, fast)
             log("fused random weights: " + json.dumps(v))
-    for with_color in (False, True):
-        log(f"fused fast small batches (with_color {with_color}): "
-            + json.dumps(small_batch_flips(w, x, with_color, gen)))
 
 
 def check_fused(model, pts_c, code, pf, x_all, fast: bool = False, model_bf16=None) -> tuple[dict, dict]:
@@ -1211,12 +1149,12 @@ def check_fused(model, pts_c, code, pf, x_all, fast: bool = False, model_bf16=No
     fast: the bfloat16-fed pair, each kernel timed in turns with the
     float32 kernel and with the unfused bfloat16 chain (``model_bf16``:
     SpaceNet at compute_dtype bfloat16, cuBLAS + autograd), its bound at the
-    bf16 tensor-core rate of its products' type and, beside it, at the FP32
-    rate this first form runs at."""
+    bf16 tensor-core rate of its products' type."""
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     w = {k: v.detach() for k, v in fused_mlp.pack(fused_mlp.nerf_params(model.nerf)).items()}
     wflat = fused_mlp.flat_weights(w)
+    wb = fused_mlp.fast_weights(w) if fast else None  # built once, as wflat is
     gen = torch.Generator(device=dev).manual_seed(11)
     chain_model = model_bf16 if fast else model
     variants = []
@@ -1233,16 +1171,13 @@ def check_fused(model, pts_c, code, pf, x_all, fast: bool = False, model_bf16=No
                 peak = PEAK_BF16_PER_S if fast else PEAK_FP32_PER_S
                 v["fwd_bound_ms"], v["fwd_bound_by"] = fused_bound(n, with_color, False, peak)
                 v["bwd_bound_ms"], v["bwd_bound_by"] = fused_bound(n, with_color, True, peak)
-                if fast:  # and at the FP32 rate this first form runs at
-                    v["fwd_bound_fp32_ms"] = fused_bound(n, with_color, False)[0]
-                    v["bwd_bound_fp32_ms"] = fused_bound(n, with_color, True)[0]
                 pc = pts_c[:n]
                 cots = [sbar] + ([ebar, torch.randn(n, 3, device=dev, generator=gen)] if with_color else [])
                 # each kernel and its unfused chain in turns, in this call; the
                 # fast pair also with the float32 kernel
-                fwd = {"fwd": lambda: fused_mlp.fused_fwd(w, x, with_color, wflat, fast),
+                fwd = {"fwd": lambda: fused_mlp.fused_fwd(w, x, with_color, wflat, fast, wb),
                        "unfused_fwd": lambda: unfused_chain(chain_model, pc, code, pf, with_color)}
-                bwd = {"bwd": lambda: fused_mlp.fused_bwd(w, x, sbar, ebar, gbar, with_color, wflat, fast),
+                bwd = {"bwd": lambda: fused_mlp.fused_bwd(w, x, sbar, ebar, gbar, with_color, wflat, fast, wb),
                        "unfused_fwd_bwd": lambda: unfused_chain(chain_model, pc, code, pf, with_color, cots)}
                 if fast:
                     fwd["fwd_f32"] = lambda: fused_mlp.fused_fwd(w, x, with_color, wflat)
@@ -1263,7 +1198,7 @@ def check_fused(model, pts_c, code, pf, x_all, fast: bool = False, model_bf16=No
         if fast else ((FUSED_FWD_KERNEL, "fwd", "unfused_fwd"), (FUSED_BWD_KERNEL, "bwd", "unfused_fwd_bwd"))
     for kernel, tag, unfused in kernels:
         keys = (f"{tag}_ms", f"{tag}_bound_ms", f"{unfused}_ms") + (
-            (f"{tag}_f32_ms", f"{tag}_bound_fp32_ms") if fast else ())
+            (f"{tag}_f32_ms",) if fast else ())
         log(f"{kernel.name}: " + json.dumps({
             **fused_resources(kernel),
             "production_step": {key: sum(v[key] for v in step) for key in keys},
@@ -1294,11 +1229,13 @@ def check_fused(model, pts_c, code, pf, x_all, fast: bool = False, model_bf16=No
             "note": "per production step: density-only at 352,000 points + with color at 88,000",
         }
         if fast:
+            shares = [v["oracle_beyond_band_share"] for v in variants]
             rows[tag] |= {"f32_kernel_ms": sum(v[f"{tag}_f32_ms"] for v in step),
-                          "bound_fp32_ms": sum(v[f"{tag}_bound_fp32_ms"] for v in step),
-                          "order_flip_share_max": max(v["order_flip_share"] for v in variants),
+                          "oracle_beyond_band_share_max": {k: max(sh[k] for sh in shares) for k in shares[0]},
                           "note": rows[tag]["note"] + "; bound_ms at the bf16 tensor-core rate of its "
-                                  "products' type, bound_fp32_ms at the FP32 rate this first form runs at"}
+                                  "products' type; oracle_beyond_band_share: the points beyond the bands "
+                                  "against the float64 oracle, of the kernel and of the two float32 plain "
+                                  "orders"}
     return rows["fwd"], rows["bwd"]
 
 
@@ -1377,29 +1314,70 @@ def small_kernel_resources(kernel, **queried) -> dict:
             "sms": torch.cuda.get_device_properties(0).multi_processor_count}
 
 
+def sass_counts(kernel) -> dict:
+    """Per function of a kernel's library, from its SASS (`cuobjdump -sass`
+    of this run's build): the tensor-core MMA instructions (HMMA) and the
+    FP32 FMAs (FFMA)."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                                     "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", kernel.library_path()], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(m[1], {"HMMA": 0, "FFMA": 0})
+        elif cur is not None:
+            for op in cur:
+                cur[op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
+
+
 def fused_resources(kernel) -> dict:
     """A fused kernel's registers and spilled bytes (stores + loads) per
     variant (`entry_resources`, from the build log of its library: a fast
-    launcher's ``base`` built it, the same template with FAST set); its
+    launcher's ``base`` built it, its kernels in namespace fmlp_tc); its
     dynamic shared memory and resident blocks per SM (the occupancy query
     the wrapper sizes its grid by), its tile and its scratch per block (the
-    same for both variants, asked of the base)."""
+    fast backward: its record per tile); the HMMA and FFMA instructions of
+    the library's SASS, summed over the fast kernels' functions (fmlp_tc)
+    and over the float32 kernels' (`sass_counts`)."""
     dev = torch.device("cuda")
     built = kernel.base or kernel
     fast = kernel.base is not None
+    entry = f"{built.name}_tc_kernel" if fast else f"{built.name}_kernel"
     out = {}
     for label, color in (("density", 0), ("with_color", 1)):
-        v = entry_resources(built, rf"{built.name}_kernelILb{color}ELb{int(fast)}E")
+        v = entry_resources(built, rf"{entry}ILb{color}E")
         out[label] = {k: v[k] for k in ("registers", "kernel_spill_bytes", "functions_spill_bytes") if k in v}
+        if fast and built is fused_mlp.BWD_KERNEL:  # the weight-gradient pass
+            g = entry_resources(built, rf"fused_mlp_wgrad_kernelILb{color}E")
+            out[label]["wgrad_pass"] = {k: g[k] for k in ("registers", "kernel_spill_bytes") if k in g}
     query = lambda sym, color=0: built.extra_function(f"{built.name}_{sym}", [ctypes.c_int])(color)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, color in (("density", False), ("with_color", True)):
         blocks = fused_mlp._blocks(kernel, f"{kernel.name}_blocks", dev, color)
         v = out[label]
         v["blocks_per_sm"] = blocks / sms
-        v["scratch_bytes_per_block"] = 4 * query("scratch", int(color))
-    out["dynamic_smem_bytes"] = query("smem")
+        if not fast:
+            v["scratch_bytes_per_block"] = 4 * query("scratch", int(color))
+        elif built is fused_mlp.FWD_KERNEL:
+            v["scratch_bytes_per_block"] = 2 * query("fast_scratch", int(color))
+        else:
+            v["record_bytes_per_tile"] = 2 * query("fast_record", int(color))
+    out["dynamic_smem_bytes"] = query("fast_smem" if fast else "smem")
+    if fast and built is fused_mlp.BWD_KERNEL:
+        out["wgrad_pass_dynamic_smem_bytes"] = query("fast_wgrad_smem")
     out["tile_points"] = query("tile")
+    sass = sass_counts(built)
+    if sass:
+        out["sass"] = {side: {op: sum(c[op] for name, c in sass.items() if ("7fmlp_tc" in name) == tc)
+                              for op in ("HMMA", "FFMA")}
+                       for side, tc in (("fast_functions", True), ("float32_functions", False))}
+    else:
+        out["sass"] = "not measured (no cuobjdump)"
     return out
 
 
@@ -2241,7 +2219,8 @@ def main() -> int:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']}: no launch on its path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_fp32_ms")  # the last: the fast pair's
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "oracle_beyond_band_share_max")  # the last: the fast pair's
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after start")
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k} for k in kernels]}))
     print(card)

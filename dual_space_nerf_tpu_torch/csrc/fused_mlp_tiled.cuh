@@ -1,8 +1,8 @@
-// The fused SpaceNet chain's tiled product core: shared-memory operand slabs
-// and register micro-tiles, FP32 on the CUDA cores. fused_mlp_fwd.cu and
-// fused_mlp_bwd.cu run on it, through the same backbone, e1 and g-chain
-// routines (end of this file); the weight layout and the widths are
-// fused_mlp.cuh's.
+// The fused SpaceNet chain's tiled product core for the float32 pair:
+// shared-memory operand slabs and register micro-tiles, FP32 on the CUDA
+// cores. The float32 kernels of fused_mlp_fwd.cu and fused_mlp_bwd.cu run
+// on it, through the same backbone, e1 and g-chain routines (end of this
+// file); the weight layout and the widths are fused_mlp.cuh's.
 //
 // Design:
 // - A persistent grid of 256-thread blocks, two per SM; block b takes the
@@ -39,24 +39,9 @@
 //   then the bias; the kernels' per-thread heads keep the same order. Rows
 //   past K, columns past J and points past n come in as zeros and add
 //   exactly nothing.
-// - FAST (a template flag of every routine; the `_fast` entry points of
-//   fused_mlp_fwd.cu and fused_mlp_bwd.cu) is the JAX kernels' fast=True
-//   (dual_space_nerf_tpu/ops/fused_mlp.py:_cast): every operand of every
-//   product is rounded to bfloat16 (round to nearest even,
-//   __float2bfloat16_rn) and the products and sums stay float32. Each
-//   thread rounds, in place, the slab elements that it copied, after its
-//   copies have landed and before the barrier that hands the slab to the
-//   products: weights, activations and cotangents alike, ~20 roundings a
-//   thread per slab of 1,024-2,048 FMAs. The scratch rows keep float32, so
-//   the ReLU masks (h > 0), the biases, the bias gradients and the
-//   epilogues' rank-1 term read unrounded values, as the JAX body does. A
-//   product of two bfloat16 values is exact in float32, so the fmaf chain
-//   computes bf16 x bf16 + f32 with one rounding, as a bf16 matrix unit
-//   with float32 sums does. The kernels' per-thread heads round their own
-//   operands (`op`).
+// - The bfloat16-fed pair (the `_fast` entry points) does not run here:
+//   its products are on the tensor cores, fused_mlp_tc.cuh.
 #pragma once
-
-#include <cuda_bf16.h>
 
 #include "fused_mlp.cuh"
 
@@ -113,19 +98,6 @@ constexpr int R_OUT = R_GBAR + 88;     // an output tile, 87 rows (+1)
 constexpr int R_OUT2 = R_OUT + 88;     // a second one, 63 rows (+1)
 constexpr int ROWS = R_OUT2 + 64;
 constexpr int SCRATCH_FLOATS = ROWS * P;
-
-// an operand of a product: rounded to bfloat16 (to nearest even) under FAST
-template <bool FAST>
-__device__ __forceinline__ float op(float v) {
-  return FAST ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-template <bool FAST>
-__device__ __forceinline__ void op4(float* p) {
-  if (!FAST) return;
-  float4 v = *reinterpret_cast<float4*>(p);
-  v.x = op<true>(v.x); v.y = op<true>(v.y); v.z = op<true>(v.z); v.w = op<true>(v.w);
-  *reinterpret_cast<float4*>(p) = v;
-}
 
 __device__ __forceinline__ float* row(float* s, int r) { return s + r * P; }
 __device__ __forceinline__ float* hrow(float* s, int l) { return s + (R_H + (l - 1) * W) * P; }
@@ -231,26 +203,6 @@ __device__ __forceinline__ void slab_load(float* st, const Src& s, int k0) {
   cp_commit();
 }
 
-// FAST: round, in place, the elements of a stage that this thread's
-// `slab_load` copied (after its copies have landed, before the barrier)
-template <bool FAST, bool ALIGNED, int JW>
-__device__ __forceinline__ void slab_round(float* st) {
-  if (!FAST) return;
-  float* Ms = st;
-  float* Is = st + BK * JW;
-  op4<true>(Is + (threadIdx.x / (P / 4)) * P + 4 * (threadIdx.x % (P / 4)));
-  if (ALIGNED) {
-#pragma unroll
-    for (int u = 0; u < BK * JW / 4 / NT; ++u) {
-      const int i = threadIdx.x + u * NT;
-      op4<true>(Ms + (i / (JW / 4)) * JW + 4 * (i % (JW / 4)));
-    }
-  } else {
-#pragma unroll 4
-    for (int u = 0; u < BK * JW / NT; ++u) Ms[threadIdx.x + u * NT] = op<true>(Ms[threadIdx.x + u * NT]);
-  }
-}
-
 // acc[c][q] += sum over the slab's k of Is[k][8 warp + q] Ms[k][j_c], for
 // the thread's columns j_c = 4 lane + c (c < 4) and, with JW = W, 128 + 4
 // lane + c - 4 (c >= 4)
@@ -284,9 +236,9 @@ constexpr int RANK1 = 8;  // + rs[p] * cv[j] before the mask
 
 // out[j][p] = epilogue(s1.in @ s1.M + s2.in @ s2.M) for j < J <= JW, JW =
 // W or 128 (a narrow product); s2.K = 0 for one product, s1.K = 0 for none.
-// out and the mask rows are scratch rows; rs is a scratch row. FAST: the
-// operands rounded to bfloat16 as they are staged. Ends on a barrier.
-template <int EPI, bool ALIGNED, int JW = W, bool FAST = false>
+// out and the mask rows are scratch rows; rs is a scratch row. Ends on a
+// barrier.
+template <int EPI, bool ALIGNED, int JW = W>
 __device__ __noinline__ void layer(float* sm, float* out, int J, const Src& s1, const Src& s2,
                                    const float* __restrict__ bias, const float* mask,
                                    const float* rs, const float* __restrict__ cv) {
@@ -308,7 +260,6 @@ __device__ __noinline__ void layer(float* sm, float* out, int J, const Src& s1, 
       } else {
         cp_wait<0>();
       }
-      slab_round<FAST, ALIGNED, JW>(sm + (s & 1) * F_STAGE);
       __syncthreads();
       slab_mac<JW>(sm + (s & 1) * F_STAGE, acc);
       __syncthreads();
@@ -371,20 +322,6 @@ __device__ __forceinline__ void wslab_load(float* st, const float* A, const floa
   cp_commit();
 }
 
-// FAST: round, in place, the elements of a stage that this thread's
-// `wslab_load` copied
-template <bool FAST>
-__device__ __forceinline__ void wslab_round(float* st) {
-  if (!FAST) return;
-#pragma unroll
-  for (int u = 0; u < WG * BP / 4 / NT; ++u) {
-    const int i = threadIdx.x + u * NT;
-    const int o = (i / (BP / 4)) * LDW + 4 * (i % (BP / 4));
-    op4<true>(st + o);
-    op4<true>(st + WG * LDW + o);
-  }
-}
-
 __device__ __forceinline__ void wslab_mac(const float* st, float (&acc)[8][8]) {
   const float* As = st;
   const float* Bs = st + WG * LDW;
@@ -414,10 +351,8 @@ __device__ __forceinline__ void wslab_mac(const float* st, float (&acc)[8][8]) {
 // TWO) for k < K, j < J; gbias[j] += sum_p B1[j][p] when given. A and B are
 // scratch rows. The read-modify-write of G runs along its rows, in float4s
 // where they are float4-aligned. Each G element has one owner thread: no two
-// threads write one address. FAST: the products' operands rounded to
-// bfloat16 as they are staged; the bias sums read the unrounded rows. Ends
-// on a barrier.
-template <bool TWO, bool FAST = false>
+// threads write one address. Ends on a barrier.
+template <bool TWO>
 __device__ __noinline__ void wgrad(float* sm, float* G, int K, int J, const float* A1,
                                    const float* B1, const float* A2, const float* B2,
                                    float* gbias) {
@@ -443,7 +378,6 @@ __device__ __noinline__ void wgrad(float* sm, float* G, int K, int J, const floa
         } else {
           cp_wait<0>();
         }
-        wslab_round<FAST>(sm + (s & 1) * W_STAGE);
         __syncthreads();
         wslab_mac(sm + (s & 1) * W_STAGE, acc);
         __syncthreads();
@@ -498,10 +432,9 @@ __device__ __forceinline__ Src wide(const float* in, int K, const float* M) {
 }
 
 // a masked step of a chain: out = m (in M), M = K_l or its transpose
-template <bool FAST>
 __device__ __forceinline__ void masked(float* sm, float* out, const float* in, const float* M,
                                        const float* mask) {
-  layer<MASK, true, W, FAST>(sm, out, W, wide(in, W, M), none(), nullptr, mask, nullptr, nullptr);
+  layer<MASK, true>(sm, out, W, wide(in, W, M), none(), nullptr, mask, nullptr, nullptr);
 }
 
 // K_l (l = 2..7, K5a for 5) and its packed transpose
@@ -510,22 +443,20 @@ __device__ __forceinline__ int ktw(int l) { return l == 5 ? O_K5AT : kt_off(l); 
 
 // h1..h7 of the tile into the R_H rows, from x in the R_X rows; the skip
 // layer adds pe (x's first 63 rows) K5b. Ends on a barrier.
-template <bool FAST>
 __device__ __forceinline__ void backbone(float* sm, float* s, const float* __restrict__ w) {
-  layer<BIAS | RELU, true, W, FAST>(sm, hrow(s, 1), W, wide(row(s, R_X), IN, w + O_K1), none(),
-                                    w + O_B1, nullptr, nullptr, nullptr);
+  layer<BIAS | RELU, true>(sm, hrow(s, 1), W, wide(row(s, R_X), IN, w + O_K1), none(), w + O_B1,
+                          nullptr, nullptr, nullptr);
   for (int l = 2; l <= 7; ++l)
-    layer<BIAS | RELU, true, W, FAST>(sm, hrow(s, l), W, wide(hrow(s, l - 1), W, w + kw(l)),
-                                      l == 5 ? wide(row(s, R_X), PE, w + O_K5B) : none(),
-                                      w + O_B1 + (l - 1) * W, nullptr, nullptr, nullptr);
+    layer<BIAS | RELU, true>(sm, hrow(s, l), W, wide(hrow(s, l - 1), W, w + kw(l)),
+                            l == 5 ? wide(row(s, R_X), PE, w + O_K5B) : none(),
+                            w + O_B1 + (l - 1) * W, nullptr, nullptr, nullptr);
 }
 
 // e1 = relu(h7 K9 + b9) into the R_E1 rows, from all seven h rows (h7 the
 // last); K9 sits at an odd offset: 4-byte copies. Ends on a barrier.
-template <bool FAST>
 __device__ __forceinline__ void essence_hidden(float* sm, float* s, const float* __restrict__ w) {
-  layer<BIAS | RELU, false, E, FAST>(sm, row(s, R_E1), E, {hrow(s, 7), w + O_K9, W, E, E}, none(),
-                                     w + O_B9, nullptr, nullptr, nullptr);
+  layer<BIAS | RELU, false, E>(sm, row(s, R_E1), E, {hrow(s, 7), w + O_K9, W, E, E}, none(),
+                               w + O_B9, nullptr, nullptr, nullptr);
 }
 
 // the g-recursion u7..u1 (the R_U rows; u7 = m7 k8, then one masked
@@ -533,16 +464,14 @@ __device__ __forceinline__ void essence_hidden(float* sm, float* s, const float*
 // K1^T)[:, :63] + u5 K5b^T into the R_OUT2 rows, from all seven h rows.
 // The packed transposes' rows are 87 and 63 floats: 4-byte copies. Ends on
 // a barrier.
-template <bool FAST>
 __device__ __forceinline__ void g_chain(float* sm, float* s, const float* __restrict__ w) {
   for (int i = threadIdx.x; i < W * P; i += NT)
     urow(s, 7)[i] = hrow(s, 7)[i] > 0.f ? __ldg(w + O_K8 + i / P) : 0.f;
   __syncthreads();
   for (int l = 7; l >= 2; --l)
-    masked<FAST>(sm, urow(s, l - 1), urow(s, l), w + ktw(l), hrow(s, l - 1));
-  layer<0, false, 128, FAST>(sm, row(s, R_OUT2), PE, {urow(s, 1), w + O_K1T, W, IN, PE},
-                             {urow(s, 5), w + O_K5BT, W, PE, PE}, nullptr, nullptr, nullptr,
-                             nullptr);
+    masked(sm, urow(s, l - 1), urow(s, l), w + ktw(l), hrow(s, l - 1));
+  layer<0, false, 128>(sm, row(s, R_OUT2), PE, {urow(s, 1), w + O_K1T, W, IN, PE},
+                       {urow(s, 5), w + O_K5BT, W, PE, PE}, nullptr, nullptr, nullptr, nullptr);
 }
 
 }  // namespace fmlp_tiled

@@ -166,10 +166,13 @@ class CudaKernel(SharedLibrary):
         self._extra = {}
 
     @classmethod
-    def entry_of(cls, base: "CudaKernel", symbol: str, name: str) -> "CudaKernel":
-        """Another launcher of ``base``'s library, with its own name and
-        launch count; ``.base`` is ``base``, whose build log holds both."""
-        kernel = cls(base.source, symbol, base.argtypes, base.includes, base.csrc, name=name)
+    def entry_of(cls, base: "CudaKernel", symbol: str, name: str,
+                 argtypes: list | None = None) -> "CudaKernel":
+        """Another launcher of ``base``'s library, with its own name, launch
+        count and (default: ``base``'s) argument types; ``.base`` is
+        ``base``, whose build log holds both."""
+        kernel = cls(base.source, symbol, argtypes or base.argtypes, base.includes, base.csrc,
+                     name=name)
         kernel.base = base
         return kernel
 

@@ -11,11 +11,15 @@ and `fused_bwd_plain`, the same algebra as torch matmuls.
 
 ``fast=True`` is the JAX kernels' bfloat16 feed (`MODEL.FUSED_FAST`): every
 operand of every product rounded to bfloat16, the sums in float32. On the
-card it runs the `_fast` entry points of the same two sources, the same
-kernels built with the tiled core's FAST flag (`FWD_FAST_KERNEL`,
-`BWD_FAST_KERNEL`, each with its own launch count). Their plain versions
-with ``in_order=True`` sum in the kernels' order and give their bits;
-`order_flips` names the points where torch's order rounds otherwise.
+card it runs the `_fast` entry points of the same two sources
+(`FWD_FAST_KERNEL`, `BWD_FAST_KERNEL`, each with its own launch count),
+whose products run on the tensor cores (`csrc/fused_mlp_tc.cuh`) on a bf16
+copy of the weights (`fast_weights`). A tensor core's order and rounding
+of a sum have no plain counterpart, so the fast kernels are held to an
+oracle: the plain versions with ``order="exact"``, every sum taken in
+float64 and rounded once to float32 (`beyond_band` counts the points
+where a result parts from it; two float32 orders of the plain version,
+torch's and ``order="in_order"``, give the yardstick).
 
 Math (flax (in, out) kernels, row-vector points), with x = [pe 63 | code 8 |
 pose 16] (87 lanes) and K1's rows permuted to that order, K5 split into K5a
@@ -31,15 +35,17 @@ The gpe cotangent gbar runs the recursion upward:
   Kbar5a += gb4^T u5, Kbar5b += gbar^T u5, gb5 = m5 * (gb4 K5a + gbar K5b),
   k8bar += sum_p gb7.
 
-Bound on the H100 (FP32, no tensor cores): operations. Per point ~0.43 M
-multiply-adds for the density-only forward, ~0.89 M with color, ~1.3 M and
-~2.7 M for the backward; the inputs and outputs move 0.3-1 KB per point. The
-kernels keep every activation of a tile of points in the block's own scratch
-(device memory, never a whole-batch activation) and read the 2.1 MB of
-weights from L2. Both run their products on one tiled core,
-`csrc/fused_mlp_tiled.cuh` (shared-memory slabs, register micro-tiles), and
-share its backbone and g-recursion routines, so the forward's gpe is the
-backward's recomputed gpe bit for bit; see the sources' headers.
+Bound on the H100 (the float32 pair: FP32, no tensor cores): operations.
+Per point ~0.43 M multiply-adds for the density-only forward, ~0.89 M with
+color, ~1.3 M and ~2.7 M for the backward; the inputs and outputs move
+0.3-1 KB per point. The float32 kernels keep every activation of a tile of
+points in the block's own scratch (device memory, never a whole-batch
+activation) and read the 2.1 MB of weights from L2. They run their
+products on one tiled core, `csrc/fused_mlp_tiled.cuh` (shared-memory
+slabs, register micro-tiles), the fast pair on `csrc/fused_mlp_tc.cuh`;
+each pair shares its core's backbone and g-recursion routines, so a
+forward's gpe is its backward's recomputed gpe bit for bit; see the
+sources' headers.
 """
 
 from __future__ import annotations
@@ -76,6 +82,15 @@ _W_LAYOUT = (
 #: the kernels' flat gradient buffer, in order (the color heads stay zero
 #: in the density-only variant)
 _G_LAYOUT = _W_LAYOUT[:21]
+#: the fast kernels' bfloat16 weight buffer (`csrc/fused_mlp_tc.cuh`):
+#: (name, padded shape), in order; every matrix a layer product reads, its
+#: rows padded to a multiple of 32 and its columns to 128 or 256 with zeros
+_WB_LAYOUT = (
+    ("k1", (96, W)), ("k2", (W, W)), ("k3", (W, W)), ("k4", (W, W)), ("k5a", (W, W)),
+    ("k5b", (64, W)), ("k6", (W, W)), ("k7", (W, W)), ("k9", (W, 128)),
+    ("k1t", (W, 128)), ("k2t", (W, W)), ("k3t", (W, W)), ("k4t", (W, W)), ("k5at", (W, W)),
+    ("k5bt", (W, 128)), ("k6t", (W, W)), ("k7t", (W, W)), ("k9t", (128, W)),
+)
 
 
 def _numel(shape) -> int:
@@ -85,28 +100,40 @@ def _numel(shape) -> int:
     return n
 
 
+TILE = 64        # both kernels' tile of points
 W_FLOATS = sum(_numel(s) for _, s in _W_LAYOUT)
 G_FLOATS = sum(_numel(s) for _, s in _G_LAYOUT)
+WB_ELEMS = sum(_numel(s) for _, s in _WB_LAYOUT)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_HEADERS = ("fused_mlp.cuh", "fused_mlp_tiled.cuh", "fused_mlp_tc.cuh")
 FWD_KERNEL = CudaKernel(
     "fused_mlp_fwd.cu", "fused_mlp_fwd_launch",
     # x, weights, sigma, essence, gpe, scratch, n, with_color, blocks, stream
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    includes=("fused_mlp.cuh", "fused_mlp_tiled.cuh"),
+    includes=_HEADERS,
 )
 BWD_KERNEL = CudaKernel(
     "fused_mlp_bwd.cu", "fused_mlp_bwd_launch",
     # x, sbar, ebar, gbar, weights, xbar, gpe, partials, grads, scratch, n,
     # with_color, blocks, stream
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    includes=("fused_mlp.cuh", "fused_mlp_tiled.cuh"),
+    includes=_HEADERS,
 )
-# the bfloat16-fed variants: other launchers of the same libraries (their
-# scratch, tile and shared memory are the float32 kernels')
-FWD_FAST_KERNEL = CudaKernel.entry_of(FWD_KERNEL, "fused_mlp_fwd_fast_launch", "fused_mlp_fwd_fast")
-BWD_FAST_KERNEL = CudaKernel.entry_of(BWD_KERNEL, "fused_mlp_bwd_fast_launch", "fused_mlp_bwd_fast")
+# the bfloat16-fed variants: other launchers of the same libraries, on the
+# tensor-core core, with sizes of their own
+FWD_FAST_KERNEL = CudaKernel.entry_of(
+    FWD_KERNEL, "fused_mlp_fwd_fast_launch", "fused_mlp_fwd_fast",
+    # x, weights, bf16 weights, sigma, essence, gpe, scratch, n, with_color, blocks, stream
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+)
+BWD_FAST_KERNEL = CudaKernel.entry_of(
+    BWD_KERNEL, "fused_mlp_bwd_fast_launch", "fused_mlp_bwd_fast",
+    # x, sbar, ebar, gbar, weights, bf16 weights, xbar, gpe, small, gradient
+    # partials, records, grads, n, with_color, blocks, splits, stream
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+)
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +167,19 @@ def flat_weights(w: dict) -> torch.Tensor:
         t = w[name[:-1]].t() if name.endswith("t") else w[name]
         parts.append(t.detach().to(F32).reshape(-1))
     return torch.cat(parts)
+
+
+def fast_weights(w: dict) -> torch.Tensor:
+    """The fast kernels' bfloat16 weight buffer (`_WB_LAYOUT`) from
+    `pack`'s dict: each matrix rounded to bfloat16 (to nearest even) and
+    zero-padded to its shape."""
+    parts = []
+    for name, shape in _WB_LAYOUT:
+        t = (w[name[:-1]].t() if name.endswith("t") else w[name]).detach().to(F32)
+        pad = torch.zeros(shape, dtype=F32, device=t.device)
+        pad[:t.shape[0], :t.shape[1]] = t
+        parts.append(pad.reshape(-1))
+    return torch.cat(parts).to(torch.bfloat16)
 
 
 def split_grads(flat: torch.Tensor) -> dict:
@@ -223,19 +263,42 @@ def _mm(a: torch.Tensor, b: torch.Tensor, fast: bool) -> torch.Tensor:
     return bf16_round(a) @ bf16_round(b) if fast else a @ b
 
 
-def _mms(pairs, fast: bool, in_order: bool = False) -> torch.Tensor:
-    """The per-point sum over (a, b) in ``pairs`` of a @ b: each pair's
-    `_mm`, added in turn. in_order (fast only): in the fast kernels' order
-    instead, as `layer` of `csrc/fused_mlp_tiled.cuh` runs it: one float32
-    sum per output from +0 over the pairs' k in turn, k increasing, one
-    rounding a term. A product of two bfloat16 values is exact in float32,
-    so these are the kernels' bits (a float32 product rounds: no such order
-    exists for the float32 kernels)."""
-    if not in_order:
+#: the orders of the plain versions' sums: torch's; "in_order", one float32
+#: sum from +0 over k increasing with one rounding a term (bfloat16-fed
+#: only); "exact", the oracle of the fast kernels: each sum in float64,
+#: rounded once to float32
+ORDERS = ("torch", "in_order", "exact")
+
+
+def _mms64(pairs, fast: bool) -> torch.Tensor:
+    """The per-point sum over (a, b) in ``pairs`` of a @ b in float64, not
+    rounded (fast: the operands rounded to bfloat16 first; their products
+    are exact in float64 too)."""
+    out = None
+    for a, b in pairs:
+        if fast:
+            a, b = bf16_round(a), bf16_round(b)
+        t = a.double() @ b.double()
+        out = t if out is None else out + t
+    return out
+
+
+def _mms(pairs, fast: bool, order: str = "torch") -> torch.Tensor:
+    """The per-point sum over (a, b) in ``pairs`` of a @ b, in ``order``
+    (`ORDERS`): torch's, each pair's `_mm` added in turn; "in_order" (fast
+    only), one float32 sum per output from +0 over the pairs' k in turn, k
+    increasing, one rounding a term, the order of a chain of FMAs on the
+    CUDA cores (a product of two bfloat16 values is exact in float32);
+    "exact", the whole sum in float64, rounded once."""
+    if order == "exact":
+        return _mms64(pairs, fast).float()
+    if order == "torch":
         out = _mm(*pairs[0], fast)
         for a, b in pairs[1:]:
             out = out + _mm(a, b, fast)
         return out
+    if order != "in_order":
+        raise ValueError(f"fused SpaceNet: order must be one of {ORDERS}, got {order!r}")
     if not fast:
         raise ValueError("fused SpaceNet: in_order is the bfloat16-fed variant's order")
     vec = pairs[0][1].dim() == 1
@@ -263,72 +326,81 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.where((e != 0) & even, torch.nextafter(s, toward), s).float()
 
 
-def _hidden(w: dict, x: torch.Tensor, fast: bool = False, in_order: bool = False) -> list:
+def _hidden(w: dict, x: torch.Tensor, fast: bool = False, order: str = "torch") -> list:
     """h1..h7 of the backbone (the skip layer's sum runs over h4, then pe)."""
     hs, h = [], x
     for i in range(1, 8):
         pairs = [(h, w["k5a"]), (x[:, :PE], w["k5b"])] if i == 5 else [(h, w[f"k{i}"])]
-        h = torch.relu(_mms(pairs, fast, in_order) + w[f"b{i}"])
+        h = torch.relu(_mms(pairs, fast, order) + w[f"b{i}"])
         hs.append(h)
     return hs
 
 
-def _u_chain(w: dict, m: list, fast: bool = False, in_order: bool = False) -> list:
+def _u_chain(w: dict, m: list, fast: bool = False, order: str = "torch") -> list:
     """u1..u7 of the g-recursion, from the masks m1..m7."""
     u = [None] * 7
     u[6] = m[6] * w["k8"]
     for i in (5, 4, 3, 2, 1, 0):                          # u6..u1; u4 through K5a
         k = w["k5a"] if i == 3 else w[f"k{i + 2}"]
-        u[i] = m[i] * _mms([(u[i + 1], k.t())], fast, in_order)
+        u[i] = m[i] * _mms([(u[i + 1], k.t())], fast, order)
     return u
 
 
-def _gpe(w: dict, u: list, fast: bool = False, in_order: bool = False) -> torch.Tensor:
-    return _mms([(u[0], w["k1"].t()[:, :PE]), (u[4], w["k5b"].t())], fast, in_order)
+def _gpe(w: dict, u: list, fast: bool = False, order: str = "torch") -> torch.Tensor:
+    return _mms([(u[0], w["k1"].t()[:, :PE]), (u[4], w["k5b"].t())], fast, order)
 
 
 def fused_fwd_plain(w: dict, x: torch.Tensor, with_color: bool, fast: bool = False,
-                    in_order: bool = False):
+                    order: str = "torch"):
     """(sigma (N,), essence (N, 3) | None, gpe (N, 63) | None). fast: every
     operand of every product rounded to bfloat16 (`_mm`); nothing else is
-    rounded (biases, masks, u7 = m7 k8). in_order (with fast): every
-    per-point sum in the fast kernel's order (`_mms`), its bits."""
-    hs = _hidden(w, x, fast, in_order)
-    sigma = _mms([(hs[6], w["k8"])], fast, in_order) + w["b8"]
+    rounded (biases, masks, u7 = m7 k8). order: the order of every
+    per-point sum (`_mms`; "exact" is the fast kernels' oracle)."""
+    hs = _hidden(w, x, fast, order)
+    sigma = _mms([(hs[6], w["k8"])], fast, order) + w["b8"]
     if not with_color:
         return sigma, None, None
-    e1 = torch.relu(_mms([(hs[6], w["k9"])], fast, in_order) + w["b9"])
-    essence = _mms([(e1, w["k10"])], fast, in_order) + w["b10"]
-    return sigma, essence, _gpe(w, _u_chain(w, [h > 0 for h in hs], fast, in_order), fast, in_order)
+    e1 = torch.relu(_mms([(hs[6], w["k9"])], fast, order) + w["b9"])
+    essence = _mms([(e1, w["k10"])], fast, order) + w["b10"]
+    return sigma, essence, _gpe(w, _u_chain(w, [h > 0 for h in hs], fast, order), fast, order)
 
 
 def fused_bwd_plain(w: dict, x, sbar, ebar, gbar, with_color: bool, fast: bool = False,
-                    in_order: bool = False, operands: dict | None = None):
+                    order: str = "torch", operands: dict | None = None):
     """(xbar (N, 87), gpe (N, 63) | None, kernel-layout gradients dict).
     fast: as `fused_fwd_plain`; the sums over the points that are no
     product in the JAX kernel (k8's first-order term, the biases, k8's
-    second-order term) stay unrounded. in_order (with fast): every
-    per-point sum (the chains, xbar, gpe) in the fast kernel's order, its
-    bits; the weight gradients' sums over the points in torch's. operands:
-    filled with the per-point operands that a product rounds, and the
-    activations whose signs are the ReLU masks (`order_flips`)."""
-    mm = lambda a, b: _mm(a, b, fast)                     # sums over the points
-    chain = lambda *pairs: _mms(pairs, fast, in_order)    # per-point sums
-    hs = _hidden(w, x, fast, in_order)
+    second-order term) stay unrounded. order: the order of every per-point
+    sum (the chains, xbar, gpe; `_mms`); the weight gradients' sums over the
+    points run in torch's order, or with "exact" in float64, each gradient
+    (both of its terms) rounded once. operands: filled with the per-point
+    operands that a product rounds, and the activations whose signs are
+    the ReLU masks (`order_flips`)."""
+    exact = order == "exact"
+    if exact:                                             # sums over the points, rounded at the end
+        mm = lambda a, b: _mms64([(a, b)], fast)
+        red = lambda t: t.double().sum(0)
+    else:
+        mm = lambda a, b: _mm(a, b, fast)
+        red = lambda t: t.sum(0)
+    chain = lambda *pairs: _mms(pairs, fast, order)       # per-point sums
+    hs = _hidden(w, x, fast, order)
     m = [h > 0 for h in hs]
     g = {}
-    g["k8"] = sbar @ hs[6]
-    g["b8"] = sbar.sum()[None]
+    g["k8"] = sbar.double() @ hs[6].double() if exact else sbar @ hs[6]
+    g["b8"] = red(sbar)[None]
     dh7 = sbar[:, None] * w["k8"]
     e1 = de1 = None
     if with_color:
         z9 = chain((hs[6], w["k9"])) + w["b9"]
         e1 = torch.relu(z9)
         de1 = chain((ebar, w["k10"].t())) * (z9 > 0)
-        g["k10"], g["b10"] = mm(e1.t(), ebar), ebar.sum(0)
-        g["k9"], g["b9"] = mm(hs[6].t(), de1), de1.sum(0)
-        if in_order:  # the kernel's epilogue: fmaf(sbar, k8, the sum)
+        g["k10"], g["b10"] = mm(e1.t(), ebar), red(ebar)
+        g["k9"], g["b9"] = mm(hs[6].t(), de1), red(de1)
+        if order == "in_order":  # an FMA epilogue: fmaf(sbar, k8, the sum)
             dh7 = _fma(sbar[:, None], w["k8"], chain((de1, w["k9"].t())))
+        elif exact:
+            dh7 = (sbar[:, None].double() * w["k8"].double() + _mms64([(de1, w["k9"].t())], fast)).float()
         else:
             dh7 = dh7 + m[6] * mm(de1, w["k9"].t())
     else:
@@ -342,18 +414,18 @@ def fused_bwd_plain(w: dict, x, sbar, ebar, gbar, with_color: bool, fast: bool =
         k = w["k5a"] if i == 5 else w[f"k{i}"]
         dzs[i - 2] = m[i - 2] * chain((dzs[i - 1], k.t()))
     for i in range(2, 8):
-        g[f"k5a" if i == 5 else f"k{i}"], g[f"b{i}"] = mm(hs[i - 2].t(), dzs[i - 1]), dzs[i - 1].sum(0)
+        g[f"k5a" if i == 5 else f"k{i}"], g[f"b{i}"] = mm(hs[i - 2].t(), dzs[i - 1]), red(dzs[i - 1])
     g["k5b"] = mm(x[:, :PE].t(), dzs[4])
-    g["k1"], g["b1"] = mm(x.t(), dzs[0]), dzs[0].sum(0)
+    g["k1"], g["b1"] = mm(x.t(), dzs[0]), red(dzs[0])
     k1t = w["k1"].t()
     xbar = torch.cat([chain((dzs[0], k1t[:, :PE]), (dzs[4], w["k5b"].t())), chain((dzs[0], k1t[:, PE:]))], dim=1)
     if operands is not None:
         operands.update(h=hs, dz=dzs, e1=[e1] if with_color else [], de1=[de1] if with_color else [])
     if not with_color:
-        return xbar, None, g
+        return xbar, None, {k: v.float() for k, v in g.items()} if exact else g
 
-    u = _u_chain(w, m, fast, in_order)
-    gpe = _gpe(w, u, fast, in_order)
+    u = _u_chain(w, m, fast, order)
+    gpe = _gpe(w, u, fast, order)
     g["k1"] = g["k1"] + torch.cat([mm(gbar.t(), u[0]), torch.zeros_like(g["k1"][PE:])])
     gbs = [m[0] * chain((gbar, w["k1"][:PE]))]           # gb1..gb7
     for i in range(2, 8):
@@ -363,26 +435,39 @@ def fused_bwd_plain(w: dict, x, sbar, ebar, gbar, with_color: bool, fast: bool =
             gbs.append(m[4] * chain((gbs[-1], w["k5a"]), (gbar, w["k5b"])))
         else:
             gbs.append(m[i - 1] * chain((gbs[-1], w[f"k{i}"])))
-    g["k8"] = g["k8"] + gbs[6].sum(0)
+    g["k8"] = g["k8"] + red(gbs[6])
     if operands is not None:
         operands.update(u=u, gb=gbs[:6])
-    return xbar, gpe, g
+    return xbar, gpe, {k: v.float() for k, v in g.items()} if exact else g
 
 
 def order_flips(w: dict, x, sbar, ebar, gbar, with_color: bool) -> torch.Tensor:
-    """(N,) the points where the bfloat16-fed plain version in the fast
-    kernels' order (`in_order`) and in torch's part: an operand of a
-    product that the two float32 orders of its sum round to different
-    bfloat16 values, or a ReLU mask taken the other way. Everywhere else
-    the two multiply the same operands and differ only by the float32
-    rounding of their sums."""
+    """(N,) the points where the bfloat16-fed plain version in the order
+    ``"in_order"`` and in torch's part: an operand of a product that the
+    two float32 orders of its sum round to different bfloat16 values, or a
+    ReLU mask taken the other way. Everywhere else the two multiply the
+    same operands and differ only by the float32 rounding of their sums."""
     ops = [{}, {}]
-    for in_order, got in zip((False, True), ops):
-        fused_bwd_plain(w, x, sbar, ebar, gbar, with_color, True, in_order, got)
+    for order, got in zip(("torch", "in_order"), ops):
+        fused_bwd_plain(w, x, sbar, ebar, gbar, with_color, True, order, got)
     out = torch.zeros((x.shape[0],), dtype=torch.bool, device=x.device)
     for key, ts in ops[0].items():
         for a, b in zip(ts, ops[1][key]):
             out |= (bf16_round(a) != bf16_round(b)).any(1) | ((a > 0) != (b > 0)).any(1)
+    return out
+
+
+def beyond_band(pairs, band: float) -> torch.Tensor:
+    """(N,) the points where any (got, want) of ``pairs`` (None entries
+    skipped) part by more than ``band`` of want's max-abs scale."""
+    out = None
+    for got, want in pairs:
+        if got is None:
+            continue
+        n = want.shape[0]
+        err = (got - want).abs().reshape(n, -1).amax(1)
+        far = err > band * (float(want.abs().max()) + 1e-30)
+        out = far if out is None else out | far
     return out
 
 
@@ -410,20 +495,152 @@ def kink_distances(w: dict, x: torch.Tensor, fast: bool = False) -> torch.Tensor
     return torch.stack(cols, dim=1)
 
 
-def bf16_tie_ulps(w: dict, x: torch.Tensor) -> torch.Tensor:
-    """(N,) per point, the least distance, in float32 ulps, of a rounded
-    operand of the bfloat16-fed forward (x and h1..h7) from a bfloat16
-    rounding tie (the float32 values halfway between two bfloat16 ones).
-    Where it is small, two float32 orders of the same sums can round the
-    operand to neighbouring bfloat16 values: the fast kernel and its plain
-    version then part at that point by one bfloat16 ulp of one operand,
-    far more than the float32 rounding of their sums."""
-    out = None
-    for t in [x] + _hidden(w, x, fast=True):
-        low = (t.contiguous().view(torch.int32) & 0xFFFF).to(torch.int64)
-        d = (low - 0x8000).abs().amin(1)
-        out = d if out is None else torch.minimum(out, d)
-    return out
+def record_rows(with_color: bool) -> dict:
+    """The rows of one tile's record of the fast backward
+    (`csrc/fused_mlp_tc.cuh::Rec`): where each operand starts, and ROWS."""
+    x, h = 0, 96
+    e1 = h + 7 * W
+    u = e1 + 128
+    dz = u + 7 * W if with_color else e1
+    de1 = dz + 7 * W
+    gbar = de1 + 128
+    gb = gbar + 96
+    return {"x": x, "h": h, "e1": e1, "u": u, "dz": dz, "de1": de1, "gbar": gbar, "gb": gb,
+            "rows": gb + 6 * W if with_color else dz + 7 * W}
+
+
+def record_wgrads(rows: torch.Tensor, n: int, with_color: bool) -> dict:
+    """The weight gradients that the fast backward's weight-gradient pass
+    computes (K1..K7, K5a, K5b and with color K9), as float64 sums over the
+    points of the products of the kernel's own bf16 operands (``rows``:
+    `fused_bwd(..., records=)`), rounded once to float32: the pass's
+    oracle, free of the rounding flips that part the kernel's operands from
+    a plain version's."""
+    r = record_rows(with_color)
+    t = rows.view(-1, r["rows"], TILE)
+
+    def op(row: int, k: int) -> torch.Tensor:
+        return t[:, row:row + k, :].permute(0, 2, 1).reshape(-1, k)[:n].double()
+
+    names = {2: "k2", 3: "k3", 4: "k4", 5: "k5a", 6: "k6", 7: "k7"}
+    g = {"k1": op(r["x"], IN).t() @ op(r["dz"], W),
+         "k5b": op(r["x"], PE).t() @ op(r["dz"] + 4 * W, W)}
+    for l, name in names.items():
+        g[name] = op(r["h"] + (l - 2) * W, W).t() @ op(r["dz"] + (l - 1) * W, W)
+    if with_color:
+        g["k1"] = g["k1"] + op(r["gbar"], IN).t() @ op(r["u"], W)
+        g["k5b"] = g["k5b"] + op(r["gbar"], PE).t() @ op(r["u"] + 4 * W, W)
+        for l, name in names.items():
+            g[name] = g[name] + op(r["gb"] + (l - 2) * W, W).t() @ op(r["u"] + (l - 1) * W, W)
+        g["k9"] = op(r["h"] + 6 * W, W).t() @ op(r["de1"], 128)
+    return {k: v.float() for k, v in g.items()}
+
+
+def _max_rel(got: dict, want: dict) -> tuple:
+    """(worst key, its max |got - want| over want's max-abs scale)."""
+    errs = {k: float((got[k].reshape(t.shape) - t).abs().max()) / (float(t.abs().max()) + 1e-30)
+            for k, t in want.items()}
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
+
+
+def check_fast_kernels(w: dict, x: torch.Tensor, cots: tuple, with_color: bool,
+                       alt_blocks: int = 7, fwd_band: float = 1e-5, bwd_band: float = 2e-5,
+                       ceiling: float = 0.05) -> dict:
+    """The fast kernels on the card against the oracle (``order="exact"``);
+    raises AssertionError with the report where they fail. A tensor core's
+    order and rounding of a sum have no plain counterpart, so:
+
+    - per point, the outputs (sigma, essence, gpe; xbar, gpe of the
+      backward) beyond ``fwd_band`` / ``bwd_band`` of scale from the oracle
+      (`beyond_band`: bfloat16 rounding flips and masks at kinks) are
+      counted: at most twice the larger count m of the two float32 plain
+      orders (torch's and "in_order"), plus three standard deviations of a
+      Poisson count of 2m (so that a batch of a hundred points, where m is
+      0 or 1, is not judged on one flip), and under ``ceiling`` of the
+      points, which a wrong fragment layout (every point moved) fails;
+    - with those points' cotangents zeroed, every weight gradient within
+      the larger of ``bwd_band`` and twice the plain orders' own error
+      against the oracle (a flip that no per-point output shows still
+      moves a gradient by ~1e-4 of its scale);
+    - the weight-gradient pass within ``bwd_band`` of `record_wgrads` on
+      the kernel's own operands;
+    - the forward's gpe equal to the backward's, two launches equal, and a
+      grid of ``alt_blocks`` blocks: the per-point outputs equal, and the
+      weight gradients held as above (the sums over the points run in
+      other shares, so their float32 roundings differ: a bias sum over
+      352,000 points with cancelling terms moves by ~2e-5 of its largest
+      entry, reported as ``alt_grid_grads_max_rel_diff``)."""
+    n = x.shape[0]
+    wflat, wb = flat_weights(w), fast_weights(w)
+    zero = lambda cs, keep: tuple(c * keep.reshape(-1, *([1] * (c.dim() - 1))) if c is not None
+                                  else None for c in cs)
+    f_ex = fused_fwd_plain(w, x, with_color, True, "exact")
+    b_ex = fused_bwd_plain(w, x, *cots, with_color, True, "exact")
+
+    def beyond(f, b):
+        return beyond_band(zip(f, f_ex), fwd_band) | beyond_band(zip(b[:2], b_ex[:2]), bwd_band)
+
+    got_f = fused_fwd(w, x, with_color, wflat, True, wb)
+    got_b = fused_bwd(w, x, *cots, with_color, wflat, True, wb)
+    far = {"kernel": beyond(got_f, got_b)}
+    for order in ("torch", "in_order"):
+        far[order] = beyond(fused_fwd_plain(w, x, with_color, True, order),
+                            fused_bwd_plain(w, x, *cots, with_color, True, order))
+    counts = {k: int(v.sum()) for k, v in far.items()}
+    m = max(counts["torch"], counts["in_order"])
+    allowed = int(2 * m + 3 * (2 * m + 1) ** 0.5)
+    v = {"points": n, "with_color": with_color,
+         "oracle_beyond_band_points": counts,
+         "oracle_beyond_band_share": {k: c / n for k, c in counts.items()},
+         "oracle_allowed_points": allowed}
+    fail = []
+    if counts["kernel"] > allowed or counts["kernel"] >= ceiling * n:
+        fail.append("per-point outputs")
+    keep = ~far["kernel"]
+    for tag, pairs in (("fwd", zip(got_f, f_ex)), ("bwd", zip(got_b[:2], b_ex[:2]))):
+        errs = [(float((a - b)[keep].abs().max()), float(b.abs().max()) + 1e-30)
+                for a, b in pairs if a is not None and bool(keep.any())]
+        v[f"{tag}_max_abs_err"] = max((e for e, _ in errs), default=0.0)
+        v[f"{tag}_max_rel_err"] = max((e / sc for e, sc in errs), default=0.0)
+    if with_color and not torch.equal(got_f[2], got_b[1]):
+        fail.append("the forward's gpe is not the backward's")
+    kept = zero(cots, keep)
+    gr_ex = fused_bwd_plain(w, x, *kept, with_color, True, "exact")[2]
+    v["plain_grads_max_rel_err"] = {
+        order: _max_rel(fused_bwd_plain(w, x, *kept, with_color, True, order)[2], gr_ex)[1]
+        for order in ("torch", "in_order")}
+    v["grads_allowed"] = max(bwd_band, 2 * max(v["plain_grads_max_rel_err"].values()))
+    grads = {}
+    for tag, blocks in (("", None), ("alt_grid_", alt_blocks)):
+        rec = {}
+        _, _, gr = fused_bwd(w, x, *kept, with_color, wflat, True, wb, blocks=blocks, records=rec)
+        grads[tag] = gr
+        v[f"{tag}grads_worst"], v[f"{tag}grads_max_rel_err"] = _max_rel(gr, gr_ex)
+        if v[f"{tag}grads_max_rel_err"] > v["grads_allowed"]:
+            fail.append(f"{tag}weight gradients")
+        _, v[f"{tag}wgrad_pass_max_rel_err"] = _max_rel(gr, record_wgrads(rec["rows"], n, with_color))
+        if v[f"{tag}wgrad_pass_max_rel_err"] > bwd_band:
+            fail.append(f"{tag}the weight-gradient pass on its own operands")
+    _, v["alt_grid_grads_max_rel_diff"] = _max_rel(grads["alt_grid_"], grads[""])
+    again_f = fused_fwd(w, x, with_color, wflat, True, wb)
+    again_b = fused_bwd(w, x, *cots, with_color, wflat, True, wb)
+    same = [torch.equal(a, b) for a, b in zip((*got_f, *got_b[:2]), (*again_f, *again_b[:2]))
+            if a is not None] + [torch.equal(got_b[2][k], again_b[2][k]) for k in got_b[2]]
+    v["two_launches_equal"] = all(same)
+    if not all(same):
+        fail.append("two launches")
+    alt_f = fused_fwd(w, x, with_color, wflat, True, wb, blocks=alt_blocks)
+    alt_b = fused_bwd(w, x, *cots, with_color, wflat, True, wb, blocks=alt_blocks)
+    v["alt_blocks"] = alt_blocks
+    v["alt_grid_points_equal"] = all(torch.equal(a, b) for a, b in zip(
+        (*got_f, *got_b[:2]), (*alt_f, *alt_b[:2])) if a is not None)
+    if not v["alt_grid_points_equal"]:
+        fail.append(f"the per-point outputs on a grid of {alt_blocks} blocks")
+    torch.cuda.synchronize()
+    if fail:
+        raise AssertionError(f"fast fused kernels against the oracle: {', '.join(fail)}: {v}")
+    return v
 
 
 # ---------------------------------------------------------------------------
@@ -438,6 +655,14 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> No
         raise ValueError(f"fused SpaceNet: {name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"fused SpaceNet: {name} must be contiguous")
+
+
+def _check_bf16(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"fused SpaceNet: {name} must be bfloat16, got {t.dtype}")
+    if t.device != device or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"fused SpaceNet: {name} must be a contiguous {shape} on {device}, "
+                         f"got {tuple(t.shape)} on {t.device}")
 
 
 def _blocks(kernel: CudaKernel, symbol: str, device: torch.device, with_color: bool) -> int:
@@ -455,11 +680,17 @@ def _scratch(blocks: int, per_block: int, device) -> torch.Tensor:
     return torch.empty((blocks * per_block,), dtype=F32, device=device)
 
 
+def _query(kernel: CudaKernel, symbol: str, with_color: bool) -> int:
+    return kernel.extra_function(symbol, [_I])(int(with_color))
+
+
 def fused_fwd(w: dict, x: torch.Tensor, with_color: bool, wflat: torch.Tensor | None = None,
-              fast: bool = False):
+              fast: bool = False, wb: torch.Tensor | None = None, blocks: int | None = None):
     """The forward kernel on CUDA tensors, its plain version on CPU tensors.
     w: `pack`'s dict; x: (N, 87). wflat: `flat_weights(w)` if already built.
-    fast: the bfloat16-fed variant."""
+    fast: the bfloat16-fed variant; wb: `fast_weights(w)` if already built.
+    blocks: the persistent grid's size (default: the blocks resident on the
+    card)."""
     if x.device.type == "cpu":
         return fused_fwd_plain(w, x, with_color, fast)
     if x.device.type != "cuda":
@@ -474,12 +705,19 @@ def fused_fwd(w: dict, x: torch.Tensor, with_color: bool, wflat: torch.Tensor | 
     if n == 0:
         return sigma, essence, gpe
     kernel = FWD_FAST_KERNEL if fast else FWD_KERNEL
-    blocks = _blocks(kernel, f"{kernel.name}_blocks", dev, with_color)
-    per_block = FWD_KERNEL.extra_function("fused_mlp_fwd_scratch", [_I])(int(with_color))
-    scratch = _scratch(blocks, per_block, dev)
+    blocks = _blocks(kernel, f"{kernel.name}_blocks", dev, with_color) if blocks is None else blocks
+    if fast:
+        wb = fast_weights(w) if wb is None else wb
+        _check_bf16("bf16 weights", wb, (WB_ELEMS,), dev)
+        per_block = _query(FWD_KERNEL, "fused_mlp_fwd_fast_scratch", with_color)
+        scratch = torch.empty((blocks * per_block,), dtype=torch.bfloat16, device=dev)
+        args = (x.data_ptr(), wflat.data_ptr(), wb.data_ptr())
+    else:
+        scratch = _scratch(blocks, _query(FWD_KERNEL, "fused_mlp_fwd_scratch", with_color), dev)
+        args = (x.data_ptr(), wflat.data_ptr())
     with torch.cuda.device(dev):
         kernel.launch(
-            x.data_ptr(), wflat.data_ptr(), sigma.data_ptr(),
+            *args, sigma.data_ptr(),
             essence.data_ptr() if with_color else None, gpe.data_ptr() if with_color else None,
             scratch.data_ptr(), n, int(with_color), blocks, stream_ptr(dev),
         )
@@ -487,10 +725,14 @@ def fused_fwd(w: dict, x: torch.Tensor, with_color: bool, wflat: torch.Tensor | 
 
 
 def fused_bwd(w: dict, x, sbar, ebar, gbar, with_color: bool,
-              wflat: torch.Tensor | None = None, fast: bool = False):
+              wflat: torch.Tensor | None = None, fast: bool = False,
+              wb: torch.Tensor | None = None, blocks: int | None = None,
+              records: dict | None = None):
     """The backward kernel on CUDA tensors, its plain version on CPU tensors.
     sbar (N,); ebar (N, 3) and gbar (N, 63) with color, else None. fast: the
-    bfloat16-fed variant."""
+    bfloat16-fed variant; wb and blocks as in `fused_fwd`. records (fast):
+    given a dict, its "rows" is set to the kernel's per-tile bf16 rows
+    (`record_wgrads` reads them)."""
     if x.device.type == "cpu":
         return fused_bwd_plain(w, x, sbar, ebar, gbar, with_color, fast)
     if x.device.type != "cuda":
@@ -505,28 +747,56 @@ def fused_bwd(w: dict, x, sbar, ebar, gbar, with_color: bool,
         _check("gbar", gbar, (n, PE), dev)
     xbar = torch.empty((n, IN), dtype=F32, device=dev)
     gpe = torch.empty((n, PE), dtype=F32, device=dev) if with_color else None
-    grads = torch.empty((G_FLOATS,), dtype=F32, device=dev)
     kernel = BWD_FAST_KERNEL if fast else BWD_KERNEL
-    blocks = _blocks(kernel, f"{kernel.name}_blocks", dev, with_color)
-    per_block = BWD_KERNEL.extra_function("fused_mlp_bwd_scratch", [_I])(int(with_color))
-    # every block accumulates into its own slice; a second kernel sums the
-    # slices in block order, so two runs give the same bits
-    partials = torch.zeros((blocks * G_FLOATS,), dtype=F32, device=dev)
-    scratch = _scratch(blocks, per_block, dev)
+    blocks = _blocks(kernel, f"{kernel.name}_blocks", dev, with_color) if blocks is None else blocks
+    cots = (sbar.data_ptr(), ebar.data_ptr() if with_color else None,
+            gbar.data_ptr() if with_color else None)
+    outs = (xbar.data_ptr(), gpe.data_ptr() if with_color else None)
+    if fast:
+        wb = fast_weights(w) if wb is None else wb
+        _check_bf16("bf16 weights", wb, (WB_ELEMS,), dev)
+        ntiles = -(-n // TILE)
+        # the weight-gradient pass: each gradient tile's sum over the points
+        # in `splits` shares, about as many blocks as the chain's grid
+        tiles = _query(BWD_KERNEL, "fused_mlp_bwd_fast_gemm_tiles", with_color)
+        splits = max(1, min(ntiles, -(-blocks // tiles)))
+        # every block sums into its own slice and every split into its own
+        # tile; the reduces add them in order, so two runs give the same bits
+        small = torch.zeros((blocks * _query(BWD_KERNEL, "fused_mlp_bwd_fast_small", with_color),),
+                            dtype=F32, device=dev)
+        part = torch.empty((splits * tiles * 128 * 128,), dtype=F32, device=dev)
+        rows = torch.empty((ntiles * _query(BWD_KERNEL, "fused_mlp_bwd_fast_record", with_color),),
+                           dtype=torch.bfloat16, device=dev)
+        grads = torch.zeros((G_FLOATS,), dtype=F32, device=dev)
+        if records is not None:
+            records["rows"] = rows
+        args = (x.data_ptr(), *cots, wflat.data_ptr(), wb.data_ptr(), *outs, small.data_ptr(),
+                part.data_ptr(), rows.data_ptr(), grads.data_ptr(), n, int(with_color), blocks,
+                splits)
+    else:
+        grads = torch.empty((G_FLOATS,), dtype=F32, device=dev)
+        # every block accumulates into its own slice; a second kernel sums the
+        # slices in block order, so two runs give the same bits
+        partials = torch.zeros((blocks * G_FLOATS,), dtype=F32, device=dev)
+        scratch = _scratch(blocks, _query(BWD_KERNEL, "fused_mlp_bwd_scratch", with_color), dev)
+        args = (x.data_ptr(), *cots, wflat.data_ptr(), *outs, partials.data_ptr(),
+                grads.data_ptr(), scratch.data_ptr(), n, int(with_color), blocks)
     with torch.cuda.device(dev):
-        kernel.launch(
-            x.data_ptr(), sbar.data_ptr(),
-            ebar.data_ptr() if with_color else None, gbar.data_ptr() if with_color else None,
-            wflat.data_ptr(), xbar.data_ptr(), gpe.data_ptr() if with_color else None,
-            partials.data_ptr(), grads.data_ptr(), scratch.data_ptr(), n, int(with_color),
-            blocks, stream_ptr(dev),
-        )
+        kernel.launch(*args, stream_ptr(dev))
     return xbar, gpe, split_grads(grads)
 
 
 # ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
+def _device_weights(w: dict, x: torch.Tensor, fast: bool) -> tuple:
+    """The kernels' weight buffers, built once per call on the card: the
+    float32 one, and the bfloat16 one for the fast kernels."""
+    if x.device.type != "cuda":
+        return None, None
+    return flat_weights(w), fast_weights(w) if fast else None
+
+
 def _zeros_if_none(t, shape, like):
     if t is None:
         return torch.zeros(shape, dtype=F32, device=like.device)
@@ -542,8 +812,8 @@ class _FusedSpaceNet(torch.autograd.Function):
     def forward(ctx, with_color: bool, fast: bool, pe, cp, *params):
         w = pack(params)
         x = build_x(pe, cp)
-        wflat = flat_weights(w) if x.device.type == "cuda" else None
-        sigma, essence, gpe = fused_fwd(w, x, with_color, wflat, fast)
+        wflat, wb = _device_weights(w, x, fast)
+        sigma, essence, gpe = fused_fwd(w, x, with_color, wflat, fast, wb)
         ctx.with_color, ctx.fast = with_color, fast
         ctx.save_for_backward(pe, cp, *params)
         if not with_color:
@@ -559,7 +829,7 @@ class _FusedSpaceNet(torch.autograd.Function):
         w = pack(params)
         x = build_x(pe, cp)
         n = x.shape[0]
-        wflat = flat_weights(w) if x.device.type == "cuda" else None
+        wflat, wb = _device_weights(w, x, fast=ctx.fast)
         sbar = _zeros_if_none(cots[0], (n,), x)
         ebar = gbar = nbar = dp = None
         if with_color:
@@ -567,7 +837,7 @@ class _FusedSpaceNet(torch.autograd.Function):
             nbar = _zeros_if_none(cots[2], (n, 3), x)
             dp = dp_table(pe.to(F32))
             gbar = gbar_from_nbar(nbar, dp).contiguous()
-        xbar, gpe, g = fused_bwd(w, x, sbar, ebar, gbar, with_color, wflat, ctx.fast)
+        xbar, gpe, g = fused_bwd(w, x, sbar, ebar, gbar, with_color, wflat, ctx.fast, wb)
         pe_bar = xbar[:, :PE]
         if with_color:
             pe_bar = pe_bar + pe_extra_from_nbar(gpe, nbar)

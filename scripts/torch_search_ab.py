@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""The port's search, GG and visit-plan kernels against another tree's, in
-turns, on one NVIDIA card.
+"""The port's search, GG, visit-plan and fused SpaceNet kernels against
+another tree's, in turns, on one NVIDIA card.
 
     git archive <commit> dual_space_nerf_tpu_torch/csrc | tar -x -C <dir>
     python3 scripts/torch_search_ab.py --other <dir>/dual_space_nerf_tpu_torch/csrc [--other ...]
-        [--sections searches,gg,plan,pruned]
+        [--sections searches,gg,plan,pruned,fused]
 
 Each other tree's `nearest_face.cu`, `listed_knn.cu`, `listed_knn_slim.cu`,
 `gg_near_far.cu`, `listed_plan.cu` and `pruned_knn.cu` are built beside this tree's
@@ -37,6 +37,17 @@ second search receives) the script:
    search's issue floor from the plain version's visits
    (`chip_smoke.pruned_floor`) and its time with the blocks taken longest
    visit list first and last.
+
+With ``--sections fused`` (not among the default sections) each other
+tree's `fused_mlp_fwd.cu` and `fused_mlp_bwd.cu` are built into a library of
+their own and their bfloat16-fed entry points (`fused_mlp_fwd_fast_launch`,
+`fused_mlp_bwd_fast_launch`, in the signature of the float32 launchers:
+the trees before the tensor-core design) are timed in turns with this
+tree's, wrapper and allocations included as each tree's wrapper makes them,
+at the training step's 352,000 density-only and 88,000 color points
+(random inputs, the trained fixture's weights); the outputs of each other
+tree are held to this tree's oracle (`fused_mlp.beyond_band`, under 5% of
+the points beyond the bands).
 
 Prints one JSON line per measurement, the card line, and writes all of it
 to ``--out``.
@@ -80,7 +91,7 @@ from dual_space_nerf_tpu_torch.ops import (  # noqa: E402
     nearest_face_plain,
     pruned_knn,
 )
-from dual_space_nerf_tpu_torch.ops import gg_cuda  # noqa: E402
+from dual_space_nerf_tpu_torch.ops import fused_mlp, gg_cuda, posenc  # noqa: E402
 from dual_space_nerf_tpu_torch.ops.cuda_build import CudaKernel, build_all, stream_ptr  # noqa: E402
 from dual_space_nerf_tpu_torch.ops.nearest_face import kernel_splits  # noqa: E402
 from dual_space_nerf_tpu_torch.renderer import RenderSettings  # noqa: E402
@@ -131,6 +142,89 @@ def other_kernels(csrc: str) -> dict:
 
 
 FLAGS = ("split", "ranked", "gg_rel", "bitonic")
+
+
+def other_fused(csrc: str) -> dict:
+    """Another tree's fused pair, its fast entry points in the float32
+    launchers' signature."""
+    inc = ("fused_mlp.cuh", "fused_mlp_tiled.cuh")
+    return {"fwd": CudaKernel("fused_mlp_fwd.cu", "fused_mlp_fwd_fast_launch", fused_mlp.FWD_KERNEL.argtypes,
+                              includes=inc, csrc=csrc),
+            "bwd": CudaKernel("fused_mlp_bwd.cu", "fused_mlp_bwd_fast_launch", fused_mlp.BWD_KERNEL.argtypes,
+                              includes=inc, csrc=csrc)}
+
+
+def other_fused_fns(k: dict, w, wflat, x, cots, with_color: bool) -> tuple:
+    """(forward, backward) through another tree's fast entry points, with
+    the allocations its wrapper made: float32 scratch per block, and for the
+    backward zeroed partials per block."""
+    dev, n = x.device, x.shape[0]
+    q = lambda kern, sym: kern.extra_function(sym, [_I])(int(with_color))
+    nbf = q(k["fwd"], "fused_mlp_fwd_fast_blocks")
+    nbb = q(k["bwd"], "fused_mlp_bwd_fast_blocks")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda t: t.data_ptr() if t is not None else None
+
+    def fwd():
+        sigma = torch.empty((n,), device=dev)
+        ess = torch.empty((n, 3), device=dev) if with_color else None
+        gpe = torch.empty((n, 63), device=dev) if with_color else None
+        scratch = torch.empty((nbf * q(k["fwd"], "fused_mlp_fwd_scratch"),), device=dev)
+        k["fwd"].launch(x.data_ptr(), wflat.data_ptr(), sigma.data_ptr(), ptr(ess), ptr(gpe),
+                        scratch.data_ptr(), n, int(with_color), nbf, stream)
+        return sigma, ess, gpe
+
+    def bwd():
+        xbar = torch.empty((n, 87), device=dev)
+        gpe = torch.empty((n, 63), device=dev) if with_color else None
+        grads = torch.empty((fused_mlp.G_FLOATS,), device=dev)
+        partials = torch.zeros((nbb * fused_mlp.G_FLOATS,), device=dev)
+        scratch = torch.empty((nbb * q(k["bwd"], "fused_mlp_bwd_scratch"),), device=dev)
+        k["bwd"].launch(x.data_ptr(), *(ptr(c) for c in cots), wflat.data_ptr(), xbar.data_ptr(),
+                        ptr(gpe), partials.data_ptr(), grads.data_ptr(), scratch.data_ptr(), n,
+                        int(with_color), nbb, stream)
+        return xbar, gpe
+
+    return fwd, bwd
+
+
+def fused_section(others: dict, rounds: int, report) -> None:
+    """The fast fused pair of this tree and of the other trees in turns,
+    per production step (352,000 density-only + 88,000 color points)."""
+    dev = torch.device("cuda")
+    model = cs.trained_model().to(dev)
+    w = {k: v.detach() for k, v in fused_mlp.pack(fused_mlp.nerf_params(model.nerf)).items()}
+    wflat, wb = fused_mlp.flat_weights(w), fused_mlp.fast_weights(w)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rnd = lambda *sh: torch.randn(*sh, device=dev, generator=gen)
+    kernels = {label: other_fused(o["csrc"]) for label, o in others.items()}
+    build_all([k for ks in kernels.values() for k in ks.values()])
+    step = {}
+    for n, with_color in ((352_000, False), (88_000, True)):
+        x = fused_mlp.build_x(posenc(0.3 * rnd(n, 3), 10), rnd(n, 24))
+        cots = (rnd(n), *((rnd(n, 3), rnd(n, 63)) if with_color else (None, None)))
+        fwd = {"this": lambda: fused_mlp.fused_fwd(w, x, with_color, wflat, True, wb)}
+        bwd = {"this": lambda: fused_mlp.fused_bwd(w, x, *cots, with_color, wflat, True, wb)}
+        want_f, want_b = fwd["this"](), bwd["this"]()
+        for label, ks in kernels.items():
+            f, b = other_fused_fns(ks, w, wflat, x, cots, with_color)
+            fwd[label], bwd[label] = f, b
+            share = float((fused_mlp.beyond_band(zip(f(), want_f), 1e-5)
+                           | fused_mlp.beyond_band(zip(b(), want_b[:2]), 2e-5)).float().mean())
+            if share >= 0.05:
+                raise AssertionError(f"fused {label}: {share:.3f} of the points beyond the bands")
+            report("fused", {"points": n, "with_color": with_color, "other": label,
+                             "beyond_band_share_against_this": share})
+        for tag, fns in (("fwd", fwd), ("bwd", bwd)):
+            row = {"points": n, "with_color": with_color, "kernel": f"fused_mlp_{tag}_fast",
+                   **{f"{k}_ms": v for k, v in cs.alternate_ms(fns, rounds).items()}}
+            report("fused", row)
+            for k in fns:
+                step.setdefault(tag, {}).setdefault(k, 0.0)
+                step[tag][k] += row[f"{k}_ms"][0]
+    for tag, per in step.items():
+        report("fused", {"production_step": f"fused_mlp_{tag}_fast", **{f"{k}_ms": v for k, v in per.items()},
+                         **{f"this_over_{k}": per["this"] / v for k, v in per.items() if k != "this"}})
 
 
 def other_gg(other, args, outs, gamma, rel=None):
@@ -227,7 +321,7 @@ def main() -> int:
                     help="another tree's dual_space_nerf_tpu_torch/csrc (repeatable)")
     ap.add_argument("--rounds", type=int, default=11)
     ap.add_argument("--sections", default="searches,gg,plan,pruned",
-                    help="comma-separated: searches, gg, plan, pruned")
+                    help="comma-separated: searches, gg, plan, pruned, fused")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "search_ab.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -240,20 +334,20 @@ def main() -> int:
         d = os.path.abspath(d)
         parts = d.rstrip("/").split("/")
         label = parts[-3] if parts[-1] == "csrc" and parts[-2] == "dual_space_nerf_tpu_torch" else parts[-2]
-        others[label] = other_kernels(d)
+        others[label] = other_kernels(d) | {"csrc": d}
     sections = set(args.sections.split(","))
     build_s = build_all([NEAREST_KERNEL, LISTED_KERNEL, LISTED_SLIM_KERNEL, LISTED_PLAN_KERNEL, GG_KERNEL, PRUNED_KERNEL,
-                         *(k for o in others.values() for n, k in o.items() if n not in FLAGS)])
+                         *(k for o in others.values() for n, k in o.items() if n not in FLAGS + ("csrc",))])
     results = {"card": card, "build_s": build_s, "rounds": args.rounds, "nearest_face": [],
                "listed": [], "listed_even": [], "listed_order": [], "splits": [], "gg": [], "plan": [],
-               "pruned": [], "pruned_order": [],
+               "pruned": [], "pruned_order": [], "fused": [],
                "ptxas": {}}
     for label, kernels in (("this", {"nearest_face": NEAREST_KERNEL, "listed_knn": LISTED_KERNEL,
                                      "listed_knn_slim": LISTED_SLIM_KERNEL, "gg_near_far": GG_KERNEL,
                                      "listed_plan": LISTED_PLAN_KERNEL, "pruned_knn": PRUNED_KERNEL}),
                         *others.items()):
         for name, k in kernels.items():
-            if name not in FLAGS:  # registers, spills and shared memory per entry
+            if name not in FLAGS + ("csrc",):  # registers, spills and shared memory per entry
                 results["ptxas"][f"{label} {name}"] = cs.ptxas_entries(k)
     print("ptxas: " + json.dumps(results["ptxas"]), flush=True)
 
@@ -264,7 +358,11 @@ def main() -> int:
     mine = {"split": True, "ranked": True, "gg_rel": False, "bitonic": False, "nearest_face": NEAREST_KERNEL,
             "listed_knn": LISTED_KERNEL, "listed_knn_slim": LISTED_SLIM_KERNEL, "gg_near_far": GG_KERNEL,
             "listed_plan": LISTED_PLAN_KERNEL}
-    x = inputs(dev)
+    if "fused" in sections:
+        fused_section(others, args.rounds, report)
+    if not sections - {"fused"}:
+        sections = set()
+    x = inputs(dev) if sections else None
     if "gg" in sections:
         gg_section(x, others, args.rounds, report)
     if "plan" in sections:

@@ -23,6 +23,8 @@ to a fraction of a bfloat16 ulp (2^-8) of each output's scale: band 1 ulp
 lighting and 1.6e-5 for the autograd normal).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +44,7 @@ from torch_port_common import MAX_FRAMES, jax_model_and_params, torch_model
 FWD_TOL, GRAD_TOL = 1e-5, 2e-5
 WGRAD_TOL = 1e-3      # the fast weight gradients (see the fast test)
 FLIP_POINTS = 15      # of N: points that a bfloat16 rounding flip may move
+ORACLE_CEILING = 0.05  # share of points beyond the bands against the fast oracle
 BF16_ULP = 2.0 ** -8
 BF16_BAND = 1         # bfloat16 ulps of scale: the bf16 networks against JAX's
 N = 300
@@ -96,7 +99,27 @@ def _per_point(got, want):
 def test_fast_fused_matches_jax_interpret(weights, which, with_color):
     """sigma / essence / normal and the gradient in every weight, in pe and
     in cp, against `fused_sigma_essence_normal(..., interpret=True,
-    fast=True)` (block 64, so 300 points are ragged).
+    fast=True)` (block 64, so 300 points are ragged): `_match_jax_fast`."""
+    _match_jax_fast(weights, which, with_color)
+
+
+@pytest.mark.parametrize("which", ["trained", "random"])
+@pytest.mark.parametrize("with_color", [True, False])
+def test_fast_oracle_matches_jax_interpret(weights, which, with_color, monkeypatch):
+    """The fast kernels' oracle, the plain versions with ``order="exact"``
+    (every sum in float64, rounded once to float32), through the same
+    autograd function against the same JAX pair, held as
+    `_match_jax_fast` holds the plain versions in torch's order: the oracle
+    rounds where both float32 orders round, so it agrees with the JAX
+    kernels as they do."""
+    for name in ("fused_fwd_plain", "fused_bwd_plain"):
+        monkeypatch.setattr(fm, name, functools.partial(getattr(fm, name), order="exact"))
+    _match_jax_fast(weights, which, with_color)
+
+
+def _match_jax_fast(weights, which, with_color):
+    """The fast autograd function (on the CPU: its plain versions) against
+    the JAX package's fast pair in interpret mode.
 
     Where the two float32 orders of a sum round an operand to neighbouring
     bfloat16 values, that point's later operands move by a bfloat16 ulp: a
@@ -210,9 +233,8 @@ def test_fma_rounds_once():
 @pytest.mark.parametrize("which", ["trained", "random"])
 @pytest.mark.parametrize("with_color", [True, False])
 def test_in_order_plain_parts_from_plain_only_at_order_flips(weights, which, with_color):
-    """The fast plain versions in the kernels' order (`in_order`, which the
-    card's fast kernels equal bit for bit) against the same in torch's
-    order: apart from the points that `order_flips` names (an operand
+    """The fast plain versions in the order of an FMA chain (`in_order`)
+    against the same in torch's order: apart from the points that `order_flips` names (an operand
     rounded to another bfloat16 value, or a mask taken the other way; at
     most FLIP_POINTS of the 300), forward within FWD_TOL and xbar / gpe
     within GRAD_TOL, and with those points' cotangents zeroed every weight
@@ -229,21 +251,99 @@ def test_in_order_plain_parts_from_plain_only_at_order_flips(weights, which, wit
     flips = fm.order_flips(w, x, sbar, ebar, gbar, with_color)
     assert int(flips.sum()) <= FLIP_POINTS
     keep = (~flips).numpy()
-    ordered = fm.fused_fwd_plain(w, x, with_color, True, in_order=True)
+    ordered = fm.fused_fwd_plain(w, x, with_color, True, order="in_order")
     for name, a, b in zip(("sigma", "essence", "gpe"), fm.fused_fwd_plain(w, x, with_color, True), ordered):
         if b is not None:
             _close(a.numpy()[keep], b.numpy()[keep], FWD_TOL, name)
     zero = lambda c: c * torch.from_numpy(keep).reshape(-1, *([1] * (c.dim() - 1))) if c is not None else None
     cots = (zero(sbar), zero(ebar), zero(gbar))
     xb, gp, gr = fm.fused_bwd_plain(w, x, *cots, with_color, True)
-    xb_o, gp_o, gr_o = fm.fused_bwd_plain(w, x, *cots, with_color, True, in_order=True)
+    xb_o, gp_o, gr_o = fm.fused_bwd_plain(w, x, *cots, with_color, True, order="in_order")
     _close(xb.numpy()[keep], xb_o.numpy()[keep], GRAD_TOL, "xbar")
     if with_color:
         _close(gp.numpy()[keep], gp_o.numpy()[keep], GRAD_TOL, "gpe")
     for k, t in gr_o.items():
         _close(gr[k].numpy(), t.numpy(), GRAD_TOL, k)
     with pytest.raises(ValueError):
-        fm.fused_fwd_plain(w, x, with_color, False, in_order=True)
+        fm.fused_fwd_plain(w, x, with_color, False, order="in_order")
+
+
+@pytest.mark.parametrize("with_color", [True, False])
+def test_fast_plain_orders_against_oracle(weights, with_color):
+    """The two float32 orders of the fast plain versions, torch's and
+    ``in_order``, against the oracle (``order="exact"``) on the trained
+    fixture: the points where a per-point output parts from the oracle by
+    more than the float32 pair's bands (forward 1e-5, backward 2e-5 of
+    scale; `beyond_band`) are bfloat16 rounding flips, under ORACLE_CEILING
+    of the points, the share above which the card's check calls a fast
+    kernel wrong. With those points' cotangents zeroed the weight
+    gradients agree within WGRAD_TOL: a flip that no per-point output
+    shows (a gb operand, a mask at a kink) still moves a gradient by
+    ~1e-4 of its scale (measured 3.0e-4 at these 300 points, 1e-4-1e-3 at
+    3,000-12,000), so the card's check holds a kernel's gradients to
+    twice the plain orders' own error, not to 2e-5."""
+    _, tm = weights["trained"]
+    w = {k: v.detach() for k, v in fm.pack(fm.nerf_params(tm.nerf)).items()}
+    pe_np, cp = _inputs(N)
+    x = fm.build_x(torch.from_numpy(pe_np), torch.from_numpy(cp))
+    g = torch.Generator().manual_seed(13)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float32)
+    cots = (rnd(N), *((rnd(N, 3), rnd(N, fm.PE)) if with_color else (None, None)))
+    f_ex = fm.fused_fwd_plain(w, x, with_color, True, order="exact")
+    b_ex = fm.fused_bwd_plain(w, x, *cots, with_color, True, order="exact")
+    for order in ("torch", "in_order"):
+        f = fm.fused_fwd_plain(w, x, with_color, True, order=order)
+        b = fm.fused_bwd_plain(w, x, *cots, with_color, True, order=order)
+        far = fm.beyond_band(zip(f, f_ex), FWD_TOL) | fm.beyond_band(zip(b[:2], b_ex[:2]), GRAD_TOL)
+        assert float(far.float().mean()) < ORACLE_CEILING, (order, int(far.sum()))
+        keep = ~far
+        zero = lambda c: c * keep.reshape(-1, *([1] * (c.dim() - 1))) if c is not None else None
+        kept = tuple(zero(c) for c in cots)
+        _, _, gr = fm.fused_bwd_plain(w, x, *kept, with_color, True, order=order)
+        _, _, gr_ex = fm.fused_bwd_plain(w, x, *kept, with_color, True, order="exact")
+        for k, t in gr_ex.items():
+            _close(gr[k].numpy(), t.numpy(), WGRAD_TOL, f"{order} {k}")
+
+
+def test_oracle_rounds_each_sum_once():
+    """``order="exact"`` sums in float64 and rounds once: on a planted sum
+    whose float32 partial sums lose every small term (1 + 2^-25 rounds to 1
+    in float32, 2^12 times over) it returns the exact total 1 + 2^-13,
+    where the FMA chain (``in_order``) stays at 1; on small exact sums
+    every order agrees."""
+    n = 1 << 12
+    a = torch.ones((1, n + 1))
+    b = torch.full((n + 1, 1), 2.0 ** -25)
+    b[0, 0] = 1.0
+    assert float(fm._mms([(a, b)], True, "exact")) == 1.0 + 2.0 ** -13
+    assert float(fm._mms([(a, b)], True, "in_order")) == 1.0
+    small = torch.tensor([[1.0, 2.0], [0.5, -1.0]])
+    for order in fm.ORDERS:
+        assert torch.equal(fm._mms([(small, small)], True, order), small @ small)
+
+
+def test_fast_weights_are_the_rounded_layout():
+    """The fast kernels' bfloat16 weight buffer (`fast_weights`): every
+    entry of every matrix equals `bf16_round` of its entry in the float32
+    layout (`flat_weights`), and every pad is zero."""
+    tm = torch_model()
+    w = {k: v.detach() for k, v in fm.pack(fm.nerf_params(tm.nerf)).items()}
+    wb = fm.fast_weights(w)
+    assert wb.dtype == torch.bfloat16 and wb.shape == (fm.WB_ELEMS,)
+    flat, offs, o = fm.flat_weights(w), {}, 0
+    for name, shape in fm._W_LAYOUT:
+        offs[name] = (o, shape)
+        o += fm._numel(shape)
+    o = 0
+    for name, shape in fm._WB_LAYOUT:
+        got = wb[o:o + fm._numel(shape)].view(shape).float()
+        o += fm._numel(shape)
+        src_o, src_shape = offs[name]
+        want = fm.bf16_round(flat[src_o:src_o + fm._numel(src_shape)].view(src_shape))
+        r, c = src_shape
+        assert torch.equal(got[:r, :c], want), name
+        assert not got[r:].any() and not got[:, c:].any(), name
+    assert o == fm.WB_ELEMS
 
 
 # ---------------------------------------------------------------------------
