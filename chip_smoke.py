@@ -32,7 +32,12 @@ Phases (any failure exits non-zero, before the last line is printed):
    is held and timed on three inputs: the chunk's blocked world points,
    the canonical points of the same chunk (what the exact path's second
    search receives) and the random cloud; the sweep times its block sizes
-   in turns;
+   in turns. The torch-op searches of `KNN_IMPL` "grouped" (sub-groups of
+   4 samples of a ray), "clustered" and "xla" are held to the brute-force
+   kernel on the chunk's 524,288 world points (`check_searches`: ids equal
+   within SEARCH_NEAR of the mesh but at float32 near-ties, far misses
+   below SEARCH_MISS_MAX; "xla" to ties of its own expanded form) and
+   timed beside it;
 4. renders the full 512x512 val image of the synthetic SMPL-sized scene with
    the trained fixture through `ImageRenderer.render_item` (the port's eval
    entry point) on three paths: (a) exact full shading with the brute-force
@@ -44,13 +49,17 @@ Phases (any failure exits non-zero, before the last line is printed):
    (the bfloat16-fed fused forward, two a chunk; held to (b) at PSNR >=
    FAST_PSNR_MIN), (e) the exact path with `FUSED_MLP: "on"` and
    `FINE_RAY_SAMPLING: 64` (the searches and the fused forward again on 64
-   + 64 samples; its fine_* images finite). Each: launch counts per image,
+   + 64 samples; its fine_* images finite), (f) the exact path with
+   `KNN_IMPL: "grouped"` (held to (a) as (c) is), then the production image
+   once more through the f16 pack (`DSNERF_EVAL_PACK`'s default; held to
+   (b), copied as float32, at F16_PSNR_MIN). Each: launch counts per image,
    s_per_image, rays/s, PSNR;
 5. renders the golden rays (`tests/fixtures/torch_port_render_golden.npz`,
    the JAX package's CPU render) on the card and holds them to its bands:
    every leg with its config's search, then the exact legs again with
    `KNN_IMPL: "pruned"` and with `"listed"` under `DSNERF_KNN_SLIM=1`, so
-   that every kernel is launched on a render path;
+   that every kernel is launched on a render path, and every leg with
+   "grouped", "clustered" and "xla";
 6. holds the fused SpaceNet kernels (forward and backward, density-only and
    with color) against their plain versions at the training step's shapes
    (352,000 and 88,000 canonical points of the train batch, and a ragged
@@ -75,11 +84,21 @@ Phases (any failure exits non-zero, before the last line is printed):
    5e-4) on four paths, production or exact with `FUSED_MLP` on or off, and
    three more: (e) production fused with `FUSED_FAST`, (f) production
    unfused with `MATMUL_PRECISION: "bf16"`, (g) exact fused with
-   `FINE_RAY_SAMPLING: 64`; from the same weights and the same draws: launch
-   counts per step, s_per_step, rays/s, peak memory; every loss finite, the
-   fused and unfused gradients of the first step held to each other, (e)'s
-   to the fused path's within FAST_STEP_GRAD_TOL and (f)'s to the unfused
-   path's within BF16_STEP_GRAD_TOL;
+   `FINE_RAY_SAMPLING: 64`, (h) exact fused with `KNN_IMPL: "grouped"`;
+   from the same weights and the same draws: launch counts per step,
+   s_per_step, rays/s, peak memory; every loss finite, the fused and
+   unfused gradients of the first step held to each other, (e)'s to the
+   fused path's within FAST_STEP_GRAD_TOL, (f)'s to the unfused path's
+   within BF16_STEP_GRAD_TOL and (h)'s to the exact fused path's within
+   GROUPED_STEP_GRAD_TOL; then LPIPS (`lpips_phase`: alex and vgg on seeded
+   random weights in the converted npz layout, the production image
+   against the val item's ground truth, the card's score held to the CPU's
+   within LPIPS_REL, ms per image) and data parallelism
+   (`data_parallel_phase`: the production fused step through a one-rank
+   NCCL group and as two gloo processes on the card, 2 x 2750 rays, each
+   held to the one-process step within DP_TOL; the production image with
+   every chunk split over two replicas on the card, held to (b) within the
+   golden bands; s_per_step and s_per_image of each);
 8. drives the user's CLIs in a temporary directory (`cli_phase`): a config
    file that the port's own reader parses (the synthetic scene at 512x512,
    2 frames x 2 views; `313_tpu.yml`'s model block with `KNN_IMPL:
@@ -114,8 +133,8 @@ Phases (any failure exits non-zero, before the last line is printed):
 then extracts a mesh (`mesh_phase`): `Visualizer3D` on the trained fixture
    and the val item at resolution 128 (2,097,152 grid points through the warp
    and `density_grid`), the density volume and the marching tetrahedra timed
-   apart, `extract_mesh` to an .obj and `render_turntable` to two PNGs, the
-   `mesh:` line;
+   apart, `extract_mesh` to an .obj and `render_turntable` to one PNG (a
+   view is ~20 s of host work), the `mesh:` line;
 10. profiles one render chunk of each path of phase 4 and one step of each
    path of phase 7 (`profile_device`: the profiler warmed up by one call,
    and every port kernel the profiled call launched looked up in its
@@ -163,6 +182,12 @@ from dual_space_nerf_tpu_torch.data import (
     select_dataset,
 )
 from dual_space_nerf_tpu_torch.evaluation import ImageRenderer, psnr
+from dual_space_nerf_tpu_torch.evaluation.lpips import (
+    load_lpips_params,
+    lpips_distance,
+    make_lpips_npz,
+    random_lpips_params,
+)
 from dual_space_nerf_tpu_torch.evaluation.golden import (
     GOLDEN_NPZ,
     check_golden,
@@ -192,14 +217,23 @@ from dual_space_nerf_tpu_torch.ops import (
     gg_near_far_cuda,
     gg_near_far_plain,
     listed_tables,
+    nearest_face_clustered,
     nearest_face_cuda,
+    nearest_face_grouped,
     nearest_face_plain,
+    nearest_face_xla,
     pruned_search_listed,
     pruned_search_presorted,
 )
 from dual_space_nerf_tpu_torch.ops import fused_mlp, gg_cuda, posenc, pruned_knn
 from dual_space_nerf_tpu_torch.ops.cuda_build import build_all
 from dual_space_nerf_tpu_torch.ops.nearest_face import kernel_splits
+from dual_space_nerf_tpu_torch.parallel import (
+    global_ray_group,
+    maybe_initialize_distributed,
+    spawn_ranks,
+)
+from dual_space_nerf_tpu_torch.parallel.distributed import free_port
 from dual_space_nerf_tpu_torch.renderer import (
     LightState,
     RenderSettings,
@@ -278,6 +312,22 @@ FAST_PSNR_MIN = 55.0
 # (measured 0.104, the lighting MLP's first bias): ~3x the measured
 FAST_STEP_GRAD_TOL = 0.25
 BF16_STEP_GRAD_TOL = 0.3
+# the cluster-pruned searches against the brute-force kernel: ids equal on
+# points nearer than SEARCH_NEAR to the mesh (the transparent mask drops the
+# others) but at float32 near-ties; elsewhere at most SEARCH_MISS_MAX of the
+# points on another face that is no near-tie
+SEARCH_NEAR, SEARCH_MISS_MAX = 0.12, 0.01
+# the production image through the f16 pack against the f32 copy (box
+# PSNR): float16 rounding of [0, 1] colors is ~2.4e-4 at most (~72 dB)
+F16_PSNR_MIN = 60.0
+# the first step's gradients, exact fused with "grouped" against brute
+# force, per tensor over the brute-force path's largest entry: faces part
+# only at near-ties and on far points that the transparent mask drops
+GROUPED_STEP_GRAD_TOL = 1e-2
+# data parallel: every gradient within this share of its tensor's largest
+# entry, the loss within it relative, against the one-process step
+DP_TOL = 1e-5
+LPIPS_REL = 1e-5           # LPIPS on the card against the CPU, relative
 MESH_RESOLUTION = 128      # the mesh phase's grid: 2,097,152 points
 FWD_TOL, BWD_TOL = 1e-5, 2e-5  # the CPU tests' bands against the JAX package
 KINK = 1e-6                # see fused_mlp.kink_distances
@@ -889,17 +939,19 @@ def launches_now() -> dict:
 
 
 def render_path(label, cfg, model, ds, item, rays0, mesh, expect: dict, n_timed: int,
-                reference=None) -> tuple:
+                reference=None, pack: str = "f32") -> tuple:
     """Render the full image on one path through `ImageRenderer.render_item`:
     a warm-up, the counted run (launch counts asserted against ``expect``),
-    timed runs, finiteness, PSNR. Returns (the images, the launch counts, a
-    function that profiles one chunk of this path). A profiler session
-    leaves the host's later launches slower, so the profiles run after
-    every timed run of the script."""
+    timed runs, finiteness, PSNR. ``pack``: the device-to-host copy's
+    precision (float32 unless asked: the image checks compare floats).
+    Returns (the images, the launch counts, a function that profiles one
+    chunk of this path, the report). A profiler session leaves the host's
+    later launches slower, so the profiles run after every timed run of
+    the script."""
     dev = torch.device("cuda")
     settings = RenderSettings.from_cfg(cfg)
     renderer = ImageRenderer(model, settings, ds.faces, ds.canonical_vertex,
-                             chunk=cfg.TEST.RAY_CHUNK, device=dev)
+                             chunk=cfg.TEST.RAY_CHUNK, device=dev, pack=pack)
     renderer.render_item(item)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -922,7 +974,7 @@ def render_path(label, cfg, model, ds, item, rays0, mesh, expect: dict, n_timed:
     mask = np.asarray(item["mask_at_box"]).reshape(H, W)
     s_img = statistics.median(times)
     render = {
-        "path": label, "rays": n_rays, "chunks": -(-n_rays // cfg.TEST.RAY_CHUNK),
+        "path": label, "pack": pack, "rays": n_rays, "chunks": -(-n_rays // cfg.TEST.RAY_CHUNK),
         "launches_per_image": launches,
         "s_per_image": s_img, "s_per_image_runs": times, "rays_per_s": n_rays / s_img,
         "psnr_box": psnr(out["coarse_color"], item["img"], mask),
@@ -944,7 +996,7 @@ def render_path(label, cfg, model, ds, item, rays0, mesh, expect: dict, n_timed:
             prof["device_busy_share_est"] = prof["device_ms"] * render["chunks"] / (s_img * 1e3)
         log(f"profile_chunk {label}: " + json.dumps(prof))
 
-    return out, launches, profile_later
+    return out, launches, profile_later, render
 
 
 # ---- the fused SpaceNet kernels -------------------------------------------
@@ -1477,13 +1529,212 @@ def golden_leg(label, golden, model, expect: dict, **kwargs) -> dict:
     return launches
 
 
+# ---- the cluster-pruned and expanded-form searches --------------------------
+def check_searches(pts_rs, cents, mesh) -> dict:
+    """`KNN_IMPL` "grouped" (the chunk's ray-major points in sub-groups of
+    4 consecutive samples, as the renderer forms them), "clustered" and
+    "xla" against the brute-force kernel on the render chunk's world
+    points: ids equal on every point nearer than SEARCH_NEAR to its face
+    but at float32 near-ties, elsewhere at most SEARCH_MISS_MAX of the
+    points on a face that is no near-tie; "xla" only to near-ties of its
+    own expanded form (8 float32 ulps of |p|^2 + |c|^2). Each timed (CUDA
+    events, median) beside the kernel. Torch ops, not kernels of the port:
+    they stay out of the `kernels` line."""
+    pts = pts_rs.reshape(-1, 3).contiguous()
+    table = mesh.cluster_table
+    brute = nearest_face_cuda(pts, cents)
+    p64, c64 = pts.double(), cents.double()
+    d_brute = ((p64 - c64[brute.long()]) ** 2).sum(-1)
+    near = d_brute.sqrt() < SEARCH_NEAR
+    runs = {
+        "grouped": lambda: nearest_face_grouped(pts_rs.reshape(-1, 4, 3), cents, table).reshape(-1),
+        "clustered": lambda: nearest_face_clustered(pts, cents, table),
+        "xla": lambda: nearest_face_xla(pts, cents),
+    }
+    report = {"points": pts.shape[0], "near_points": int(near.sum()),
+              "brute_force_kernel_ms": time_ms(lambda: nearest_face_cuda(pts, cents), reps=10)}
+    eps32 = float(torch.finfo(torch.float32).eps)
+    for name, fn in runs.items():
+        ids = fn()
+        off = ids != brute
+        d_got = ((p64 - c64[ids.long()]) ** 2).sum(-1)
+        gap = (d_got - d_brute).abs()
+        tie = gap <= 1e-6 * torch.minimum(d_got, d_brute)
+        row = {"differ": int(off.sum()), "near_tie": int((off & tie).sum())}
+        if name == "xla":
+            scale = (p64 * p64).sum(-1) + torch.maximum((c64[ids.long()] ** 2).sum(-1),
+                                                       (c64[brute.long()] ** 2).sum(-1))
+            row["beyond_own_ties"] = int((off & (gap > 8 * eps32 * scale)).sum())
+            ok = row["beyond_own_ties"] == 0
+        else:
+            row["near_misses"] = int((off & near & ~tie).sum())
+            row["far_miss_share"] = float((off & ~near & ~tie).sum()) / max(1, int((~near).sum()))
+            ok = row["near_misses"] == 0 and row["far_miss_share"] <= SEARCH_MISS_MAX
+        row["ms"] = time_ms(fn, reps=5)
+        report[name] = row
+        if not ok:
+            log("searches: " + json.dumps(report))
+            raise AssertionError(f"search {name}: ids depart from the brute-force kernel: {row}")
+    log("searches: " + json.dumps(report))
+    return report
+
+
+# ---- LPIPS -------------------------------------------------------------------
+def lpips_phase(image: np.ndarray, gt: np.ndarray, card: str, dev=torch.device("cuda")) -> dict:
+    """LPIPS alex and vgg (seeded random weights in the converted npz
+    layout: no pretrained weights are in the repo) of ``image`` against
+    ``gt`` ([0, 1] BGR, 512x512) on the card, held to the same function on
+    the CPU within LPIPS_REL; ms per image pair on the card (events,
+    median; the images already on the card)."""
+    out = {"card": card, "image": list(image.shape)}
+    with tempfile.TemporaryDirectory() as d:
+        for net in ("alex", "vgg"):
+            path = os.path.join(d, f"lpips_{net}.npz")
+            np.savez(path, **random_lpips_params(net, np.random.default_rng(77)),
+                     **{"meta/net": np.array(net)})
+            got = make_lpips_npz(net, path, device=dev)(image, gt)
+            want = make_lpips_npz(net, path, device="cpu")(image, gt)
+            rel = abs(got - want) / abs(want)
+            params, _ = load_lpips_params(path, dev)
+            x0, x1 = (torch.as_tensor(np.ascontiguousarray(2.0 * x[..., ::-1] - 1.0, np.float32), device=dev)
+                      for x in (image, gt))
+            out[net] = {"card": got, "cpu": want, "rel": rel,
+                        "ms": time_ms(lambda: lpips_distance(params, x0, x1, net), reps=5)}
+            if not rel <= LPIPS_REL:
+                raise AssertionError(f"lpips {net}: card {got} against CPU {want} ({rel:.2e} relative)")
+    log("lpips: " + json.dumps(out))
+    return out
+
+
+# ---- data parallel -------------------------------------------------------------
+def dp_rank(rank: int, inputs: str, out_dir: str) -> None:
+    """A rank of the two-process phase (spawned; gloo on CUDA tensors, both
+    ranks on the one card): the production fused step on its share of the
+    inputs' global batch and draws, then N_TIMED_STEPS timed steps; saves
+    its first step's loss and gradients and s_per_step."""
+    d = torch.load(inputs, weights_only=False)
+    dev = d["device"]
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if not maybe_initialize_distributed("gloo"):
+        raise AssertionError("dp_rank: no process group")
+    try:
+        cfg = train_cfg(production=True, fused=True)
+        model = trained_model(cfg.MODEL.MAX_FRAMES).to(dev)
+        state = create_train_state(model, cfg)
+        step = make_train_step(RenderSettings.from_cfg(cfg), device=dev, group=global_ray_group())
+        m = step(state, d["batch"], d["mesh"], d["draws"][0])
+        first = {"loss": float(m["loss"]),
+                 "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()}}
+        times = []
+        for i in range(N_TIMED_STEPS):
+            t0 = time.perf_counter()
+            float(step(state, d["batch"], d["mesh"], d["draws"][1 + i])["loss"])
+            times.append(time.perf_counter() - t0)
+        torch.save({**first, "s_per_step": statistics.median(times), "s_per_step_runs": times},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _held(label: str, loss: float, grads: dict, want_loss: float, want: dict, tol: float) -> dict:
+    """Loss relative gap and the worst gradient gap over its tensor's
+    largest entry against the one-process step; fails beyond ``tol``."""
+    ratios = {n: float((grads[n].to(w.device) - w).abs().max()) / (float(w.abs().max()) + 1e-30)
+              for n, w in want.items()}
+    worst = max(ratios, key=ratios.get)
+    row = {"loss_rel": abs(loss - want_loss) / abs(want_loss), "worst_tensor": worst,
+           "worst_ratio": ratios[worst],
+           "bitwise_equal": all(torch.equal(grads[n].to(w.device), w) for n, w in want.items())}
+    if not (row["loss_rel"] <= tol and row["worst_ratio"] <= tol):
+        raise AssertionError(f"data parallel {label}: departs from the one-process step: {row}")
+    return row
+
+
+def data_parallel_phase(batch, mesh, ds, item, out_prod, card, dev=torch.device("cuda", 0)) -> dict:
+    """The data-parallel paths on the one card: (1) the production fused
+    step through a one-rank NCCL group (the rank's share is the whole
+    batch; the flat all-reduce runs), (2) two processes on the card with
+    gloo, each on 2750 of the 5500 rays, (3) `ImageRenderer(devices=
+    [cuda:0, cuda:0])` (every chunk split in halves) on the production
+    image. (1) and (2) are held to the one-process step from the same
+    weights and draws within DP_TOL, (3) to the production image (b) within
+    the golden bands. s_per_step of each step, s_per_image of (3)."""
+    import torch.distributed as dist
+
+    cfg = train_cfg(production=True, fused=True)
+    settings = RenderSettings.from_cfg(cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    draws = [draw_randoms(TRAIN_RAYS, settings.n_samples, gen, dev) for _ in range(N_TIMED_STEPS + 1)]
+
+    def run(step) -> tuple:
+        model = trained_model(cfg.MODEL.MAX_FRAMES).to(dev)
+        state = create_train_state(model, cfg)
+        m = step(state, batch, mesh, draws[0])
+        loss = float(m["loss"])
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        times = []
+        for i in range(N_TIMED_STEPS):
+            t0 = time.perf_counter()
+            float(step(state, batch, mesh, draws[1 + i])["loss"])
+            times.append(time.perf_counter() - t0)
+        return loss, grads, statistics.median(times)
+
+    report = {"card": card, "rays": TRAIN_RAYS}
+    loss1, grads1, s1 = run(make_train_step(settings, device=dev))
+    report["one_process"] = {"s_per_step": s1}
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    try:
+        loss_g, grads_g, s_g = run(make_train_step(settings, device=dev, group=dist.group.WORLD))
+    finally:
+        dist.destroy_process_group()
+    report["nccl_one_rank"] = {"s_per_step": s_g, **_held("nccl", loss_g, grads_g, loss1, grads1, DP_TOL)}
+    with tempfile.TemporaryDirectory() as d:
+        inputs = os.path.join(d, "inputs.pt")
+        torch.save({"batch": batch, "mesh": mesh, "draws": draws, "device": dev}, inputs)
+        t0 = time.perf_counter()
+        spawn_ranks(dp_rank, 2, args=(inputs, d), timeout=600)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    for n in grads1:
+        if not torch.equal(ranks[0]["grads"][n], ranks[1]["grads"][n]):
+            raise AssertionError(f"data parallel gloo: the ranks' gradients of {n} differ")
+    report["gloo_two_processes"] = {
+        "rays_per_rank": TRAIN_RAYS // 2, "s_per_step": [r["s_per_step"] for r in ranks],
+        "s_per_step_runs": [r["s_per_step_runs"] for r in ranks], "spawn_wall_s": wall,
+        **_held("gloo", ranks[0]["loss"], ranks[0]["grads"], loss1, grads1, DP_TOL)}
+    # (3) the production image with every chunk split over two replicas
+    model = trained_model(cfg.MODEL.MAX_FRAMES).eval()
+    renderer = ImageRenderer(model, RenderSettings.from_cfg(production_cfg()), ds.faces,
+                             ds.canonical_vertex, chunk=production_cfg().TEST.RAY_CHUNK,
+                             devices=[dev, dev], pack="f32")
+    renderer.render_item(item)  # warm-up; render_item ends in its host copy
+    t0 = time.perf_counter()
+    out = renderer.render_item(item)
+    times = [time.perf_counter() - t0]
+    box = np.asarray(item["mask_at_box"]).reshape(-1)
+    errs = {}
+    for key, band in (("color", 5e-4), ("acc", 1e-4), ("depth", 1e-4)):
+        a = out[f"coarse_{key}"].reshape(-1, 3 if key == "color" else 1)[box]
+        b = out_prod[f"coarse_{key}"].reshape(-1, 3 if key == "color" else 1)[box]
+        err = np.abs(a - b).max(1) / (np.maximum(1.0, np.abs(b).max(1)) if key == "depth" else 1.0)
+        errs[key] = {"worst_over_band": float(err.max() / band), "share_within": float((err <= band).mean())}
+        if err.max() > band:
+            raise AssertionError(f"data parallel render: {key} departs from the production image: {errs}")
+    report["render_two_replicas"] = {"s_per_image": statistics.median(times), "s_per_image_runs": times,
+                                     "vs_production": errs}
+    log("data parallel: " + json.dumps(report))
+    return report
+
+
 # ---- the mesh extraction ----------------------------------------------------
 def mesh_phase(model, ds, item, settings, card: str) -> dict:
     """`Visualizer3D` on the trained fixture and the val item's posed mesh at
     MESH_RESOLUTION: the density volume (the warp's brute-force search and
     `density_grid` in chunks of 100,000 grid points) and the marching
     tetrahedra timed apart, then the user's entry points: `extract_mesh`
-    to an .obj (the same mesh) and `render_turntable` to two PNGs. Fails
+    to an .obj (the same mesh) and `render_turntable` to one PNG. Fails
     unless the mesh is non-empty and inside the item's bounds (within a grid
     step), the launches are the chunks' searches and every file has its
     signature. Prints the `mesh:` line."""
@@ -1509,8 +1760,9 @@ def mesh_phase(model, ds, item, settings, card: str) -> dict:
         v2, f2 = viz.extract_mesh(mesh, bounds, 0, item["poses"], out_path=obj)
         extract_s = time.perf_counter() - t0
         t0 = time.perf_counter()
+        # one view: each takes ~20 s of host rasterization
         frames = viz.render_turntable(mesh, bounds, 0, item["poses"], out_dir=os.path.join(tmp, "turntable"),
-                                      n_views=2, size=512)
+                                      n_views=1, size=512)
         turntable_s = time.perf_counter() - t0
         if len(faces) == 0 or not (np.array_equal(v2, verts) and np.array_equal(f2, faces)):
             raise AssertionError(f"mesh: {len(faces)} faces, or extract_mesh gave another mesh")
@@ -1522,13 +1774,13 @@ def mesh_phase(model, ds, item, settings, card: str) -> dict:
                 ln.startswith("f ") for ln in lines) != len(faces):
             raise AssertionError("mesh: the .obj does not hold the mesh")
         pngs = sorted(glob.glob(os.path.join(tmp, "turntable", "mesh_*.png")))
-        if len(pngs) != 2 or any(png_size(p) != (512, 512) for p in pngs):
+        if len(pngs) != 1 or any(png_size(p) != (512, 512) for p in pngs):
             raise AssertionError(f"mesh: turntable PNGs {pngs}")
         if not all((fr.sum(-1) > 0).mean() > 0.01 for fr in frames):
             raise AssertionError("mesh: an empty turntable frame")
         out = {"resolution": MESH_RESOLUTION, "grid_points": n_points, "density_volume_s": density_s,
                "grid_points_per_s": n_points / density_s, "marching_tetrahedra_s": marching_s,
-               "extract_mesh_s": extract_s, "render_turntable_2_views_s": turntable_s,
+               "extract_mesh_s": extract_s, "render_turntable_1_view_s": turntable_s,
                "vertices": int(len(verts)), "faces": int(len(faces)), "obj_bytes": os.path.getsize(obj),
                "occupied_share": float((grid > viz.level).mean()), "launches": launches, "card": card}
     log("mesh: " + json.dumps(out))
@@ -2062,6 +2314,8 @@ def main() -> int:
                                for label, v in k["inputs"].items()}
         log(f"floor {k['name']}: " + json.dumps({**floor, "resources": k["resources"]}))
     log("sweep: " + json.dumps(sweep_granularity(pts_blocked, cents_w, mesh)))
+    # the cluster-pruned and expanded-form searches (torch ops) on the chunk
+    check_searches(pts_rs, cents_w, mesh)
     log("tables: " + json.dumps({
         "listed_tables_ms": time_ms(lambda: listed_tables(cents_w, mesh.tile_table), reps=10),
         "note": "item_to_mesh derives the posed mesh's tables once per item; per chunk it would be this x chunks",
@@ -2072,11 +2326,11 @@ def main() -> int:
     model = trained_model(cfg.MODEL.MAX_FRAMES).eval()
     zero = {k.name: 0 for k in KERNELS}
     # (a) exact full shading, brute-force search: two searches per chunk
-    out_exact, launches_exact, profile_exact = render_path(
+    out_exact, launches_exact, profile_exact, _ = render_path(
         "exact", cfg, model, ds, item, rays0, mesh,
         {**zero, GG_KERNEL.name: n_chunks, NEAREST_KERNEL.name: 2 * n_chunks}, n_timed=1)
     # (b) production: gated shading with face reuse, one listed search per chunk
-    out_prod, launches_prod, profile_prod = render_path(
+    out_prod, launches_prod, profile_prod, render_prod = render_path(
         "production", production_cfg(), model, ds, item, rays0, mesh,
         {**zero, GG_KERNEL.name: n_chunks, LISTED_PLAN_KERNEL.name: n_chunks,
          LISTED_KERNEL.name: n_chunks}, n_timed=N_TIMED_RENDERS,
@@ -2085,7 +2339,7 @@ def main() -> int:
     # same image as (a) but where a near-tie names another face
     pruned_cfg = slice_cfg()
     pruned_cfg.MODEL.KNN_IMPL = "pruned"
-    out_pruned, launches_exact_pruned, profile_pruned = render_path(
+    out_pruned, launches_exact_pruned, profile_pruned, _ = render_path(
         "exact pruned", pruned_cfg, model, ds, item, rays0, mesh,
         {**zero, GG_KERNEL.name: n_chunks, PRUNED_KERNEL.name: 2 * n_chunks}, n_timed=1,
         reference=out_exact)
@@ -2093,11 +2347,34 @@ def main() -> int:
     if psnr(out_pruned["coarse_color"], out_exact["coarse_color"], box) < PRUNED_PSNR_MIN:
         raise AssertionError("exact pruned: the render departs from the brute-force exact render")
     del out_pruned
+    # (f) exact full shading with the grouped search (torch ops, no search
+    # kernel): held to (a) as (c) is; then the production image through the
+    # f16 pack, held to (b)
+    grouped_cfg = slice_cfg()
+    grouped_cfg.MODEL.KNN_IMPL = "grouped"
+    out_grouped, _, _, render_grouped = render_path(
+        "exact grouped", grouped_cfg, model, ds, item, rays0, mesh,
+        {**zero, GG_KERNEL.name: n_chunks}, n_timed=1, reference=out_exact)
+    if psnr(out_grouped["coarse_color"], out_exact["coarse_color"], box) < PRUNED_PSNR_MIN:
+        raise AssertionError("exact grouped: the render departs from the brute-force exact render")
+    out_f16, _, _, render_f16 = render_path(
+        "production f16", production_cfg(), model, ds, item, rays0, mesh,
+        {**zero, GG_KERNEL.name: n_chunks, LISTED_PLAN_KERNEL.name: n_chunks,
+         LISTED_KERNEL.name: n_chunks}, n_timed=1, reference=out_exact, pack="f16")
+    f16_psnr = psnr(out_f16["coarse_color"], out_prod["coarse_color"], box)
+    log("render production f16: " + json.dumps({
+        "psnr_box_vs_f32_production": f16_psnr, "floor_db": F16_PSNR_MIN,
+        "s_per_image_f16": render_f16["s_per_image"], "s_per_image_f32": render_prod["s_per_image"],
+        "max_abs_color_vs_f32_production": float(np.abs(out_f16["coarse_color"] - out_prod["coarse_color"]).max()),
+        "exact_grouped_s_per_image": render_grouped["s_per_image"]}))
+    if f16_psnr < F16_PSNR_MIN:
+        raise AssertionError(f"production f16: {f16_psnr:.2f} dB against the f32 copy")
+    del out_grouped, out_f16
     # (d) production with the bfloat16-fed fused forward: two launches a
     # chunk (density, then color), held to the float32 production image
     fast_cfg = production_cfg()
     fast_cfg.MODEL.FUSED_MLP, fast_cfg.MODEL.FUSED_FAST = "on", True
-    out_fast, launches_fast_img, profile_fast = render_path(
+    out_fast, launches_fast_img, profile_fast, _ = render_path(
         "production fused fast", fast_cfg, model, ds, item, rays0, mesh,
         {**zero, GG_KERNEL.name: n_chunks, LISTED_PLAN_KERNEL.name: n_chunks, LISTED_KERNEL.name: n_chunks,
          FUSED_FWD_FAST_KERNEL.name: 2 * n_chunks}, n_timed=N_TIMED_RENDERS, reference=out_exact)
@@ -2111,7 +2388,7 @@ def main() -> int:
     # and the fused forward run again on the fine samples
     fine_cfg = slice_cfg()
     fine_cfg.MODEL.FUSED_MLP, fine_cfg.MODEL.FINE_RAY_SAMPLING = "on", 64
-    out_fine, launches_fine_img, profile_fine = render_path(
+    out_fine, launches_fine_img, profile_fine, _ = render_path(
         "exact fused fine", fine_cfg, model, ds, item, rays0, mesh,
         {**zero, GG_KERNEL.name: n_chunks, NEAREST_KERNEL.name: 4 * n_chunks,
          FUSED_FWD_KERNEL.name: 2 * n_chunks}, n_timed=1, reference=out_exact)
@@ -2120,7 +2397,7 @@ def main() -> int:
     log("render exact fused fine: " + json.dumps({
         "psnr_box_fine_vs_coarse": psnr(out_fine["fine_color"], out_fine["coarse_color"], box),
         "psnr_box_fine_vs_gt": psnr(out_fine["fine_color"], item["img"], box)}))
-    del out_prod, out_fast, out_fine
+    del out_fast, out_fine
     profiles = [profile_exact, profile_prod, profile_pruned, profile_fast, profile_fine]
 
     # ---- 5. golden rays against the JAX package's render ---------------
@@ -2140,6 +2417,10 @@ def main() -> int:
                                    legs=("fixed", "gg"), knn_impl="listed")
     finally:
         del os.environ["DSNERF_KNN_SLIM"]
+    # the cluster-pruned and expanded-form searches on every leg: GG once
+    # (the gg leg), no search kernel
+    for impl in ("grouped", "clustered", "xla"):
+        golden_leg(impl, golden, model, {**zero, GG_KERNEL.name: 1}, knn_impl=impl)
 
     # ---- 6. the fused SpaceNet kernels at the training step's shapes ------
     fmodel = trained_model(cfg.MODEL.MAX_FRAMES).to(dev)
@@ -2174,6 +2455,9 @@ def main() -> int:
         ("production bf16", True, False, {"MATMUL_PRECISION": "bf16"}, prod_base),
         ("exact fused fine", False, True, {"FINE_RAY_SAMPLING": 64},
          {**exact_base, NEAREST_KERNEL.name: 4, FUSED_FWD_KERNEL.name: 2, FUSED_BWD_KERNEL.name: 2}),
+        # (h) exact fused with the grouped search: GG and the fused pair
+        ("exact fused grouped", False, True, {"KNN_IMPL": "grouped"},
+         {**zero, **base, FUSED_FWD_KERNEL.name: 1, FUSED_BWD_KERNEL.name: 1}),
     ):
         train[label], grads[label], step_profiles[label] = train_path(label, production, fused, tbatch, tmesh,
                                                                       expect, opts)
@@ -2185,7 +2469,15 @@ def main() -> int:
                                   grads["production fused"], FAST_STEP_GRAD_TOL))
     compared.append(compare_grads("production: bf16 vs f32", grads["production bf16"], grads["production"],
                                   BF16_STEP_GRAD_TOL))
+    compared.append(compare_grads("exact fused: grouped vs brute force", grads["exact fused grouped"],
+                                  grads["exact fused"], GROUPED_STEP_GRAD_TOL))
     del grads
+
+    # ---- LPIPS of the production image against the ground truth -------------
+    lpips_phase(np.clip(out_prod["coarse_color"], 0.0, 1.0), item["img"], card)
+    # ---- data parallel: a one-rank NCCL group, two gloo processes, the split render
+    data_parallel_phase(tbatch, tmesh, ds, item, out_prod, card)
+    del out_prod
 
     # ---- 8. the train / validate / test CLIs ------------------------------
     cli_phase(card)

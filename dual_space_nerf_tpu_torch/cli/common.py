@@ -75,6 +75,19 @@ def eval_settings(cfg) -> RenderSettings:
     return RenderSettings.from_cfg(cfg)
 
 
+def renderer_devices(device: str, data_parallel: bool = False) -> dict:
+    """`ImageRenderer`'s device keywords for ``--device`` and
+    ``--data_parallel``: with the flag and more than one local device of
+    that kind (`parallel.local_ray_devices`: the cards), ``devices`` splits
+    every chunk over them; else the one ``device``."""
+    from ..device import resolve_device
+    from ..parallel import local_ray_devices
+
+    dev = resolve_device(device)
+    devices = local_ray_devices(device_type=dev.type) if data_parallel else None
+    return {"devices": devices} if devices else {"device": dev}
+
+
 def add_device_arg(parser) -> None:
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on: cuda (the default; fails without a "

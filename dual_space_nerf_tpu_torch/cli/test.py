@@ -5,9 +5,10 @@ poses the frame code zeroed and the light centre shifted:
 
     python -m dual_space_nerf_tpu_torch.cli.test -c CFG --exp NAME --ckpt PATH
 
-LPIPS is not ported yet (ROADMAP.md queue 1, item 6): without weights
-(TEST.LPIPS_WEIGHTS empty or missing) it is skipped, as the JAX CLI skips
-it; weights that exist raise rather than be ignored.
+LPIPS (alex and vgg, `evaluation/lpips.py`) from the weights that
+TEST.LPIPS_WEIGHTS names (a converted npz, or a directory holding
+``lpips_{alex,vgg}.npz``), on the run's device; without weights the metric
+is skipped, as the JAX CLI skips it.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import os
 
 import numpy as np
 
-from ..evaluation import ImageRenderer, light_state_for_novel_pose, psnr, ssim_metric
+from ..evaluation import ImageRenderer, light_state_for_novel_pose, make_lpips, psnr, ssim_metric
 from ..utils.image_io import write_png
 from .common import add_device_arg
 from .validate import mkdir
@@ -26,8 +27,9 @@ from .validate import mkdir
 def myinfer(
     dataset, renderer: ImageRenderer, save_dir: str, epoch: int = 0,
     light_center=None, zero_frame_code=False,
+    lpips_alex=None, lpips_vgg=None,
 ) -> dict:
-    metrics = {k: [] for k in ("psnr_wMask", "psnr_woMask", "ssim")}
+    metrics = {k: [] for k in ("psnr_wMask", "psnr_woMask", "ssim", "lpips_alex", "lpips_vgg")}
     dirs = {
         name: f"{save_dir}/{epoch}/{name}"
         for name in ("img", "rendering", "ground_truth", "acc", "depth")
@@ -53,6 +55,10 @@ def myinfer(
         metrics["psnr_wMask"].append(psnr(color, gt, np.repeat(mask[..., None], 3, -1)))
         metrics["psnr_woMask"].append(psnr(color, gt))
         metrics["ssim"].append(ssim_metric(color, gt, mask))
+        if lpips_alex is not None:
+            metrics["lpips_alex"].append(lpips_alex(color, gt))
+        if lpips_vgg is not None:
+            metrics["lpips_vgg"].append(lpips_vgg(color, gt))
 
         rendering = color * 255
         gt255 = gt * 255
@@ -77,23 +83,21 @@ def main(argv=None):
     parser.add_argument("--exp", type=str, default="test")
     parser.add_argument("--ckpt", type=str, required=True)
     parser.add_argument("--data_parallel", action="store_true",
-                        help="shard eval ray chunks over all local devices (not ported yet)")
+                        help="shard eval ray chunks over all local devices (one model replica per card)")
     add_device_arg(parser)
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel: multi-device eval is not ported yet (ROADMAP.md queue 1, item 7)"
-        )
 
     from ..data import select_dataset
-    from .common import epoch_from_ckpt, eval_settings, load_cfg, load_faces, load_render_state
+    from .common import (
+        epoch_from_ckpt,
+        eval_settings,
+        load_cfg,
+        load_faces,
+        load_render_state,
+        renderer_devices,
+    )
 
     cfg = load_cfg(args.config)
-    weights = cfg.TEST.LPIPS_WEIGHTS
-    if weights and os.path.exists(weights):
-        raise NotImplementedError(
-            f"TEST.LPIPS_WEIGHTS={weights!r}: LPIPS is not ported yet (ROADMAP.md queue 1, item 6)"
-        )
     epoch = epoch_from_ckpt(args.ckpt)
     save_dir = os.path.join("./TEST", args.exp)
 
@@ -104,16 +108,20 @@ def main(argv=None):
     model = load_render_state(args.ckpt, cfg)
     faces = load_faces(cfg, novel_view_set)
     renderer = ImageRenderer(model, eval_settings(cfg), faces, novel_view_set.canonical_vertex,
-                             chunk=cfg.TEST.RAY_CHUNK, device=args.device)
-    print("LPIPS weights unavailable; skipping LPIPS metrics")
+                             chunk=cfg.TEST.RAY_CHUNK,
+                             **renderer_devices(args.device, args.data_parallel))
+    lpips_alex = make_lpips("alex", cfg.TEST.LPIPS_WEIGHTS, renderer.device)
+    lpips_vgg = make_lpips("vgg", cfg.TEST.LPIPS_WEIGHTS, renderer.device)
+    if lpips_alex is None:
+        print("LPIPS weights unavailable; skipping LPIPS metrics")
 
     print("novel view:")
     out1 = myinfer(novel_view_set, renderer, save_dir=os.path.join(save_dir, "novel_view"),
-                   epoch=epoch)
+                   epoch=epoch, lpips_alex=lpips_alex, lpips_vgg=lpips_vgg)
     print("novel pose:")
     out2 = myinfer(novel_pose_set, renderer, save_dir=os.path.join(save_dir, "novel_pose"),
                    epoch=epoch, light_center=list(cfg.TEST.light_center) or None,
-                   zero_frame_code=True)
+                   zero_frame_code=True, lpips_alex=lpips_alex, lpips_vgg=lpips_vgg)
     return out1, out2
 
 

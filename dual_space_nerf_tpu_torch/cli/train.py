@@ -5,6 +5,14 @@
 Outputs go to ``EXP/<exp>/``: ``log.txt``, TensorBoard events,
 ``model_epoch_%07d.ckpt`` and the ``last_checkpoint`` tag; a run resumes
 from the tag when it is there. Runs on ``cuda:<-g>`` unless ``--device cpu``.
+
+Data parallel over rays, one process per device (`parallel/`): with the
+DSNERF_* env contract set (DSNERF_NUM_PROCESSES > 1, DSNERF_COORD_ADDR,
+DSNERF_PROCESS_ID) this process joins the group as that rank (NCCL on the
+card, gloo with ``--device cpu``); on a host with more than one card and no
+contract, the CLI starts one process per card itself (rank i on cuda:i),
+as the JAX CLI's ray mesh takes every local device. TRAIN_NRAYS is rounded
+up to a multiple of the process count; rank 0 writes the outputs.
 """
 
 from __future__ import annotations
@@ -12,6 +20,7 @@ from __future__ import annotations
 import argparse
 import os
 import shutil
+import sys
 
 from .common import add_device_arg
 
@@ -40,27 +49,64 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def rank_main(rank: int, argv: list) -> None:
+    """A spawned rank of a one-process-per-card run: ``main`` on cuda:<rank>."""
+    main(list(argv) + ["-g", str(rank)])
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
 
     import torch
+    import torch.distributed as dist
 
-    from ..data import select_dataset
     from ..device import resolve_device
-    from ..training.loop import _train_seed, do_train
-    from ..utils.logger import make_summary_writer, setup_logger
-    from .common import build_model, eval_settings, load_cfg, load_faces
+    from ..parallel import global_ray_group, local_ray_devices, maybe_initialize_distributed, spawn_ranks
+    from ..parallel.distributed import ENV_NUM
 
+    if args.device == "cuda" and ENV_NUM not in os.environ:
+        cards = local_ray_devices()
+        if cards is not None:  # one process per card, each joining the group
+            spawn_ranks(rank_main, len(cards), args=(argv,))
+            return None
     # refuse a missing card before anything is written
     device = resolve_device(f"cuda:{args.gpu}" if args.device == "cuda" else args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    was_joined = dist.is_initialized()
+    joined = maybe_initialize_distributed("nccl" if device.type == "cuda" else "gloo")
+    try:
+        return _run(args, device, global_ray_group() if joined else None)
+    finally:
+        if joined and not was_joined:
+            dist.destroy_process_group()
+
+
+def _run(args, device, group):
+    """The run of one process (one rank when ``group`` is a process group)."""
+    import torch
+
+    from ..data import select_dataset
+    from ..parallel import pad_rays_for_mesh, rank, world_size
+    from ..training.loop import _train_seed, do_train
+    from ..utils.logger import _NullWriter, make_summary_writer, setup_logger
+    from .common import build_model, eval_settings, load_cfg, load_faces
+
     cfg = load_cfg(args.config)
+    if group is not None:
+        cfg.defrost()
+        cfg.SOLVER.TRAIN_NRAYS = pad_rays_for_mesh(cfg.SOLVER.TRAIN_NRAYS, world_size(group))
+        cfg.freeze()
+    is_main = rank(group) == 0
     output_dir = os.path.join("EXP", args.exp)
     os.makedirs(output_dir, exist_ok=True)
-    writer = make_summary_writer(output_dir)
+    # rank 0 writes the events, log.txt and the config copy
+    writer = make_summary_writer(output_dir) if is_main else _NullWriter()
     writer.add_text("OUT_PATH", output_dir, 0)
-    logger = setup_logger("NERFRender", output_dir)
+    logger = setup_logger("NERFRender", output_dir if is_main else "")
     logger.info("Running with config:\n%s", cfg)
-    if args.config:
+    if args.config and is_main:
         shutil.copyfile(args.config, os.path.join(output_dir, "config.yml"))
 
     train_set, val_set = select_dataset(cfg, train_nrays=cfg.SOLVER.TRAIN_NRAYS)
@@ -85,7 +131,7 @@ def main(argv=None):
                 output_dir=output_dir, psnr_thres=args.psnr_thres,
                 resume=True, val_fn=val_fn,
                 max_epochs=args.max_epochs or None,
-                device=device, profile_dir=args.profile_dir,
+                device=device, profile_dir=args.profile_dir, mesh_devices=group,
             )
     finally:
         writer.close()

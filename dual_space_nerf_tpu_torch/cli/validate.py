@@ -70,23 +70,27 @@ def main(argv=None):
     parser.add_argument("--exp", type=str, default="test")
     parser.add_argument("--ckpt", type=str, required=True)
     parser.add_argument("--data_parallel", action="store_true",
-                        help="shard eval ray chunks over all local devices (not ported yet)")
+                        help="shard eval ray chunks over all local devices (one model replica per card)")
     add_device_arg(parser)
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel: multi-device eval is not ported yet (ROADMAP.md queue 1, item 7)"
-        )
 
     from ..data import select_dataset
-    from .common import epoch_from_ckpt, eval_settings, load_cfg, load_faces, load_render_state
+    from .common import (
+        epoch_from_ckpt,
+        eval_settings,
+        load_cfg,
+        load_faces,
+        load_render_state,
+        renderer_devices,
+    )
 
     cfg = load_cfg(args.config)
     _, val_set = select_dataset(cfg, train_nrays=cfg.SOLVER.TRAIN_NRAYS)
     model = load_render_state(args.ckpt, cfg)
     faces = load_faces(cfg, val_set)
     renderer = ImageRenderer(model, eval_settings(cfg), faces, val_set.canonical_vertex,
-                             chunk=cfg.TEST.RAY_CHUNK, device=args.device)
+                             chunk=cfg.TEST.RAY_CHUNK,
+                             **renderer_devices(args.device, args.data_parallel))
     epoch = epoch_from_ckpt(args.ckpt)
     return val(val_set, renderer, f"EXP/{args.exp}/vis", epoch,
                fixed_frame=min(50, cfg.MODEL.MAX_FRAMES - 1))

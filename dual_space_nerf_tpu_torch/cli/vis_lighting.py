@@ -59,19 +59,22 @@ def main(argv=None):
     parser.add_argument("--ckpt", type=str, required=True)
     parser.add_argument("--rot_center", type=float, nargs=3, default=None)
     parser.add_argument("--data_parallel", action="store_true",
-                        help="shard render chunks over all local devices (not ported yet)")
+                        help="shard render chunks over all local devices (one model replica per card)")
     parser.add_argument("-g", "--gpu", type=int, default=0,
                         help="CUDA device index (the run uses cuda:<g>)")
     add_device_arg(parser)
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel: multi-device eval is not ported yet (ROADMAP.md queue 1, item 7)"
-        )
 
     from ..data import select_dataset
     from ..data.zju import MocapView
-    from .common import epoch_from_ckpt, eval_settings, load_cfg, load_faces, load_render_state
+    from .common import (
+        epoch_from_ckpt,
+        eval_settings,
+        load_cfg,
+        load_faces,
+        load_render_state,
+        renderer_devices,
+    )
 
     device = f"cuda:{args.gpu}" if args.device == "cuda" else args.device
     cfg = load_cfg(args.config)
@@ -89,7 +92,8 @@ def main(argv=None):
     model = load_render_state(args.ckpt, cfg)
     faces = load_faces(cfg, dataset)
     renderer = ImageRenderer(model, eval_settings(cfg), faces, dataset.canonical_vertex,
-                             chunk=cfg.TEST.RAY_CHUNK, device=device)
+                             chunk=cfg.TEST.RAY_CHUNK,
+                             **renderer_devices(device, args.data_parallel))
     return run_lighting_sweep(dataset, renderer, save_dir, epoch, args.rot_center)
 
 

@@ -23,7 +23,8 @@ from ..training import TrainBatch
 
 
 #: per (canonical mesh content, device): (faces, verts_cano, face_perm,
-#: tile_table, cano_tables) on the device; oldest entries leave first
+#: tile_table, cano_tables, cluster_table) on the device; oldest entries
+#: leave first
 _STATIC_MESH_CACHE: dict[tuple, tuple] = {}
 _STATIC_MESH_CACHE_MAX = 8
 
@@ -41,7 +42,9 @@ def _static_mesh_tables(faces: np.ndarray, verts_cano: np.ndarray, device: torch
     """Build (and cache per canonical mesh and device) what does not change
     with the pose: the faces and canonical vertices on the device, the kd
     order of the faces (`face_perm`, for the pruned search), the kd-leaf
-    tile table and the canonical mesh's listed-search tables. The partition
+    tile table and the canonical mesh's listed-search tables, and the face
+    clusters themselves (`cluster_table`, for the clustered and grouped
+    searches). The partition
     is plain numpy on the float32 mean of each face's canonical vertices, as
     in the JAX package, so both build the same tables."""
     key = _mesh_cache_key(faces, verts_cano, device)
@@ -55,7 +58,8 @@ def _static_mesh_tables(faces: np.ndarray, verts_cano: np.ndarray, device: torch
         face_perm = torch.as_tensor(clusters[clusters >= 0].ravel().astype(np.int64), device=device)
         tile_table = torch.as_tensor(build_face_tiles(cents), device=device)
         cano_tables = listed_tables(face_centroids(cano_dev, faces_dev), tile_table)
-        hit = (faces_dev, cano_dev, face_perm, tile_table, cano_tables)
+        hit = (faces_dev, cano_dev, face_perm, tile_table, cano_tables,
+               torch.as_tensor(clusters, device=device))
         while len(_STATIC_MESH_CACHE) >= _STATIC_MESH_CACHE_MAX:
             _STATIC_MESH_CACHE.pop(next(iter(_STATIC_MESH_CACHE)))
         _STATIC_MESH_CACHE[key] = hit
@@ -69,7 +73,7 @@ def item_to_mesh(item: dict, faces: np.ndarray, verts_cano: np.ndarray,
     from the cache; the posed mesh's listed-search tables are derived here,
     once per item, so that no render chunk derives them again (the results
     are identical either way)."""
-    faces_dev, cano_dev, face_perm, tile_table, cano_tables = _static_mesh_tables(
+    faces_dev, cano_dev, face_perm, tile_table, cano_tables, cluster_table = _static_mesh_tables(
         faces, verts_cano, device
     )
     verts_world = torch.as_tensor(np.asarray(item["xyz"], np.float32), device=device)
@@ -81,6 +85,7 @@ def item_to_mesh(item: dict, faces: np.ndarray, verts_cano: np.ndarray,
         tile_table=tile_table,
         cano_tables=cano_tables,
         world_tables=listed_tables(face_centroids(verts_world, faces_dev), tile_table),
+        cluster_table=cluster_table,
     )
 
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -19,3 +21,18 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         if dev.index is None:  # tensors report "cuda:N", never bare "cuda"
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@contextlib.contextmanager
+def true_fp32():
+    """Float32 matmuls and convolutions in IEEE float32 inside the block,
+    whatever the process-wide TF32 flags say (cuDNN convolutions default to
+    TF32 on the card); the flags are restored on exit."""
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn

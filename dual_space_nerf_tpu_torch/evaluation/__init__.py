@@ -1,4 +1,6 @@
+from .lpips import lpips_distance, make_lpips
 from .metrics import mse, psnr, ssim, ssim_metric
-from .render_image import ImageRenderer, light_state_for_novel_pose
+from .render_image import ImageRenderer, default_pack, light_state_for_novel_pose
 
-__all__ = ["ImageRenderer", "light_state_for_novel_pose", "mse", "psnr", "ssim", "ssim_metric"]
+__all__ = ["ImageRenderer", "default_pack", "light_state_for_novel_pose", "lpips_distance",
+           "make_lpips", "mse", "psnr", "ssim", "ssim_metric"]

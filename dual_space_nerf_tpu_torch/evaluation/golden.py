@@ -122,8 +122,9 @@ def leg_settings(leg: str, exact, production):
 def render_golden(rays: dict, device, chunk: int = 8192, model=None,
                   legs: tuple = LEGS, knn_impl: str | None = None) -> dict:
     """The port's render of the golden rays, leg by leg: {"<leg>/<output>":
-    (n, c) float32}. knn_impl: the search of every leg; None keeps the
-    configs' (brute force on the exact legs, "listed" on ``prod``)."""
+    (n, c) float32, copied to the host as float32 whatever
+    DSNERF_EVAL_PACK says}. knn_impl: the search of every leg; None keeps
+    the configs' (brute force on the exact legs, "listed" on ``prod``)."""
     from ..data import SyntheticDataset
     from ..renderer import RenderSettings
     from .render_image import ImageRenderer
@@ -139,7 +140,7 @@ def render_golden(rays: dict, device, chunk: int = 8192, model=None,
         if knn_impl is not None:
             s = dataclasses.replace(s, knn_impl=knn_impl)
         img = ImageRenderer(model, s, np.asarray(ds.faces), ds.canonical_vertex,
-                            chunk=chunk, device=device).render_item(items[leg])
+                            chunk=chunk, device=device, pack="f32").render_item(items[leg])
         for k in BANDS:
             out[f"{leg}/{k}"] = img[f"coarse_{k}"].reshape(len(items[leg]["ray_o"]), -1)
     return out

@@ -1,4 +1,9 @@
-from .clustered_knn import build_face_clusters
+from .clustered_knn import (
+    build_face_clusters,
+    cluster_geometry,
+    nearest_face_clustered,
+    nearest_face_grouped,
+)
 from .fused_mlp import BWD_FAST_KERNEL as FUSED_BWD_FAST_KERNEL
 from .fused_mlp import BWD_KERNEL as FUSED_BWD_KERNEL
 from .fused_mlp import FWD_FAST_KERNEL as FUSED_FWD_FAST_KERNEL
@@ -11,6 +16,7 @@ from .nearest_face import (
     nearest_face,
     nearest_face_cuda,
     nearest_face_plain,
+    nearest_face_xla,
 )
 from .posenc import posenc, posenc_dim
 from .pruned_knn import (
@@ -45,6 +51,7 @@ __all__ = [
     "PRUNED_KERNEL",
     "build_face_clusters",
     "build_face_tiles",
+    "cluster_geometry",
     "face_centroids",
     "fused_sigma",
     "fused_sigma_essence_normal",
@@ -52,8 +59,11 @@ __all__ = [
     "gg_near_far_plain",
     "listed_tables",
     "nearest_face",
+    "nearest_face_clustered",
     "nearest_face_cuda",
+    "nearest_face_grouped",
     "nearest_face_plain",
+    "nearest_face_xla",
     "nearest_face_pruned",
     "nerf_params",
     "posenc",

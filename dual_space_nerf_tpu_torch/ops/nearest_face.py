@@ -1,6 +1,7 @@
 """Nearest face (K=1 nearest triangle centroid): the brute-force kernel's
-wrapper and plain version, and the `KNN_IMPL` dispatch (the tile-pruned
-searches are in `ops/pruned_knn.py`).
+wrapper and plain version, the expanded-form search (`nearest_face_xla`)
+and the `KNN_IMPL` dispatch (the tile-pruned searches are in
+`ops/pruned_knn.py`, the cluster-pruned ones in `ops/clustered_knn.py`).
 
 Replaces the TPU kernel `dual_space_nerf_tpu/ops/nearest_face.py:_nearest_kernel`
 (wrapper `nearest_face_pallas`), the brute-force search that the JAX
@@ -27,6 +28,8 @@ import functools
 
 import torch
 
+from ..device import true_fp32
+from .clustered_knn import nearest_face_clustered, nearest_face_grouped
 from .cuda_build import CudaKernel, stream_ptr
 from .pruned_knn import pruned_search_listed, pruned_search_presorted
 
@@ -44,6 +47,8 @@ _MIN_SPLIT_FACES = 1024
 
 # point-centroid pairs per slice of the plain version: it never holds N x F
 _PLAIN_PAIRS = 1 << 24
+# point-centroid pairs per slice of the expanded-form search
+_XLA_PAIRS = 1 << 25
 
 
 def face_centroids(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
@@ -154,29 +159,44 @@ def _nearest_face_launch(pts: torch.Tensor, centroids: torch.Tensor, splits: int
 
 # The JAX package's KNN_IMPL values (dual_space_nerf_tpu/ops/nearest_face.py).
 KNN_IMPLS = ("auto", "listed", "pruned", "grouped", "clustered", "pallas", "xla")
-# Values this port serves, and the ROADMAP items that bring the others.
-_PORTED = ("auto", "pallas", "listed", "pruned")
-_TO_COME = {
-    "grouped": "ROADMAP.md queue 1, item 5 (nearest_face_grouped)",
-    "clustered": "ROADMAP.md queue 1, item 5 (nearest_face_clustered)",
-    "xla": "ROADMAP.md queue 1, item 5 (the expanded-form search, which misranks near-ties)",
-}
 
 
 def check_knn_impl(impl: str) -> None:
-    """Raise unless ``impl`` is a search this port runs."""
+    """Raise unless ``impl`` is one of `KNN_IMPLS`."""
     if impl not in KNN_IMPLS:
         raise ValueError(f"unknown knn_impl {impl!r}; expected one of {KNN_IMPLS}")
-    if impl not in _PORTED:
-        raise NotImplementedError(
-            f"knn_impl {impl!r} is not ported yet; see {_TO_COME[impl]}"
-        )
+
+
+def nearest_face_xla(pts: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """argmin_f of the expanded form |p|^2 - 2 p.c_f + |c_f|^2: (N,) int32,
+    the JAX package's `nearest_face_xla` (its `KNN_IMPL: "xla"`).
+
+    One float32 matmul (IEEE float32, TF32 off inside the call, as the JAX
+    package's Precision.HIGHEST) and an argmin, first index on a tie,
+    sliced over points so that at most `_XLA_PAIRS` distances exist at once.
+    The form cancels |p|^2 against 2 p.c, so it misranks faces whose
+    distances tie within its rounding (~|p|^2 float32 ulps): kept as the JAX
+    package has it, not an exact search."""
+    n, f = pts.shape[0], centroids.shape[0]
+    if f == 0:
+        raise ValueError("nearest_face_xla: no centroids")
+    out = torch.empty((n,), dtype=torch.int32, device=pts.device)
+    c2 = (centroids * centroids).sum(-1)[None, :]
+    step = max(1, _XLA_PAIRS // f)
+    for s in range(0, n, step):
+        p = pts[s:s + step]
+        with true_fp32():
+            cross = p @ centroids.T
+        d2 = ((p * p).sum(-1, keepdim=True) - 2.0 * cross) + c2
+        out[s:s + step] = d2.argmin(dim=1).to(torch.int32)
+    return out
 
 
 def nearest_face(
     pts: torch.Tensor,
     centroids: torch.Tensor,
     impl: str = "auto",
+    cluster_table: torch.Tensor | None = None,
     *,
     tile_table: torch.Tensor | None = None,
     face_perm: torch.Tensor | None = None,
@@ -189,8 +209,11 @@ def nearest_face(
     "pruned" runs the sphere-pruned search and needs ``face_perm`` (the kd
     order of the faces); both take the points as spatially coherent blocks.
     Each is a CUDA kernel on CUDA tensors and its plain version on CPU
-    tensors. Every other value raises, as does a missing table; no value
-    quietly runs another search."""
+    tensors. "clustered" and "grouped" (groups of one point, as the JAX
+    dispatch runs it) need ``cluster_table`` (`build_face_clusters`); "xla"
+    is the expanded-form argmin; these three are torch ops on either device.
+    A missing table raises; no value quietly runs another search (the JAX
+    package's "grouped" without a table runs its XLA argmin)."""
     check_knn_impl(impl)
     if impl == "listed":
         if tile_table is None:
@@ -200,4 +223,12 @@ def nearest_face(
         if face_perm is None:
             raise ValueError("knn_impl 'pruned' needs the mesh's face_perm")
         return pruned_search_presorted(pts, centroids, face_perm)
+    if impl in ("grouped", "clustered"):
+        if cluster_table is None:
+            raise ValueError(f"knn_impl {impl!r} needs the mesh's cluster_table")
+        if impl == "clustered":
+            return nearest_face_clustered(pts, centroids, cluster_table)
+        return nearest_face_grouped(pts.reshape(-1, 1, 3), centroids, cluster_table).reshape(-1)
+    if impl == "xla":
+        return nearest_face_xla(pts, centroids)
     return nearest_face_cuda(pts, centroids)

@@ -20,7 +20,15 @@ The same math as the JAX package's `renderer/pipeline.py`. The searches are
 list-driven ("listed") and sphere-pruned ("pruned") kernels of
 `ops/pruned_knn.py`, which take the points in the block-coherent layout
 (`_block_layout`). "listed" exchanges tile-slot ids between the stages and
-gathers from a slot-ordered face table.
+gathers from a slot-ordered face table. "grouped" searches the ray-major
+points in sub-groups of 4, 2 or 1 consecutive samples of a ray (the largest
+that divides the samples per ray) that share one candidate set of face
+clusters, on the world search and the full path's canonical search; the
+fused path's canonical search, the gated path's selected samples and
+`normal_canonical_to_world` take groups of one, as in the JAX package.
+"clustered" (per-point candidate clusters) and "xla" (the expanded-form
+argmin, which misranks near-ties) run through `ops.nearest_face`. The three
+are torch ops and need `MeshBundle.cluster_table` ("clustered", "grouped").
 
 `MODEL.FUSED_MLP: "on"` runs SpaceNet's density, essence and normal chain
 through the fused kernels of `ops/fused_mlp.py` (hand-derived second-order
@@ -41,8 +49,7 @@ z is stratified with the passed-in uniforms, the passed-in normal noise
 keeps its graph (second order), and the selection weights of the gated path
 are detached. The fine pass takes its own uniforms and noise.
 
-Not ported yet, and refused when asked for: the grouped, clustered and xla
-searches. The JAX package's REMAT (rematerialization) and FUSED_BLOCK (the
+The JAX package's REMAT (rematerialization) and FUSED_BLOCK (the
 TPU kernels' grid block) change no number; the port does not read them: it
 keeps the whole graph, and its fused kernels tile by 64 points.
 """
@@ -67,6 +74,7 @@ from ..geometry import (
 from ..models import compute_dtype
 from ..ops import (
     face_centroids,
+    nearest_face_grouped,
     gg_near_far_cuda,
     fused_sigma,
     fused_sigma_essence_normal,
@@ -87,11 +95,13 @@ class MeshBundle(NamedTuple):
     """Posed mesh of one frame + canonical mesh of the sequence.
     faces: (F, 3) int64; verts_world, verts_cano: (V, 3) float32.
 
-    For the tile-pruned searches (`data.batching.item_to_mesh` fills them):
+    For the pruned searches (`data.batching.item_to_mesh` fills them):
     face_perm (F,) the kd order of the faces ("pruned"); tile_table (T, 128)
     int32 kd-leaf face tiles, -1 padded ("listed"); cano_tables and
     world_tables, optional `listed_tables(centroids, tile_table)` of the
-    canonical and the posed mesh, derived per search when None."""
+    canonical and the posed mesh, derived per search when None;
+    cluster_table (C, cap) int32 kd-leaf face clusters, -1 padded
+    ("clustered", "grouped")."""
 
     faces: torch.Tensor
     verts_world: torch.Tensor
@@ -100,6 +110,7 @@ class MeshBundle(NamedTuple):
     tile_table: torch.Tensor | None = None
     cano_tables: tuple | None = None
     world_tables: tuple | None = None
+    cluster_table: torch.Tensor | None = None
 
 
 class RayBatch(NamedTuple):
@@ -203,10 +214,9 @@ class RenderSettings:
 
     @classmethod
     def from_cfg(cls, cfg) -> "RenderSettings":
-        """Settings from a config tree. Raises NotImplementedError for the
-        searches that are not ported yet (see ROADMAP.md), ValueError for a
-        MATMUL_PRECISION that `models.compute_dtype` refuses (the model
-        reads it: `cli/common.py::build_model`)."""
+        """Settings from a config tree. Raises ValueError for an unknown
+        KNN_IMPL and for a MATMUL_PRECISION that `models.compute_dtype`
+        refuses (the model reads it: `cli/common.py::build_model`)."""
         shade_topk = max(cfg.MODEL.SHADE_TOPK, 0)
         compute_dtype(cfg)
         return cls(
@@ -259,24 +269,41 @@ def _warp_chunk(pts_w: torch.Tensor, fidx: torch.Tensor, faces_wc: torch.Tensor)
 
 def _search(pts: torch.Tensor, centroids: torch.Tensor, mesh: MeshBundle,
             settings: RenderSettings, tables: tuple | None,
-            return_slots: bool) -> torch.Tensor:
+            return_slots: bool, group: int = 1) -> torch.Tensor:
     """Nearest face of (N, 3) points by the settings' search. The listed and
     pruned searches want block-coherent points; ``tables`` are the mesh's
     precomputed listed-search tables for these centroids, if any.
-    return_slots (listed only): tile-slot ids for a slot-ordered table."""
+    return_slots (listed only): tile-slot ids for a slot-ordered table.
+    group ("grouped" only): consecutive points that share one candidate set
+    (samples of one ray, in ray-major order)."""
     if settings.knn_impl == "listed":
         if mesh.tile_table is None:
             raise ValueError("knn_impl 'listed' needs MeshBundle.tile_table (item_to_mesh builds it)")
         return pruned_search_listed(pts, centroids, mesh.tile_table,
                                     return_slots=return_slots, tables=tables)
-    return nearest_face(pts, centroids, settings.knn_impl, face_perm=mesh.face_perm)
+    if settings.knn_impl == "grouped":
+        if mesh.cluster_table is None:
+            raise ValueError("knn_impl 'grouped' needs MeshBundle.cluster_table (item_to_mesh builds it)")
+        n = pts.shape[0]
+        return nearest_face_grouped(pts.reshape(n // group, group, 3), centroids,
+                                    mesh.cluster_table).reshape(n)
+    return nearest_face(pts, centroids, settings.knn_impl, mesh.cluster_table,
+                        face_perm=mesh.face_perm)
 
 
 def _search_canonical(pts_c: torch.Tensor, centroids_c: torch.Tensor, mesh: MeshBundle,
-                      settings: RenderSettings, return_slots: bool = False) -> torch.Tensor:
+                      settings: RenderSettings, return_slots: bool = False,
+                      group: int = 1) -> torch.Tensor:
     """Canonical-space nearest face with the settings' search. Warped points
     inherit the world layout's block coherence."""
-    return _search(pts_c, centroids_c, mesh, settings, mesh.cano_tables, return_slots)
+    return _search(pts_c, centroids_c, mesh, settings, mesh.cano_tables, return_slots, group)
+
+
+def ray_group(s: int) -> int:
+    """The "grouped" search's sub-group of consecutive samples of a ray: 4,
+    2 or 1, the largest that divides the s samples (the JAX package's
+    `gsz`)."""
+    return next(g for g in (4, 2, 1) if s % g == 0)
 
 
 def warp_world_to_canonical(
@@ -561,7 +588,8 @@ def _render_with_z(model, batch: RayBatch, mesh: MeshBundle,
         dir_w_flat = dir_w.reshape(n, 3)
 
     # the searches depend on geometry only; each runs once per chunk
-    fidx_w = _search(pts_w_flat, centroids_w, mesh, settings, mesh.world_tables, use_slots)
+    gsz = ray_group(s)
+    fidx_w = _search(pts_w_flat, centroids_w, mesh, settings, mesh.world_tables, use_slots, gsz)
     faces_wc = _faces_table(mesh, slot_perm_from_tiles(mesh.tile_table) if use_slots else None)
     pose_feat = model.pose_feature(batch.body_pose)                  # (16,)
     code = model.frame_code(batch.frame)
@@ -575,7 +603,10 @@ def _render_with_z(model, batch: RayBatch, mesh: MeshBundle,
     if settings.reuse_warp_faces:
         cidx = fidx_w
     else:
-        cidx = _search_canonical(pts_c, centroids_c, mesh, settings, use_slots)
+        # "grouped": the fused path searches single points, as the JAX
+        # package's `_full_shading_fused` does
+        cidx = _search_canonical(pts_c, centroids_c, mesh, settings, use_slots,
+                                 1 if _use_fused(settings, model) else gsz)
     tris_wc2 = faces_wc[cidx]                                        # (N, 18)
     color, sigma = _color_pass(
         model, settings, light, pts_w_flat, pts_c, dir_w_flat, code, pose_feat,
@@ -660,7 +691,9 @@ def _gated_shading(model, batch: RayBatch, mesh: MeshBundle, settings: RenderSet
         cidx = fi_sel
     else:
         # ray-major selected points are surface-concentrated and locally
-        # coherent: the listed and pruned searches take them as blocks
+        # coherent: the listed and pruned searches take them as blocks; the
+        # grouped search takes groups of one (they arrive in weight order,
+        # so neighbours in the list can lie on different surfaces)
         cidx = _search_canonical(pc_sel, centroids_c, mesh, settings, use_slots)
 
     # ---- the full color chain on the selected samples ----

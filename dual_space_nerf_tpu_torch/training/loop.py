@@ -11,6 +11,13 @@ seeded by `step_seed(seed, step)`, a pure function as JAX's
 ``fold_in(key(seed), step)`` is: a resumed run draws what an unbroken run
 draws at that step. Metrics are read one step late, so the host never
 waits on the step it has just queued.
+
+With ``mesh_devices`` (a `torch.distributed` process group, one process
+per device) every rank runs this loop on the same deterministic batch
+stream and the same global draws; the step splits the rays over the ranks
+and averages the gradients (`training/state.py`). Rank 0's state is
+broadcast after init or resume; checkpoints, TensorBoard scalars,
+validation and the iteration log lines come from rank 0 only.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 from ..data.batching import item_to_mesh, item_to_train_batch
 from ..data.prefetch import PrefetchLoader
 from ..device import resolve_device
+from ..parallel.distributed import broadcast_object, broadcast_state, is_multiprocess, rank
 from ..renderer import RenderSettings
 from .checkpoint import Checkpointer, PeriodicCheckpointer
 from .state import create_train_state, draw_randoms, make_train_step
@@ -70,11 +78,15 @@ def do_train(
     """Train ``model`` (moved to ``device``: CUDA unless the caller passes
     another) and return the final `TrainState`. ``val_fn(state, epoch)``
     returns the validation metrics. ``profile_dir``: write a torch.profiler
-    trace of this run's first epoch there (TensorBoard format)."""
-    if mesh_devices is not None:
-        raise NotImplementedError(
-            "mesh_devices: multi-device training is not ported yet (ROADMAP.md queue 1, item 7)"
-        )
+    trace of this run's first epoch there (TensorBoard format).
+    ``mesh_devices``: None, or the process group whose ranks share every
+    step's rays (`parallel.global_ray_group()`; TRAIN_NRAYS a multiple of
+    its size, `parallel.pad_rays_for_mesh`)."""
+    group = mesh_devices
+    if group is not None and not isinstance(group, torch.distributed.ProcessGroup):
+        raise TypeError(f"mesh_devices: expected a torch.distributed process group, got {type(group)}")
+    multiproc = group is not None and is_multiprocess(group)
+    is_main = group is None or rank(group) == 0
     dev = resolve_device(device)
     settings = RenderSettings.from_cfg(cfg)
     seed = _train_seed()
@@ -88,10 +100,13 @@ def do_train(
     max_epochs = max_epochs or cfg.SOLVER.MAX_EPOCHS
     checkpointer = Checkpointer(output_dir)
     state, resume_epoch = checkpointer.resume_or_load("", state, resume=resume)
+    if group is not None:  # every rank starts from rank 0's state and epoch
+        state = broadcast_state(state, group)
+        resume_epoch = broadcast_object(resume_epoch, group)
     periodic = PeriodicCheckpointer(checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD, max_epochs)
 
     step_fn = make_train_step(settings, loss_type=cfg.MODEL.LOSS,
-                              loss_with_mask=cfg.MODEL.LOSSwMask, device=dev)
+                              loss_with_mask=cfg.MODEL.LOSSwMask, device=dev, group=group)
     gen = torch.Generator(device=dev)
     verts_cano = train_set.canonical_vertex
     log_period = cfg.SOLVER.LOG_PERIOD
@@ -99,10 +114,12 @@ def do_train(
     def to_device(item):
         return (item_to_train_batch(item, nrays, dev), item_to_mesh(item, faces, verts_cano, dev))
 
-    # DSNERF_DETERMINISTIC_DATA=1: ordered yielding and a per-(epoch, item)
-    # generator make the batch stream a pure function of (dataset, seed,
-    # epoch), whatever the workers' interleaving
-    det_data = os.environ.get("DSNERF_DETERMINISTIC_DATA", "0") == "1"
+    # Ordered yielding and a per-(epoch, item) generator make the batch
+    # stream a pure function of (dataset, seed, epoch), whatever the
+    # workers' interleaving: required with more than one rank (every rank
+    # must take its share of the SAME batch), DSNERF_DETERMINISTIC_DATA=1
+    # asks for it in one process
+    det_data = multiproc or os.environ.get("DSNERF_DETERMINISTIC_DATA", "0") == "1"
     if det_data:
         if not hasattr(train_set, "deterministic_items"):
             raise ValueError("deterministic data streaming needs a dataset with "
@@ -141,7 +158,7 @@ def do_train(
                     m, gstep, bidx = pending
                     psnr_v = float(m["psnr"])
                     psnr_monitor.append(psnr_v)
-                    if bidx % 50 == 0:
+                    if is_main and bidx % 50 == 0:
                         for key, v in m.items():
                             # the loss terms; the total goes out as Loss/loss_sum
                             if "loss_" in key:
@@ -156,25 +173,27 @@ def do_train(
                         iters_start = time.time()
                         steps = bidx - last_log_bidx
                         last_log_bidx = bidx
-                        logger.info(
-                            "Epoch[%d] Iteration[%d/%d] Loss: %.3e "
-                            "Psnr: %.2f Lr: %.2e Speed: %.1f[rays/s]",
-                            epoch, bidx, len(loader), float(m["loss"]),
-                            psnr_v, base_lr * lr_at(gstep), steps * nrays / max(dt, 1e-9),
-                        )
+                        if is_main:
+                            logger.info(
+                                "Epoch[%d] Iteration[%d/%d] Loss: %.3e "
+                                "Psnr: %.2f Lr: %.2e Speed: %.1f[rays/s]",
+                                epoch, bidx, len(loader), float(m["loss"]),
+                                psnr_v, base_lr * lr_at(gstep), steps * nrays / max(dt, 1e-9),
+                            )
                 pending = (metrics, state.step, batch_idx)
 
             if pending is not None:
                 psnr_monitor.append(float(pending[0]["psnr"]))
 
-            periodic.step_by_epoch(epoch, state)
+            if is_main:
+                periodic.step_by_epoch(epoch, state)
             if prof is not None:  # the first epoch's trace
                 prof.stop()
                 prof = None
             # full-val renders every 40 epochs (`trainer.py:121-122`);
             # DSNERF_VAL_PERIOD overrides, 0 disables
             val_period = int(os.environ.get("DSNERF_VAL_PERIOD", "40"))
-            if val_fn is not None and val_period > 0 and epoch % val_period == 0:
+            if is_main and val_fn is not None and val_period > 0 and epoch % val_period == 0:
                 res = val_fn(state, epoch)
                 for key, v in res.items():
                     writer.add_scalar(f"Val/{key}", v, epoch)

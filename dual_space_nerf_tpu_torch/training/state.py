@@ -6,6 +6,11 @@ The JAX step draws its randomness from `fold_in(rng, step)`; torch cannot
 give the same numbers, so the port's step takes the uniforms and normals
 themselves: `draw_randoms` makes them from a `torch.Generator`, and the tests
 hand in JAX's draws.
+
+With a process group the step is data parallel over rays
+(`parallel/distributed.py`): each rank takes its contiguous share of the
+global batch and draws, and the gradients and metrics are averaged over the
+ranks before the update.
 """
 
 from __future__ import annotations
@@ -56,8 +61,23 @@ def draw_randoms(r: int, s: int, generator: torch.Generator, device, n_fine: int
     return u, z, uf, zf
 
 
+def rank_share(batch: TrainBatch, randoms: tuple, rank: int, world: int) -> tuple:
+    """Rank ``rank``'s contiguous 1/world share of the rays of a global
+    batch and its draws: (batch, randoms)."""
+    r = batch.rgb.shape[0]
+    if r % world:
+        raise ValueError(f"train step: {r} rays do not split over {world} ranks "
+                         "(parallel.pad_rays_for_mesh rounds TRAIN_NRAYS up)")
+    sl = slice(rank * (r // world), (rank + 1) * (r // world))
+    rays = batch.rays
+    rays = RayBatch(rays.ray_o[sl], rays.ray_d[sl], rays.near[sl], rays.far[sl], rays.frame,
+                    rays.body_pose)
+    return (TrainBatch(rays, batch.rgb[sl], batch.occupancy[sl]),
+            tuple(t[sl] for t in randoms))
+
+
 def make_train_step(settings: RenderSettings, loss_type: str = "L2", loss_with_mask: bool = False,
-                    device: str | torch.device | None = None):
+                    device: str | torch.device | None = None, group=None):
     """step(state, batch, mesh, randoms) -> metrics.
 
     One update on ``device`` (CUDA unless asked otherwise; the model, batch
@@ -69,12 +89,24 @@ def make_train_step(settings: RenderSettings, loss_type: str = "L2", loss_with_m
     gradient, so that Adam steps every parameter with one count, as optax
     does. After the step each parameter's ``.grad`` holds its gradient.
     Metrics: loss, psnr (of the coarse colors) and each loss term, as 0-d
-    tensors."""
+    tensors.
+
+    ``group`` (a `torch.distributed` process group, e.g.
+    `parallel.global_ray_group()`): the step takes the global batch and
+    draws, computes on this rank's share (`rank_share`), and averages the
+    gradients and the metrics over the group in one all-reduce of a flat
+    buffer before the update, so every rank takes the same step."""
     loss_fn = make_loss(loss_type, loss_with_mask)
     dev = resolve_device(device)
+    if group is not None:
+        from ..parallel.distributed import all_reduce_mean_, rank, world_size
+
+        share = (rank(group), world_size(group))
 
     def step(state: TrainState, batch: TrainBatch, mesh: MeshBundle, randoms: tuple) -> dict:
         model = state.model
+        if group is not None:
+            batch, randoms = rank_share(batch, randoms, *share)
         state.optimizer.zero_grad(set_to_none=True)
         dtype = next(model.parameters()).dtype  # float32; float64 for conditioning checks
         light = LightState(*(t.to(dtype) for t in LightState.identity(dev)))
@@ -86,15 +118,27 @@ def make_train_step(settings: RenderSettings, loss_type: str = "L2", loss_with_m
             losses.update({f"fine_{k}": v for k, v in loss_fn(fine, batch.rgb, batch.occupancy).items()})
         total = sum(losses.values())
         total.backward()
-        for p in model.parameters():
+        params = list(model.parameters())
+        for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        with torch.no_grad():
+            mse = ((out["color"] - batch.rgb) ** 2).mean()
+            scalars = [total.detach(), *(v.detach() for v in losses.values()), mse]
+            if group is not None:
+                # one all-reduce: every gradient, then the metrics
+                flat = torch.cat([p.grad.reshape(-1) for p in params]
+                                 + [v.reshape(1).to(params[0].grad.dtype) for v in scalars])
+                all_reduce_mean_(flat, group)
+                at = 0
+                for p in params:
+                    p.grad.copy_(flat[at:at + p.numel()].view_as(p))
+                    at += p.numel()
+                scalars = [flat[at + i].to(v.dtype) for i, v in enumerate(scalars)]
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        with torch.no_grad():
-            mse = ((out["color"] - batch.rgb) ** 2).mean()
-        return {"loss": total.detach(), "psnr": -10.0 * torch.log10(mse),
-                **{k: v.detach() for k, v in losses.items()}}
+        total, *terms, mse = scalars
+        return {"loss": total, "psnr": -10.0 * torch.log10(mse), **dict(zip(losses, terms))}
 
     return step

@@ -1,9 +1,10 @@
 """The port's train -> validate -> test CLIs on the CPU, driven in process as
 `tests/test_cli_surface.py` drives the JAX package's, on the same tiny
 config: the same output tree (``.png`` where the JAX validate writes
-``.jpg``) and the same metric keys; the refusals of what is not ported,
-each naming its ROADMAP item; and one train run in a subprocess where yaml,
-cv2 and JAX cannot be imported, as on the card's machine.
+``.jpg``) and the same metric keys; what the port once refused (data
+parallel eval and training, the KNN_IMPL values, LPIPS) run through the
+CLIs; and one train run in a subprocess where yaml, cv2 and JAX cannot be
+imported, as on the card's machine.
 """
 
 import glob
@@ -231,44 +232,184 @@ def test_cli_pngs_are_the_images(runs):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported raises, naming its ROADMAP item
+# what the refusals named (ROADMAP queue 1 items 5, 6, 7) runs on the CPU
 # ---------------------------------------------------------------------------
-def _refusal(kind, tmp_path):
-    from dual_space_nerf_tpu_torch.cli import common, novel_pose_vis, test, validate, vis_lighting
-    from dual_space_nerf_tpu_torch.ops.nearest_face import check_knn_impl
-    from dual_space_nerf_tpu_torch.training import do_train
+def _frames(mp, modules) -> dict:
+    """Record the float frames the CLIs of ``modules`` hand `write_png`."""
+    frames = {}
+    for module in modules:
+        real = module.write_png
 
-    cfg_path = tmp_path / "tiny.yml"
-    cfg_path.write_text(TINY_CLI_CFG)
-    if kind in ("validate --data_parallel", "test --data_parallel"):
-        cli = validate if kind.startswith("validate") else test
-        return lambda: cli.main(["-c", str(cfg_path), "--ckpt", "x.ckpt", "--data_parallel",
-                                 "--device", "cpu"])
-    if kind in ("novel_pose_vis --data_parallel", "vis_lighting --data_parallel"):
-        cli = novel_pose_vis if kind.startswith("novel") else vis_lighting
-        return lambda: cli.main(["-c", str(cfg_path), "--ckpt", "x.ckpt", "--data_parallel",
-                                 "--device", "cpu"])
-    if kind.startswith("KNN_IMPL"):
-        return lambda: check_knn_impl(kind.split()[1])
-    if kind == "mesh_devices":
-        cfg = common.load_cfg(str(cfg_path))
-        return lambda: do_train(cfg, None, None, None, None, None, str(tmp_path),
-                                mesh_devices=object(), device="cpu")
-    weights = tmp_path / "alex.npz"
-    weights.write_bytes(b"")
-    cfg_path.write_text(TINY_CLI_CFG + f"  LPIPS_WEIGHTS: '{weights}'\n")
-    return lambda: test.main(["-c", str(cfg_path), "--ckpt", "x.ckpt", "--device", "cpu"])
+        def writer(path, img, _real=real):
+            frames[os.path.relpath(str(path), os.getcwd())] = np.asarray(img, np.float64)
+            return _real(path, img)
+
+        mp.setattr(module, "write_png", writer)
+    return frames
 
 
+class _PoseSequence:
+    """The synthetic val split standing in for the ZJU novel-pose sequence
+    of `cli.novel_pose_vis`'s default branch (no ZJU tree here)."""
+
+    def __init__(self, *args, **kwargs):
+        from dual_space_nerf_tpu_torch.data import SyntheticDataset
+
+        self.ds = SyntheticDataset(split="val", n_frames=2, n_views=1, h=16, w=16)
+        self.canonical_vertex, self.faces = self.ds.canonical_vertex, self.ds.faces
+
+    def set_novel_pose_dirs(self, *dirs):
+        pass
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        return self.ds[i]
+
+
+def _both_ways(kind, tmp_path, ckpt, runs):
+    """Run the CLI of ``kind`` with the feature it names on the torch run's
+    checkpoint, and without it where `runs` did not: (with, without)."""
+    import dual_space_nerf_tpu_torch.data.zju_novel_pose as zju_novel_pose
+    import dual_space_nerf_tpu_torch.parallel as parallel
+    from dual_space_nerf_tpu_torch.cli import novel_pose_vis, test, validate, vis_lighting
+
+    cfg = str(tmp_path / "tiny.yml")
+    common = ["-c", cfg, "--ckpt", ckpt, "--device", "cpu"]
+    mp = MonkeyPatch()
+    try:
+        mp.chdir(tmp_path)
+        if kind.endswith("--data_parallel"):
+            cli = {"validate": validate, "test": test, "novel_pose_vis": novel_pose_vis,
+                   "vis_lighting": vis_lighting}[kind.split()[0]]
+            # two CPU "devices": every chunk split in halves over two replicas
+            mp.setattr(parallel, "local_ray_devices",
+                       lambda *a, **k: [torch.device("cpu"), torch.device("cpu")])
+            mp.setattr(zju_novel_pose, "MocapNovelPoseView", _PoseSequence)
+            frames = _frames(mp, [novel_pose_vis, vis_lighting])
+            got = cli.main(common + ["--exp", "dp", "--data_parallel"])
+            if cli in (validate, test):  # the same checkpoint's metrics, one device
+                return got, runs["torch"][1] if cli is validate else tuple(runs["torch"][2:])
+            cli.main(common + ["--exp", "one"])
+            return [{k: v for k, v in frames.items() if f"/{exp}/" in k} for exp in ("dp", "one")]
+        knn = kind.split()[1]
+        (tmp_path / "knn.yml").write_text(TINY_CLI_CFG.replace(
+            "  MAX_FRAMES: 16\n", f"  MAX_FRAMES: 16\n  KNN_IMPL: '{knn}'\n"))
+        # against `runs`' validate of the same checkpoint (brute force)
+        return (validate.main(["-c", "knn.yml", "--ckpt", ckpt, "--device", "cpu", "--exp", knn]),
+                runs["torch"][1])
+    finally:
+        mp.undo()
+
+
+@pytest.fixture
+def two_threads():
+    """Two intra-op threads while the test runs (restored after): the suite
+    runs six workers on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("two_threads")
 @pytest.mark.parametrize("kind,item", [
     ("validate --data_parallel", 7), ("test --data_parallel", 7), ("mesh_devices", 7),
     ("novel_pose_vis --data_parallel", 7), ("vis_lighting --data_parallel", 7),
     ("KNN_IMPL grouped", 5), ("KNN_IMPL clustered", 5), ("KNN_IMPL xla", 5),
     ("LPIPS weights", 6),
 ])
-def test_refusals_name_their_roadmap_item(tmp_path, kind, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}"):
-        _refusal(kind, tmp_path)()
+def test_refusals_name_their_roadmap_item(runs, tmp_path, kind, item):
+    """What ROADMAP queue 1 item ``item`` brought runs through the CLIs on
+    the CPU, on the torch run's last checkpoint:
+
+    - ``--data_parallel`` with two (CPU) devices splits every chunk over two
+      model replicas: the same metrics (1e-6 relative) and frames (1e-4 of
+      255) as one device;
+    - ``mesh_devices``: `do_train` in a one-rank gloo process group (the
+      data-parallel step, its all-reduce and broadcasts) ends with the
+      parameters of the plain run, bit for bit;
+    - each KNN_IMPL value through `cli.validate`: the metrics of the
+      brute-force search within 1e-4 relative (ids part only at float32
+      near-ties, and "xla" misranks some of those);
+    - TEST.LPIPS_WEIGHTS naming an alex npz (seeded random weights in the
+      converted layout): `cli.test` reports a finite ``lpips_alex`` (and no
+      ``lpips_vgg``: the file's net is alex)."""
+    work = runs["torch"][0]
+    ckpt = str(work / f"EXP/{EXP}/model_epoch_0000002.ckpt")
+    (tmp_path / "tiny.yml").write_text(TINY_CLI_CFG)
+    if kind == "mesh_devices":
+        params = [_train_in_group(tmp_path / name, group) for name, group in (("dp", True), ("one", False))]
+        for name, p in params[0].items():
+            assert torch.equal(p, params[1][name]), name
+        return
+    if kind == "LPIPS weights":
+        from dual_space_nerf_tpu_torch.cli import test
+        from dual_space_nerf_tpu_torch.evaluation.lpips import random_lpips_params
+
+        weights = tmp_path / "alex.npz"
+        np.savez(weights, **random_lpips_params("alex", np.random.default_rng(77)),
+                 **{"meta/net": np.array("alex")})
+        # 32x32 images: AlexNet's strides and pools leave nothing of 16x16
+        (tmp_path / "lpips.yml").write_text(TINY_CLI_CFG.replace(
+            "SYNTHETIC_SIZE: 16", "SYNTHETIC_SIZE: 32") + f"  LPIPS_WEIGHTS: '{weights}'\n")
+        mp = MonkeyPatch()
+        try:
+            mp.chdir(tmp_path)
+            view, pose = test.main(["-c", "lpips.yml", "--ckpt", ckpt, "--device", "cpu"])
+        finally:
+            mp.undo()
+        for res in (view, pose):
+            assert np.isfinite(res["lpips_alex"]) and res["lpips_alex"] > 0 and "lpips_vgg" not in res
+        return
+    got, want = _both_ways(kind, tmp_path, ckpt, runs)
+    if kind.startswith("KNN_IMPL"):
+        assert set(got) == set(want)
+        for key, v in want.items():
+            assert got[key] == pytest.approx(v, rel=1e-4), (key, got, want)
+        return
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert len(w) > 0 and set(g) == {k.replace("/one/", "/dp/") for k in w}
+        for key, v in w.items():
+            if isinstance(v, np.ndarray):
+                assert np.abs(g[key.replace("/one/", "/dp/")] - v).max() <= 1e-4 * 255, key
+            else:
+                assert g[key] == pytest.approx(v, rel=1e-6), (key, g, w)
+
+
+def _train_in_group(out_dir, in_group: bool) -> dict:
+    """`do_train` of the tiny config for two epochs on the pinned data
+    stream, in a one-rank gloo group or without one: the final parameters."""
+    import torch.distributed as dist
+
+    from dual_space_nerf_tpu_torch.cli.common import build_model, load_cfg, load_faces
+    from dual_space_nerf_tpu_torch.data import select_dataset
+    from dual_space_nerf_tpu_torch.parallel.distributed import free_port
+    from dual_space_nerf_tpu_torch.training import do_train
+    from dual_space_nerf_tpu_torch.utils.logger import _NullWriter
+
+    cfg = load_cfg(str(out_dir.parent / "tiny.yml"))
+    train_set, _ = select_dataset(cfg, train_nrays=cfg.SOLVER.TRAIN_NRAYS)
+    mp = MonkeyPatch()
+    mp.setenv("DSNERF_DETERMINISTIC_DATA", "1")
+    mp.delenv("DSNERF_SEED", raising=False)
+    if in_group:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}",
+                                world_size=1, rank=0)
+    try:
+        state = do_train(cfg, build_model(cfg, seed=233), train_set, load_faces(cfg, train_set),
+                         _NullWriter(), logging.getLogger("refusal_cases"), str(out_dir),
+                         max_epochs=3, device="cpu",
+                         mesh_devices=dist.group.WORLD if in_group else None)
+    finally:
+        if in_group:
+            dist.destroy_process_group()
+        mp.undo()
+    assert state.step == 8
+    return {n: p.detach().clone() for n, p in state.model.named_parameters()}
 
 
 def test_train_cli_defaults_to_the_card(tmp_path, monkeypatch):

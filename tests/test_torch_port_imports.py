@@ -42,6 +42,10 @@ def _imports(tree):
 
 def test_sources_exist():
     assert len(_sources()) > 20
+    # the last modules ported are among the files checked below
+    for rel in ("parallel/distributed.py", "parallel/mesh.py", "evaluation/lpips.py",
+                "ops/clustered_knn.py"):
+        assert os.path.join(PKG, rel) in _sources(), rel
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))

@@ -85,9 +85,23 @@ def test_dispatch_runs_the_brute_force_search(impl, rng_np):
 
 
 @pytest.mark.parametrize("impl", ["grouped", "clustered", "xla"])
-def test_dispatch_refuses_unported_searches(impl):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nearest_face(torch.zeros((1, 3)), torch.zeros((1, 3)), impl)
+def test_dispatch_refuses_unported_searches(impl, mesh, rng_np):
+    """The three searches that were refused are ported: with the cluster
+    table the dispatch returns the JAX package's dispatch's ids (on
+    near-surface points of the SMPL-sized mesh, where no float32 near-tie
+    parts them)."""
+    from dual_space_nerf_tpu.ops import build_face_clusters as jax_clusters
+    from dual_space_nerf_tpu.ops import nearest_face as jax_nearest_face
+    from dual_space_nerf_tpu_torch.ops import build_face_clusters
+
+    verts, faces = mesh
+    cents = face_centroids(torch.from_numpy(verts), torch.from_numpy(faces.astype(np.int64))).numpy()
+    pts = _near_surface_points(rng_np, cents, 300)
+    table = build_face_clusters(cents)
+    want = np.asarray(jax_nearest_face(jnp.asarray(pts), jnp.asarray(cents), impl,
+                                       jax_clusters(cents).table))
+    got = nearest_face(torch.from_numpy(pts), torch.from_numpy(cents), impl, torch.from_numpy(table))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("impl", ["listed", "pruned"])

@@ -141,12 +141,18 @@ def test_render_item_novel_pose_light_matches_jax(item, renderers, identity_rend
 
 
 def test_unported_settings_raise():
+    """Every KNN_IMPL of the JAX package is accepted (the grouped, clustered
+    and xla searches are ported); an unknown one and an unknown
+    MATMUL_PRECISION raise."""
     cfg = slice_cfg(get_cfg_defaults)
-    for key, value in (("KNN_IMPL", "grouped"), ("KNN_IMPL", "clustered"), ("KNN_IMPL", "xla")):
-        bad = cfg.clone()
-        bad.MODEL[key] = value
-        with pytest.raises(NotImplementedError):
-            RenderSettings.from_cfg(bad)
+    for value in ("grouped", "clustered", "xla"):
+        ok = cfg.clone()
+        ok.MODEL.KNN_IMPL = value
+        assert RenderSettings.from_cfg(ok).knn_impl == value
+    bad = cfg.clone()
+    bad.MODEL.KNN_IMPL = "kdtree"
+    with pytest.raises(ValueError):
+        RenderSettings.from_cfg(bad)
     bad = cfg.clone()
     bad.MODEL.MATMUL_PRECISION = "f16"  # neither of the two the JAX package documents
     with pytest.raises(ValueError):
