@@ -115,6 +115,14 @@ Phases (any failure exits non-zero, before the last line is printed):
    (s_per_step of epoch 3, the step call alone; each epoch's wall time
    over its steps; epoch 1's time; the checkpoint's bytes and save
    ms, validate's and test's s_per_image, peak memory, the card);
+   then the JAX package's checkpoint (`jax_ckpt_phase`: the committed
+   `tests/fixtures/jax_trained_s233.ckpt`, flax msgpack of the trained
+   params and Adam's state after two updates, read by the port's own
+   reader): `cli.validate --ckpt` it renders the images of the params'
+   `.npz` bit for bit, and `cli.train` resumes the JAX run's EXP directory
+   from its tag for two steps that equal, bit for bit in params and Adam
+   state, two steps from a port `.ckpt` saved right after loading it; the
+   `jax ckpt:` line (decode ms, load ms, step times, the card);
 9. drives the CLIs on the committed ZJU-313-shaped tree (`zju_cli_phase`,
    `.bench_cold_tree/CoreView_313`: 16 frames x 3 views of 1024x1024
    JPEGs, read in place through symlinks in a temporary data dir that adds
@@ -1862,12 +1870,13 @@ def check_pngs(root: str, expect_n: int, size: tuple = (H, W)) -> int:
 
 
 @contextlib.contextmanager
-def cli_session(prefix: str, env_keys: tuple):
+def cli_session(prefix: str, env_keys: tuple, images: list | None = None):
     """A temporary working directory for the CLIs, entered; the loop's step
     calls timed on the host clock (each ended by a synchronize) and
     render_item timed per image (it ends in the host copy). Yields (step
     seconds, image seconds, ray chunks per image), three lists the timers
-    append to. On exit restores the variables ``env_keys`` names, the timed
+    append to; ``images``, when given, receives a copy of each image's
+    outputs. On exit restores the variables ``env_keys`` names, the timed
     functions, the CLI logger (it holds log.txt open) and the working
     directory, and deletes the directory."""
     step_times, image_times, image_chunks = [], [], []
@@ -1891,6 +1900,8 @@ def cli_session(prefix: str, env_keys: tuple):
         t0 = time.perf_counter()
         out = render_item(self, item, *a, **k)
         image_times.append(time.perf_counter() - t0)
+        if images is not None:
+            images.append({key: np.array(v, copy=True) for key, v in out.items()})
         return out
 
     work = tempfile.mkdtemp(prefix=prefix)
@@ -2002,6 +2013,161 @@ def cli_phase(card: str) -> dict:
             "phase_s": time.perf_counter() - t_phase, "card": card,
         }
     log("train loop: " + json.dumps(report))
+    return report
+
+
+# ---- a JAX-trained avatar's checkpoint through the CLIs ---------------------
+#: the JAX package's `Checkpointer.save` of the trained fixture's params and
+#: Adam's state after two updates (`scripts/make_jax_ckpt_fixture.py`)
+JAX_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                        "jax_trained_s233.ckpt")
+#: phase 8's config with the fixture's 16-frame embedding, one frame x two
+#: views: two steps an epoch, two val images
+JAX_CKPT_CFG = (CLI_CFG.replace("MODEL:\n", "MODEL:\n  MAX_FRAMES: 16\n", 1)
+                .replace("SYNTHETIC_FRAMES: 2", "SYNTHETIC_FRAMES: 1"))
+
+
+def tree_difference(a, b, at: str = "") -> str:
+    """Where two state dicts (nested dicts, lists, tensors, numbers) first
+    differ, every tensor compared bit for bit; "" where they are equal."""
+    if isinstance(a, torch.Tensor):
+        same = (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and a.device == b.device and torch.equal(a, b))
+        return "" if same else f"{at}: {a!r:.200} against {b!r:.200}"
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return f"{at}: keys {sorted(map(str, a))} against {sorted(map(str, b)) if isinstance(b, dict) else b!r}"
+        return next((d for k in a if (d := tree_difference(a[k], b[k], f"{at}/{k}"))), "")
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return f"{at}: {a!r:.200} against {b!r:.200}"
+        return next((d for i, (x, y) in enumerate(zip(a, b)) if (d := tree_difference(x, y, f"{at}/{i}"))), "")
+    return "" if a == b else f"{at}: {a!r} against {b!r}"
+
+
+def jax_ckpt_phase(card: str) -> dict:
+    """The JAX package's `.ckpt` (`JAX_CKPT`, flax msgpack) through the
+    port's CLIs on the card, in a temporary directory (`cli_session`):
+
+    (a) `cli.validate --ckpt` the JAX `.ckpt` renders the val images of the
+        `.npz` of the same params bit for bit (every output of every image,
+        the metrics, the PNG bytes);
+    (b) `cli.train` resumes the JAX run's EXP directory from its
+        `last_checkpoint` tag for two steps, and the same two steps from a
+        port `.ckpt` saved right after loading the JAX one: the checkpoints
+        they write hold the same params, Adam state, schedule and step, bit
+        for bit.
+
+    Each CLI call's launches are counted from 0 and must be the production
+    path's; prints the `jax ckpt:` line (the reader's decode ms of the file,
+    the load into a train state on the card, the step times, the card)."""
+    from dual_space_nerf_tpu_torch.cli.common import build_model
+    from dual_space_nerf_tpu_torch.evaluation.golden import TRAINED_NPZ
+    from dual_space_nerf_tpu_torch.models import load_flax_npz
+    from dual_space_nerf_tpu_torch.training.flax_ckpt import read_flax_checkpoint
+
+    zero = {k.name: 0 for k in KERNELS}
+    t_phase = time.perf_counter()
+    decode_ms = []
+    for _ in range(5):  # the first read may find the file outside the page cache
+        t0 = time.perf_counter()
+        ckpt = read_flax_checkpoint(JAX_CKPT)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    n_floats = sum(int(v.size) for v in ckpt.params.values())
+    images = []
+    with cli_session("dsnerf_jax_ckpt_", ("DSNERF_VAL_PERIOD", "DSNERF_LOADER_BACKEND",
+                                          "DSNERF_DETERMINISTIC_DATA"), images) as (step_times, image_times, _):
+        os.environ["DSNERF_VAL_PERIOD"] = "0"
+        os.environ["DSNERF_LOADER_BACKEND"] = "thread"
+        os.environ["DSNERF_DETERMINISTIC_DATA"] = "1"  # both resumed runs see the same batches
+        with open("cli.yml", "w", encoding="utf-8") as f:
+            f.write(JAX_CKPT_CFG)
+        cfg = load_cfg("cli.yml")
+        _, val_set = select_dataset(cfg, train_nrays=TRAIN_RAYS)
+        chunks = sum(-(-int(val_set[i]["ray_o"].shape[0]) // cfg.TEST.RAY_CHUNK) for i in range(len(val_set)))
+        per_chunk = {**zero, GG_KERNEL.name: 1, LISTED_PLAN_KERNEL.name: 1, LISTED_KERNEL.name: 1,
+                     FUSED_FWD_KERNEL.name: 2}
+        # (a) validate from the JAX .ckpt and from the .npz of its params
+        val_runs = {}
+        for label, path in (("jax_ckpt", JAX_CKPT), ("npz", TRAINED_NPZ)):
+            del images[:], image_times[:]
+            reset_launches()
+            metrics = cli_validate.main(["-c", "cli.yml", "--exp", label, "--ckpt", path])
+            launched = launches_now()
+            want = {k: v * chunks for k, v in per_chunk.items()}
+            if launched != want:
+                raise AssertionError(f"jax ckpt validate {label}: launches {launched}, expected {want}")
+            pngs = sorted(glob.glob(os.path.join("EXP", label, "vis", "**", "*.png"), recursive=True))
+            png_bytes = {}
+            for png in pngs:
+                with open(png, "rb") as f:
+                    png_bytes[os.path.relpath(png, os.path.join("EXP", label))] = f.read()
+            val_runs[label] = {"metrics": metrics, "images": list(images), "pngs": png_bytes,
+                               "s_per_image": list(image_times)}
+        a, b = val_runs["jax_ckpt"], val_runs["npz"]
+        if len(a["images"]) != len(val_set) or len(a["pngs"]) != 3 * len(val_set):
+            raise AssertionError(f"jax ckpt validate: {len(a['images'])} images, {len(a['pngs'])} PNGs")
+        same_images = all(set(x) == set(y) and all(x[k].dtype == y[k].dtype and x[k].shape == y[k].shape
+                                                   and x[k].tobytes() == y[k].tobytes() for k in x)
+                          for x, y in zip(a["images"], b["images"]))  # bits: NaN outputs included
+        if not (same_images and a["metrics"] == b["metrics"] and a["pngs"] == b["pngs"]):
+            raise AssertionError("jax ckpt validate: the JAX .ckpt's images differ from the .npz's")
+        if not (np.isfinite(list(a["metrics"].values())).all() and 0.0 < a["metrics"]["ssim"] <= 1.0):
+            raise AssertionError(f"jax ckpt validate: metrics {a['metrics']}")
+
+        # (b) two steps resumed from the JAX run's EXP directory (its tag),
+        # and from a port .ckpt saved right after loading the JAX one
+        for exp in ("jax", "port"):
+            os.makedirs(os.path.join("EXP", exp))
+        shutil.copyfile(JAX_CKPT, os.path.join("EXP", "jax", "model_epoch_0000001.ckpt"))
+        with open(os.path.join("EXP", "jax", "last_checkpoint"), "w", encoding="utf-8") as f:
+            f.write("model_epoch_0000001.ckpt")
+        dev = torch.device("cuda")
+        state = create_train_state(build_model(cfg, seed=1).to(dev), cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, epoch = Checkpointer(os.path.join("EXP", "port")).load(JAX_CKPT, state)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        if (state.step, epoch) != (ckpt.step, ckpt.epoch):
+            raise AssertionError(f"jax ckpt load: step {state.step}, epoch {epoch}")
+        Checkpointer(os.path.join("EXP", "port")).save("model_epoch_0000001", state, epoch)
+        del state
+        finals, train_launches = {}, {}
+        for exp in ("jax", "port"):
+            del step_times[:]
+            reset_launches()
+            st = cli_train.main(["-c", "cli.yml", "--exp", exp, "--max_epochs", "3"])
+            train_launches[exp] = launches_now()
+            n = len(step_times)
+            want = {**zero, GG_KERNEL.name: n, LISTED_PLAN_KERNEL.name: n, LISTED_KERNEL.name: n,
+                    FUSED_FWD_KERNEL.name: 2 * n, FUSED_BWD_KERNEL.name: 2 * n}
+            if n != 2 or st.step != ckpt.step + 2 or train_launches[exp] != want:
+                raise AssertionError(f"jax ckpt train {exp}: {n} steps to step {st.step}, "
+                                     f"launches {train_launches[exp]}")
+            finals[exp] = {"payload": torch.load(os.path.join("EXP", exp, "model_epoch_0000002.ckpt"),
+                                                 map_location="cpu", weights_only=True),
+                           "step_s": list(step_times)}
+            del st
+        x, y = finals["jax"]["payload"], finals["port"]["payload"]
+        for key in ("model", "optimizer", "scheduler", "step", "epoch"):
+            if diff := tree_difference(x[key], y[key], key):
+                raise AssertionError(f"jax ckpt train: resumed from the JAX .ckpt against the port "
+                                     f".ckpt, {diff}")
+        moved = max(float((x["model"][k] - v).abs().max()) for k, v in load_flax_npz(TRAINED_NPZ).items())
+        if not moved > 0.0:
+            raise AssertionError("jax ckpt train: the resumed steps moved no parameter")
+    report = {
+        "ckpt_bytes": os.path.getsize(JAX_CKPT), "params_floats": n_floats,
+        "decode_ms": decode_ms, "load_into_cuda_state_ms": load_ms,
+        "validate_bit_equal_to_npz": True, "validate_s_per_image": a["s_per_image"],
+        "validate_s_per_image_npz": b["s_per_image"], "val_images": len(val_set),
+        "val_metrics": a["metrics"], "resumed_steps_bit_equal": True,
+        "step_s_jax_ckpt": finals["jax"]["step_s"], "step_s_port_ckpt": finals["port"]["step_s"],
+        "max_param_move": moved, "train_launches": train_launches["jax"],
+        "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    log("jax ckpt: " + json.dumps(report))
     return report
 
 
@@ -2481,6 +2647,8 @@ def main() -> int:
 
     # ---- 8. the train / validate / test CLIs ------------------------------
     cli_phase(card)
+    # ---- 8b. the JAX package's .ckpt through validate and a resumed train ---
+    jax_ckpt_phase(card)
     # ---- 9. the CLIs on the ZJU-shaped tree --------------------------------
     zju_cli_phase(card)
 

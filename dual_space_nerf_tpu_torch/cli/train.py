@@ -4,7 +4,11 @@
 
 Outputs go to ``EXP/<exp>/``: ``log.txt``, TensorBoard events,
 ``model_epoch_%07d.ckpt`` and the ``last_checkpoint`` tag; a run resumes
-from the tag when it is there. Runs on ``cuda:<-g>`` unless ``--device cpu``.
+from the tag when it is there, or from ``model_epoch_<N>.ckpt`` with
+``-r N``. ``EXP/<exp>/`` may be one the JAX package's CLI wrote: its flax
+``.ckpt`` files resume here (params, Adam's moments and step, the
+schedule's position, the epoch), and the run goes on writing the port's
+``.ckpt``. Runs on ``cuda:<-g>`` unless ``--device cpu``.
 
 Data parallel over rays, one process per device (`parallel/`): with the
 DSNERF_* env contract set (DSNERF_NUM_PROCESSES > 1, DSNERF_COORD_ADDR,
@@ -31,8 +35,8 @@ def parse_args(argv=None):
     parser.add_argument("-g", "--gpu", type=int, default=0,
                         help="CUDA device index (the run uses cuda:<g>)")
     parser.add_argument("-r", "--resume", type=int, default=0,
-                        help="checkpoint number to resume (auto-resumes from "
-                             "last_checkpoint when present)")
+                        help="resume from EXP/<exp>/model_epoch_<N>.ckpt (0: "
+                             "from last_checkpoint when present)")
     parser.add_argument("-s", "--psnr_thres", type=float, default=100.0)
     parser.add_argument("-cont", "--cont", action="store_true")
     parser.add_argument("-noise", "--add_noise", type=float, default=0.0)
@@ -100,6 +104,11 @@ def _run(args, device, group):
         cfg.freeze()
     is_main = rank(group) == 0
     output_dir = os.path.join("EXP", args.exp)
+    resume_from = ""
+    if args.resume:
+        resume_from = os.path.join(output_dir, f"model_epoch_{args.resume:07d}.ckpt")
+        if not os.path.isfile(resume_from):
+            raise FileNotFoundError(f"-r {args.resume}: no checkpoint {resume_from}")
     os.makedirs(output_dir, exist_ok=True)
     # rank 0 writes the events, log.txt and the config copy
     writer = make_summary_writer(output_dir) if is_main else _NullWriter()
@@ -132,6 +141,7 @@ def _run(args, device, group):
                 resume=True, val_fn=val_fn,
                 max_epochs=args.max_epochs or None,
                 device=device, profile_dir=args.profile_dir, mesh_devices=group,
+                resume_from=resume_from,
             )
     finally:
         writer.close()

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import os
 import re
 
@@ -73,12 +74,42 @@ def _inv3(a: np.ndarray) -> np.ndarray:
     return t
 
 
+def _matmul3(a, b) -> np.ndarray:
+    """cv2's Matx33d product: each entry ((0 + a0 b0) + a1 b1) + a2 b2 in
+    float64."""
+    out = np.empty((3, 3))
+    for i in range(3):
+        for j in range(3):
+            acc = 0.0
+            for k in range(3):
+                acc += float(a[i][k]) * float(b[k][j])
+            out[i, j] = acc
+    return out
+
+
+def tilt_matrix(tau_x: float, tau_y: float) -> np.ndarray:
+    """cv2's `computeTiltProjectionMatrix`: the trapezoidal projection of a
+    sensor tilted by tauX about x and tauY about y, projZ(Ry Rx) @ (Ry Rx),
+    with libm's cos and sin (math.cos / math.sin); the identity at 0, 0."""
+    ctx, stx = math.cos(tau_x), math.sin(tau_x)
+    cty, sty = math.cos(tau_y), math.sin(tau_y)
+    rot_x = ((1.0, 0.0, 0.0), (0.0, ctx, stx), (0.0, -stx, ctx))
+    rot_y = ((cty, 0.0, -sty), (0.0, 1.0, 0.0), (sty, 0.0, cty))
+    rot_xy = _matmul3(rot_y, rot_x)
+    proj_z = ((rot_xy[2, 2], 0.0, -rot_xy[0, 2]), (0.0, rot_xy[2, 2], -rot_xy[1, 2]), (0.0, 0.0, 1.0))
+    return _matmul3(proj_z, rot_xy)
+
+
 def undistort_maps(K, D, w: int, h: int) -> tuple[np.ndarray, np.ndarray]:
     """``cv2.initUndistortRectifyMap(K, D, None, K, (w, h), cv2.CV_16SC2)``:
     (map1 (h, w, 2) int16 integer source pixels, map2 (h, w) uint16
-    fraction indices). Per row, the homogeneous coordinate starts at
-    row * iK[:, 1] + iK[:, 2] and adds iK[:, 0] once per column, as cv2's
-    loop does; the rest is cv2's float64 arithmetic in its order."""
+    fraction indices), for 4, 5, 8, 12 or 14 coefficients (k1 k2 p1 p2 [k3
+    [k4 k5 k6 [s1 s2 s3 s4 [tauX tauY]]]]). Per row, the homogeneous
+    coordinate starts at row * iK[:, 1] + iK[:, 2] and adds iK[:, 0] once
+    per column, as cv2's loop does; the distorted point goes through the
+    tilted sensor's projection (`tilt_matrix`, the identity without tau) and
+    its projective divide; the rest is cv2's float64 arithmetic in its
+    order."""
     K = np.asarray(K, np.float64)
     ir = _inv3(K).ravel()
     d = np.zeros(14)
@@ -87,8 +118,7 @@ def undistort_maps(K, D, w: int, h: int) -> tuple[np.ndarray, np.ndarray]:
         raise ValueError(f"distortion coefficients: 4, 5, 8, 12 or 14 values, got {dv.size}")
     d[:dv.size] = dv
     k1, k2, p1, p2, k3, k4, k5, k6, s1, s2, s3, s4 = d[:12]
-    if d[12] or d[13]:
-        raise NotImplementedError("distortion with a tilted sensor (tauX, tauY) is not ported")
+    tilt = tilt_matrix(d[12], d[13])
     u0, v0, fx, fy = K[0, 2], K[1, 2], K[0, 0], K[1, 1]
     rows = np.arange(h, dtype=np.float64)[:, None]
 
@@ -109,8 +139,12 @@ def undistort_maps(K, D, w: int, h: int) -> tuple[np.ndarray, np.ndarray]:
     kr = (1 + ((k3 * r2 + k2) * r2 + k1) * r2) / (1 + ((k6 * r2 + k5) * r2 + k4) * r2)
     xd = x * kr + p1 * _2xy + p2 * (r2 + 2 * x2) + s1 * r2 + s2 * r2 * r2
     yd = y * kr + p1 * (r2 + 2 * y2) + p2 * _2xy + s3 * r2 + s4 * r2 * r2
-    u = fx * xd + u0  # the untilted sensor: cv2's 1 / vecTilt(2) is exactly 1
-    v = fy * yd + v0
+    # vecTilt = tilt @ (xd, yd, 1), each entry ((0 + t0 xd) + t1 yd) + t2
+    vec = [((0.0 + tilt[i, 0] * xd) + tilt[i, 1] * yd) + tilt[i, 2] for i in range(3)]
+    nonzero = vec[2] != 0.0
+    inv_proj = np.where(nonzero, 1.0 / np.where(nonzero, vec[2], 1.0), 1.0)
+    u = fx * inv_proj * vec[0] + u0
+    v = fy * inv_proj * vec[1] + v0
     lim = np.iinfo(np.int32)
     iu = np.clip(np.rint(u * INTER_TAB_SIZE), lim.min, lim.max).astype(np.int64)
     iv = np.clip(np.rint(v * INTER_TAB_SIZE), lim.min, lim.max).astype(np.int64)

@@ -2,8 +2,9 @@
 cv2's arithmetic so that its output equals cv2's (OpenCV 5.0) on the same
 input (`tests/test_torch_port_data.py`):
 
-- `resize_area`: ``cv2.resize(..., interpolation=cv2.INTER_AREA)`` for an
-  integral down-scale (cv2's "fast area" path), uint8 and float32;
+- `resize_area`: ``cv2.resize(..., interpolation=cv2.INTER_AREA)`` for a
+  down-scale (cv2's "fast area" path when the scale is integral, else its
+  general area path), uint8 and float32;
 - `resize_nearest`: ``cv2.resize(..., interpolation=cv2.INTER_NEAREST)``;
 - `dilate` / `erode` with a square kernel of ones, cv2's default anchor
   (the kernel's centre, ``k // 2``) and border (pixels outside the image
@@ -16,6 +17,8 @@ Shapes follow cv2 too: an (H, W, 1) input comes back as (h, w).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -37,34 +40,48 @@ def _out_size(shape, size, fx, fy) -> tuple[int, int]:
 
 def resize_area(img: np.ndarray, size=None, fx: float = 0.0, fy: float = 0.0) -> np.ndarray:
     """``cv2.resize(img, size, fx=fx, fy=fy, interpolation=cv2.INTER_AREA)``
-    where the source is an integral multiple of the destination in each
-    axis (cv2's `resizeAreaFast`): the mean of each k_y x k_x cell.
+    for a down-scale (or 1:1) in both axes, uint8 or float32, 1 to 4
+    channels. An integral scale in both axes takes cv2's `resizeAreaFast`
+    (`_resize_area_fast`), any other its general `resizeArea`
+    (`_resize_area_general`). An up-scale raises: cv2 interpolates it
+    bilinearly there, which no dataset of the JAX package asks for."""
+    src = np.asarray(img)
+    if src.dtype not in (np.uint8, np.float32):
+        raise TypeError(f"resize_area: uint8 or float32 images, got {src.dtype}")
+    oh, ow = _out_size(src.shape, size, fx, fy)
+    h, w = src.shape[:2]
+    # source pixels per destination pixel, as cv2 takes them
+    if size is not None and tuple(size) != (0, 0):
+        sx, sy = 1.0 / (ow / w), 1.0 / (oh / h)
+    else:
+        sx, sy = 1.0 / fx, 1.0 / fy
+    if sx < 1.0 or sy < 1.0:
+        raise NotImplementedError(
+            f"resize_area: only down-scales are ported (cv2 interpolates up-scales "
+            f"bilinearly), got {w}x{h} -> {ow}x{oh}")
+    kx, ky = int(np.rint(sx)), int(np.rint(sy))
+    x3 = src.reshape(h, w, -1)
+    if abs(sx - kx) < np.finfo(np.float64).eps and abs(sy - ky) < np.finfo(np.float64).eps:
+        out = _resize_area_fast(x3, oh, ow, kx, ky)
+    else:
+        out = _resize_area_general(x3, oh, ow, sx, sy)
+    return cv_shape(out.reshape((oh, ow) + src.shape[2:]))
+
+
+def _resize_area_fast(x3: np.ndarray, oh: int, ow: int, kx: int, ky: int) -> np.ndarray:
+    """cv2's `resizeAreaFast`: the mean of each ky x kx cell.
 
     uint8: ``(sum + area / 2) >> log2(area)`` for a 2 x 2 cell, the sum
     times ``1/area`` in float32, rounded half to even, for other cells.
     float32: the cell's sum in float32 in cv2's order, times ``1/area``.
     A destination row or column that runs past the source (an odd size
     rounded up) averages the source pixels it covers."""
-    src = np.asarray(img)
-    oh, ow = _out_size(src.shape, size, fx, fy)
-    h, w = src.shape[:2]
-    if fx and fy and (size is None or tuple(size) == (0, 0)):
-        sx, sy = 1.0 / fx, 1.0 / fy
-    else:
-        sx, sy = w / ow, h / oh
-    kx, ky = int(round(sx)), int(round(sy))
-    if abs(sx - kx) >= np.finfo(np.float64).eps or abs(sy - ky) >= np.finfo(np.float64).eps \
-            or kx < 1 or ky < 1:
-        raise NotImplementedError(
-            f"resize_area: only integral down-scales are ported, got {w}x{h} -> {ow}x{oh}")
-    if src.dtype not in (np.uint8, np.float32):
-        raise TypeError(f"resize_area: uint8 or float32 images, got {src.dtype}")
-    x3 = src.reshape(h, w, -1)
+    h, w = x3.shape[:2]
     fh, fw = min(oh, h // ky), min(ow, w // kx)  # cells wholly inside the source
     # the cell's pixels in row-major order, as strided views of the source
     px = [x3[yy:fh * ky:ky, xx:fw * kx:kx] for yy in range(ky) for xx in range(kx)]
-    out = np.zeros((oh, ow, x3.shape[2]), src.dtype)
-    if src.dtype == np.uint8:
+    out = np.zeros((oh, ow, x3.shape[2]), x3.dtype)
+    if x3.dtype == np.uint8:
         acc = px[0].astype(np.int32)
         for p in px[1:]:
             acc += p
@@ -93,8 +110,60 @@ def resize_area(img: np.ndarray, size=None, fx: float = 0.0, fy: float = 0.0) ->
         mean = patch.astype(np.float32).sum(axis=(0, 1)) / np.float32(
             patch.shape[0] * patch.shape[1])
         out[oy, ox] = (np.clip(np.rint(mean), 0, 255).astype(np.uint8)
-                       if src.dtype == np.uint8 else mean)
-    return cv_shape(out.reshape((oh, ow) + src.shape[2:]))
+                       if x3.dtype == np.uint8 else mean)
+    return out
+
+
+def _area_tab(ssize: int, dsize: int, scale: float) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """cv2's `computeResizeAreaTab` for one axis: destination pixel d covers
+    source [d * scale, (d + 1) * scale), each source pixel weighted by the
+    share of it that lies inside, over the cell's width (clipped at the
+    source's end); a share of 1e-3 or less is dropped. As slots: (source
+    index, float32 weight, present), each (n_slots, dsize), slot j holding
+    the j-th entry of d's list in cv2's order."""
+    entries = []
+    for d in range(dsize):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, ssize - f1)
+        s2 = min(math.floor(f2), ssize - 1)
+        s1 = min(math.ceil(f1), s2)
+        row = []
+        if s1 - f1 > 1e-3:
+            row.append((s1 - 1, (s1 - f1) / cell))
+        row += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            row.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        entries.append(row)
+    n = max(len(row) for row in entries)
+    si = np.zeros((n, dsize), np.int64)
+    alpha = np.zeros((n, dsize), np.float32)
+    present = np.zeros((n, dsize), bool)
+    for d, row in enumerate(entries):
+        for j, (s, a) in enumerate(row):
+            si[j, d], alpha[j, d], present[j, d] = s, a, True
+    return si, alpha, present
+
+
+def _resize_area_general(x3: np.ndarray, oh: int, ow: int, sx: float, sy: float) -> np.ndarray:
+    """cv2's `resizeArea_` with float32 sums: each source row is reduced
+    along x into buf (buf[d] += src[s] * alpha in the table's order), then
+    the destination row sums beta * buf over its source rows in order
+    (the first term alone, then += each), and rounds half to even and
+    saturates for uint8."""
+    xs, xa, xp = _area_tab(x3.shape[1], ow, sx)
+    ys, ya, yp = _area_tab(x3.shape[0], oh, sy)
+    buf = np.zeros((x3.shape[0], ow, x3.shape[2]), np.float32)
+    for j in range(xs.shape[0]):
+        d = np.flatnonzero(xp[j])
+        buf[:, d] = buf[:, d] + x3[:, xs[j, d]].astype(np.float32) * xa[j, d][None, :, None]
+    acc = np.zeros((oh, ow, x3.shape[2]), np.float32)
+    for j in range(ys.shape[0]):
+        d = np.flatnonzero(yp[j])
+        acc[d] = acc[d] + ya[j, d][:, None, None] * buf[ys[j, d]]
+    if x3.dtype == np.uint8:
+        return np.clip(np.rint(acc), 0, 255).astype(np.uint8)
+    return acc
 
 
 def resize_nearest(img: np.ndarray, size=None, fx: float = 0.0, fy: float = 0.0) -> np.ndarray:

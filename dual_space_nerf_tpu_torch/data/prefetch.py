@@ -18,6 +18,15 @@ index order for the same seed.
   forked child needs no setting where the JAX package pins cv2's pool
   (`cv2.setNumThreads(0)`).
 
+A loader holds at most ``prefetch + num_workers`` items that are started
+and not yet yielded (`window`). Ordered, no item ``seq`` is started
+(thread backend) or handed to the pool (process backend) before item ``seq
+- window`` was yielded, so one slow item cannot pull the rest of the epoch
+into the reorder buffer; the consumer keeps reading the bounded queue
+meanwhile (stopping it would deadlock a worker that holds the head).
+Unordered, the thread backend's bounded queue keeps the count, and the
+process backend hands the pool an item only for one yielded.
+
 An exception in a worker or in the transform fails the epoch in the
 consumer. Abandoning an epoch (``break``, generator GC, a new ``iter()``)
 stops the workers: they check a per-epoch stop event between items, and
@@ -89,18 +98,38 @@ class PrefetchLoader:
     def __len__(self) -> int:
         return len(self.dataset)
 
+    @property
+    def window(self) -> int:
+        """Items an epoch may hold started and not yet yielded."""
+        return self.prefetch + self.num_workers
+
     def _iter_process(self, order) -> Iterator:
         """Forked workers sample items (the dataset's numpy tables are
-        shared copy-on-write); the transform runs here, on the consumer."""
+        shared copy-on-write); the transform runs here, on the consumer.
+        The pool's task thread takes the indices from a generator that
+        hands out one more only for each item yielded, ``window`` ahead
+        (`imap` would otherwise dispatch the whole epoch)."""
         ctx = multiprocessing.get_context("fork")
         pool = ctx.Pool(self.num_workers, initializer=_init_worker, initargs=(self.dataset,))
-        imap = pool.imap if self.ordered else pool.imap_unordered
+        stop = threading.Event()
+        slots = threading.Semaphore(self.window)
+
+        def dispatch():
+            for i in order:
+                while not slots.acquire(timeout=0.1):
+                    if stop.is_set():  # lets pool.terminate() join the task thread
+                        return
+                yield int(i)
+
         try:
-            for item in imap(_get_item, [int(i) for i in order]):
+            imap = pool.imap if self.ordered else pool.imap_unordered
+            for item in imap(_get_item, dispatch()):
                 if self.transform is not None:
                     item = self.transform(item)
                 yield item
+                slots.release()
         finally:
+            stop.set()
             pool.terminate()
             pool.join()
 
@@ -122,6 +151,8 @@ class PrefetchLoader:
         n_alive = threading.Semaphore(0)
         stop = threading.Event()
         error: list = [None]  # (index, exception) of a failed worker
+        yielded = [0]  # ordered: items yielded so far (the consumer's next_seq)
+        moved = threading.Condition()
 
         def worker():
             try:
@@ -130,6 +161,12 @@ class PrefetchLoader:
                         seq, i = idx_q.get_nowait()
                     except queue.Empty:
                         return
+                    if self.ordered:  # start seq only once seq - window is yielded
+                        with moved:
+                            while seq >= yielded[0] + self.window and not stop.is_set():
+                                moved.wait(timeout=0.1)
+                        if stop.is_set():
+                            return
                     try:
                         item = self.dataset[i]
                         if self.transform is not None:
@@ -171,8 +208,8 @@ class PrefetchLoader:
         threading.Thread(target=closer, daemon=True).start()
 
         try:
-            # ordered: re-assemble by submission sequence; the buffer holds
-            # at most prefetch + num_workers items
+            # ordered: re-assemble by submission sequence; the workers'
+            # window keeps the buffer at most prefetch + num_workers items
             buffered: dict = {}
             next_seq = 0
             while True:
@@ -190,6 +227,9 @@ class PrefetchLoader:
                 while next_seq in buffered:
                     yield buffered.pop(next_seq)
                     next_seq += 1
+                    with moved:
+                        yielded[0] = next_seq
+                        moved.notify_all()
         finally:
             # epoch end, break or generator GC: stop the workers and wait
             # for them, so none outlives the iterator mid-item

@@ -18,7 +18,7 @@ from .nearest_face import (
     nearest_face_plain,
     nearest_face_xla,
 )
-from .posenc import posenc, posenc_dim
+from .posenc import gaussian_fourier_features, posenc, posenc_dim
 from .pruned_knn import (
     LISTED_KERNEL,
     LISTED_PLAN_KERNEL,
@@ -55,6 +55,7 @@ __all__ = [
     "face_centroids",
     "fused_sigma",
     "fused_sigma_essence_normal",
+    "gaussian_fourier_features",
     "gg_near_far_cuda",
     "gg_near_far_plain",
     "listed_tables",

@@ -14,6 +14,15 @@ def posenc_dim(input_dim: int, n_freqs: int, include_input: bool = True) -> int:
     return input_dim * (int(include_input) + 2 * n_freqs)
 
 
+def gaussian_fourier_features(x: torch.Tensor, b_matrix: torch.Tensor) -> torch.Tensor:
+    """Random Fourier-feature mapping [sin(x B^T), cos(x B^T)], as the JAX
+    package's `ops/posenc.py::gaussian_fourier_features` (the reference's
+    unused `Gaussian_Kernel`). b_matrix: (dim_embed, dim_in), typically
+    N(0, ffm_scale^2); returns (..., 2 * dim_embed)."""
+    y = x @ b_matrix.T
+    return torch.cat([torch.sin(y), torch.cos(y)], dim=-1)
+
+
 def posenc(x: torch.Tensor, n_freqs: int, include_input: bool = True) -> torch.Tensor:
     """x: (..., D) -> (..., D * (include_input + 2*n_freqs))."""
     if n_freqs == 0:

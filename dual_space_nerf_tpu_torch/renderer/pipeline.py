@@ -472,6 +472,28 @@ def nearest_selected(top_idx: torch.Tensor, s: int) -> torch.Tensor:
     return key.argmin(dim=-1)
 
 
+class _TakeSelected(torch.autograd.Function):
+    """``take_along_dim(sel, nearest[..., None], dim=1)`` for sel (R, K, C)
+    and nearest (R, S), with a backward that is the same on every run:
+    take_along_dim's own backward scatter-adds each sample's gradient into
+    its selected sample with atomics, whose order on the card changes the
+    sum's last bits from one run to the next. Here each selected sample
+    sums its samples' gradients in one reduction over S."""
+
+    @staticmethod
+    def forward(ctx, sel: torch.Tensor, nearest: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(nearest)
+        ctx.k = sel.shape[1]
+        return torch.take_along_dim(sel, nearest[..., None], dim=1)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad: torch.Tensor):
+        (nearest,) = ctx.saved_tensors
+        onehot = nearest[..., None] == torch.arange(ctx.k, device=nearest.device)  # (R, S, K)
+        return torch.where(onehot[..., None], grad[:, :, None, :], 0.0).sum(dim=1), None
+
+
 def _check_devices(device: torch.device, model, *tensors) -> None:
     for t in tensors:
         if t.device != device:
@@ -707,7 +729,7 @@ def _gated_shading(model, batch: RayBatch, mesh: MeshBundle, settings: RenderSet
     # selected sample of its ray (colors vary smoothly along a ray), so the
     # weight tail adds about its true color and not black
     nearest = nearest_selected(top_idx, s)                           # (R, S)
-    color = torch.take_along_dim(color_sel.reshape(r, k, 3), nearest[..., None], dim=1)
+    color = _TakeSelected.apply(color_sel.reshape(r, k, 3), nearest)
     return _outputs(composite(color, sigma, z_vals, batch.ray_d, noise), z_vals)
 
 

@@ -17,11 +17,19 @@ per device) every rank runs this loop on the same deterministic batch
 stream and the same global draws; the step splits the rays over the ranks
 and averages the gradients (`training/state.py`). Rank 0's state is
 broadcast after init or resume; checkpoints, TensorBoard scalars,
-validation and the iteration log lines come from rank 0 only.
+validation and the iteration log lines come from rank 0 only. While rank 0
+validates, the other ranks wait for it in a barrier of a gloo group of
+their own whose timeout is sized for a validation (`VAL_WAIT_TIMEOUT`),
+not in the next step's all-reduce under the process group's timeout.
+
+A run resumes from the ``last_checkpoint`` tag of ``output_dir``, or from
+the file ``resume_from`` names; either may be the port's ``.ckpt`` or the
+JAX package's (`training/checkpoint.py`), and the epoch comes from it.
 """
 
 from __future__ import annotations
 
+import datetime
 import logging
 import os
 import time
@@ -36,6 +44,12 @@ from ..parallel.distributed import broadcast_object, broadcast_state, is_multipr
 from ..renderer import RenderSettings
 from .checkpoint import Checkpointer, PeriodicCheckpointer
 from .state import create_train_state, draw_randoms, make_train_step
+
+
+#: how long the other ranks wait for rank 0's validation, which renders
+#: the whole val set on one device (minutes for a real subject); the
+#: process group's own timeout is sized for a step's collectives
+VAL_WAIT_TIMEOUT = datetime.timedelta(hours=4)
 
 
 def _train_seed() -> int:
@@ -74,6 +88,7 @@ def do_train(
     max_epochs: int | None = None,
     device: str | torch.device | None = None,
     profile_dir: str = "",
+    resume_from: str = "",
 ):
     """Train ``model`` (moved to ``device``: CUDA unless the caller passes
     another) and return the final `TrainState`. ``val_fn(state, epoch)``
@@ -81,7 +96,8 @@ def do_train(
     trace of this run's first epoch there (TensorBoard format).
     ``mesh_devices``: None, or the process group whose ranks share every
     step's rays (`parallel.global_ray_group()`; TRAIN_NRAYS a multiple of
-    its size, `parallel.pad_rays_for_mesh`)."""
+    its size, `parallel.pad_rays_for_mesh`). ``resume_from``: a checkpoint
+    file to resume from instead of the tag (`cli.train -r N`)."""
     group = mesh_devices
     if group is not None and not isinstance(group, torch.distributed.ProcessGroup):
         raise TypeError(f"mesh_devices: expected a torch.distributed process group, got {type(group)}")
@@ -99,7 +115,10 @@ def do_train(
     # final-epoch save must fire at the epoch the run really ends on
     max_epochs = max_epochs or cfg.SOLVER.MAX_EPOCHS
     checkpointer = Checkpointer(output_dir)
-    state, resume_epoch = checkpointer.resume_or_load("", state, resume=resume)
+    if resume_from:
+        state, resume_epoch = checkpointer.load(resume_from, state)
+    else:
+        state, resume_epoch = checkpointer.resume_or_load("", state, resume=resume)
     if group is not None:  # every rank starts from rank 0's state and epoch
         state = broadcast_state(state, group)
         resume_epoch = broadcast_object(resume_epoch, group)
@@ -131,6 +150,11 @@ def do_train(
         transform=to_device, backend=cfg.DATALOADER.BACKEND, ordered=det_data,
     )
 
+    # the other ranks wait out rank 0's validation here (a CPU barrier,
+    # whatever the step's backend)
+    val_wait = (torch.distributed.new_group(torch.distributed.get_process_group_ranks(group),
+                                            backend="gloo", timeout=VAL_WAIT_TIMEOUT)
+                if multiproc else None)
     prof = None
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
@@ -193,12 +217,15 @@ def do_train(
             # full-val renders every 40 epochs (`trainer.py:121-122`);
             # DSNERF_VAL_PERIOD overrides, 0 disables
             val_period = int(os.environ.get("DSNERF_VAL_PERIOD", "40"))
-            if is_main and val_fn is not None and val_period > 0 and epoch % val_period == 0:
+            val_due = val_period > 0 and epoch % val_period == 0
+            if is_main and val_fn is not None and val_due:
                 res = val_fn(state, epoch)
                 for key, v in res.items():
                     writer.add_scalar(f"Val/{key}", v, epoch)
                 logger.info("Validation Results - Epoch: %d psnr_wMask: %.3f",
                             epoch, res.get("psnr_wMask", float("nan")))
+            if val_wait is not None and val_due:
+                torch.distributed.barrier(group=val_wait)
 
             epoch_time = time.time() - epoch_start
             logger.info("Epoch %d done. Time: %.3f[s] Speed: %.1f[rays/s]",
@@ -212,4 +239,6 @@ def do_train(
     finally:
         if prof is not None:
             prof.stop()
+        if val_wait is not None:
+            torch.distributed.destroy_process_group(val_wait)
     return state

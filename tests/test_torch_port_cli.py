@@ -184,7 +184,8 @@ def test_validate_matches_jax_on_other_weights(tmp_path, seed):
     and 2.3e-6), where moving the JAX side's rays by one f32 ulp alone moves
     its own metrics by 9.9e-6 and 2.5e-6 (GG's near/far cancellation; a
     one-ulp move of the weights moves them by ~1e-9). Bands: PSNR 1e-4
-    relative, SSIM 4e-5, ~5x the largest gap measured."""
+    relative, SSIM 4e-5, ~5x the largest gap measured. Both CLIs take the
+    JAX run's own ``.ckpt`` (the port through `training/flax_ckpt.py`)."""
     from dual_space_nerf_tpu.cli import train as jax_train
     from dual_space_nerf_tpu.cli import validate as jax_validate
     from dual_space_nerf_tpu_torch.cli import validate
@@ -204,8 +205,8 @@ def test_validate_matches_jax_on_other_weights(tmp_path, seed):
             _reset_cli_logger()
         mp.delenv("DSNERF_SEED")
         jax_ckpt = str(tmp_path / "EXP/jax/model_epoch_0000002.ckpt")
-        npz = flax_ckpt_to_npz(jax_ckpt, tmp_path / "model_epoch_0000002.npz")
-        ours = validate.main(["-c", "tiny.yml", "--exp", "port", "--ckpt", npz, "--device", "cpu"])
+        # the JAX package's own checkpoint, read by the port's flax reader
+        ours = validate.main(["-c", "tiny.yml", "--exp", "port", "--ckpt", jax_ckpt, "--device", "cpu"])
         theirs = jax_validate.main(["-c", "tiny.yml", "--exp", "jax", "--ckpt", jax_ckpt])
     finally:
         mp.undo()

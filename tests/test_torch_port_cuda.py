@@ -577,6 +577,35 @@ def test_fused_backward_is_deterministic(dev, n):
     assert all(torch.equal(a[2][k], b[2][k]) for k in a[2])
 
 
+@pytest.mark.parametrize("production,fused", [(True, True), (True, False), (False, True)])
+def test_train_step_gives_the_same_bits_twice(dev, production, fused):
+    """Two train steps from the same state, batch and draws (1024 rays of the
+    512x512 train item, the train config's paths): every gradient bit for
+    bit. The production path's tail completion gathers each sample's color
+    from a selected sample; its backward is a reduction of a fixed order
+    (`renderer/pipeline.py::_TakeSelected`), not take_along_dim's atomic
+    scatter-add, which made two runs part in the last bits."""
+    from dual_space_nerf_tpu_torch.data import SyntheticDataset, item_to_mesh, item_to_train_batch
+    from dual_space_nerf_tpu_torch.evaluation.golden import train_cfg, trained_model
+    from dual_space_nerf_tpu_torch.renderer import RenderSettings
+    from dual_space_nerf_tpu_torch.training import create_train_state, draw_randoms, make_train_step
+
+    ds = SyntheticDataset(split="train", nrays=1024, n_frames=1, n_views=1, h=512, w=512)
+    item = ds[0]
+    batch = item_to_train_batch(item, 1024, dev)
+    mesh = item_to_mesh(item, ds.faces, ds.canonical_vertex, dev)
+    cfg = train_cfg(production, fused)
+    settings = RenderSettings.from_cfg(cfg)
+    draws = draw_randoms(1024, settings.n_samples, torch.Generator(device=dev).manual_seed(1), dev)
+    grads = []
+    for _ in range(2):
+        model = trained_model(cfg.MODEL.MAX_FRAMES).to(dev)
+        make_train_step(settings, device=dev)(create_train_state(model, cfg), batch, mesh, draws)
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    for n, g in grads[0].items():
+        assert torch.equal(g, grads[1][n]), n
+
+
 @pytest.mark.parametrize("n", [5000, 100_003])
 @pytest.mark.parametrize("with_color", [True, False])
 def test_fused_forward_is_deterministic(dev, n, with_color):

@@ -209,6 +209,48 @@ def test_undistorter_equals_cv2_with_nonzero_distortion():
         assert und(imgs[0], K, np.zeros(5)) is imgs[0]  # zero distortion: a no-op
 
 
+@pytest.mark.parametrize("ratio", [0.3, 0.4, 2 / 3, 0.75])
+def test_resize_area_at_non_integral_down_scales_equals_cv2(ratio):
+    """cv2's general INTER_AREA path (`computeResizeAreaTab`, float32 sums
+    in its order, its rounding) on odd sizes, uint8 and float32, one and
+    three channels, by fx/fy and by an explicit size; an up-scale (cv2's
+    bilinear path) is refused."""
+    rng = np.random.default_rng(int(ratio * 1000))
+    for h, w in ((33, 47), (101, 77), (255, 129)):
+        imgs = (rng.integers(0, 256, (h, w, 3), dtype=np.uint8), rng.integers(0, 256, (h, w), dtype=np.uint8),
+                rng.random((h, w, 3), dtype=np.float32), rng.random((h, w), dtype=np.float32))
+        size = (int(w * ratio), int(h * ratio))  # H36M's explicit sizes
+        for x in imgs:
+            want = cv2.resize(x, (0, 0), fx=ratio, fy=ratio, interpolation=cv2.INTER_AREA)
+            got = image_ops.resize_area(x, fx=ratio, fy=ratio)
+            assert got.dtype == want.dtype and np.array_equal(got, want), (h, w, x.dtype, x.shape)
+            want = cv2.resize(x, size, interpolation=cv2.INTER_AREA)
+            got = image_ops.resize_area(x, size)
+            assert got.dtype == want.dtype and np.array_equal(got, want), (h, w, x.dtype, size)
+    with pytest.raises(NotImplementedError, match="only down-scales"):
+        image_ops.resize_area(imgs[0], fx=1.0 / ratio, fy=1.0 / ratio)
+
+
+@pytest.mark.parametrize("h,w", [(64, 64), (37, 53)])
+def test_undistort_maps_with_a_tilted_sensor_equal_cv2(h, w):
+    """14 coefficients (tauX, tauY: cv2's tilt projection and its projective
+    divide): map1 and map2 against ``cv2.initUndistortRectifyMap(...,
+    CV_16SC2)`` bit for bit, and the undistorted images against
+    ``cv2.undistort`` and the JAX package's `Undistorter`."""
+    rng = np.random.default_rng(h * w)
+    K = np.array([[w * 1.07, 0.3, w / 2 + 3.3], [0.0, w * 1.05, h / 2 - 2.1], [0, 0, 1.0]])
+    for tau in ((0.03, -0.05), (-0.1, 0.0), (0.0, 0.07)):
+        D = np.array([-0.21, 0.09, 0.0012, -0.0007, -0.02, 0.01, -0.003, 0.002,
+                      0.001, -0.0005, 0.0007, 0.0002, *tau])
+        want = cv2.initUndistortRectifyMap(K, D, None, K, (w, h), cv2.CV_16SC2)
+        got = cameras.undistort_maps(K, D, w, h)
+        assert all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(got, want)), tau
+        img = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+        out = cameras.Undistorter()(img, K, D)
+        assert np.array_equal(out, cv2.undistort(img, K, D))
+        assert np.array_equal(out, jax_cameras.Undistorter()(img, K, D))
+
+
 def test_opencv_yaml_reader_equals_filestorage(tmp_path):
     rng = np.random.default_rng(4)
     path = str(tmp_path / "intri.yml")
@@ -392,6 +434,8 @@ def _zju_pair(kind, data_dir):
     for mod, np_mod in ((zju, zju_novel_pose), (jax_zju, jax_zju_np)):
         if split == "train":
             ds = mod.Mocap(human, 0.5, 96, 0, N_FRAMES, (0, 1), data_dir=data_dir)
+        elif split == "train_ratio075":  # cv2's general INTER_AREA path
+            ds = mod.Mocap(human, 0.75, 96, 0, N_FRAMES, (0, 1), data_dir=data_dir)
         elif split == "train_deterministic":
             ds = mod.Mocap(human, 0.5, 96, 0, N_FRAMES, (0, 1), data_dir=data_dir, seed=7)
             ds.deterministic_items = True
@@ -418,7 +462,7 @@ def _zju_pair(kind, data_dir):
 
 @pytest.mark.parametrize("kind", [
     "313-train", "313-train_deterministic", "313-view", "313-novel_view", "313-novel_pose",
-    "377-train", "377-view", "377-vis_views", "377-motion",
+    "377-train", "377-view", "377-vis_views", "377-motion", "313-train_ratio075",
 ])
 def test_zju_items_equal_jax(trees, kind):
     """Every item, every key, bit for bit, in the same order: the decoded
@@ -442,16 +486,19 @@ def _h36m_cfg(mod, ratio=0.5):
     })
 
 
-@pytest.mark.parametrize("split", ["train", "val", "novel_view", "novel_pose"])
+@pytest.mark.parametrize("split", ["train", "val", "novel_view", "novel_pose", "train_ratio075"])
 def test_h36m_items_equal_jax(trees, split):
+    """``train_ratio075``: ratio 0.75, cv2's general INTER_AREA path on the
+    float32 images."""
     root = os.path.join(trees["h36m"], "S9", "Posing")
     ann = os.path.join(root, "annots.npy")
-    kw = {"train": dict(split="train"),
+    kw = {"train": dict(split="train"), "train_ratio075": dict(split="train"),
           "val": dict(split="test", test_novel_pose=True, is_eval=True, is_formal=False),
           "novel_view": dict(split="test", is_eval=True),
           "novel_pose": dict(split="test", test_novel_pose=True, is_eval=True)}[split]
-    ours = h36m.H36M(_h36m_cfg(select), root, "S9", ann, nrays=96, **kw)
-    theirs = jax_h36m.H36M(_h36m_cfg(jax_select), root, "S9", ann, nrays=96, **kw)
+    ratio = 0.75 if split == "train_ratio075" else 0.5
+    ours = h36m.H36M(_h36m_cfg(select, ratio), root, "S9", ann, nrays=96, **kw)
+    theirs = jax_h36m.H36M(_h36m_cfg(jax_select, ratio), root, "S9", ann, nrays=96, **kw)
     for _ in range(2):
         _assert_same_items(ours, theirs)
 

@@ -41,6 +41,7 @@ from dual_space_nerf_tpu_torch.data import SyntheticDataset, item_to_mesh
 from dual_space_nerf_tpu_torch.renderer import LightState, RayBatch, RenderSettings, render_rays
 from dual_space_nerf_tpu_torch.renderer.pipeline import (
     _block_layout,
+    _TakeSelected,
     nearest_selected,
     topk_first,
 )
@@ -189,6 +190,27 @@ def test_nearest_selected_is_first_occurrence_argmin(rng_np):
     got = nearest_selected(torch.from_numpy(top), s).numpy()
     np.testing.assert_array_equal(got, want)
     assert got[0, 7] == 0 and got[0, 21] == 2  # 20 before 22
+
+
+def test_take_selected_is_take_along_dim_with_a_fixed_order_backward(rng_np):
+    """The tail completion's gather: the forward is take_along_dim's bit
+    for bit; the backward sums each selected sample's gradients in one
+    reduction over the ray's samples (take_along_dim's scatter-add adds
+    them with atomics on the card, in no fixed order): within 1e-6 relative
+    of autograd's, and two calls give the same bits."""
+    r, s, k = 64, 48, 8
+    top = torch.from_numpy(np.stack([rng_np.permutation(s)[:k] for _ in range(r)]))
+    near = nearest_selected(top, s)
+    sel = torch.from_numpy(rng_np.standard_normal((r, k, 3)).astype(np.float32)).requires_grad_()
+    cot = torch.from_numpy(rng_np.standard_normal((r, s, 3)).astype(np.float32))
+    want = torch.take_along_dim(sel, near[..., None], dim=1)
+    got = _TakeSelected.apply(sel, near)
+    assert torch.equal(got, want)
+    (g_want,) = torch.autograd.grad(want, sel, cot)
+    (g_got,) = torch.autograd.grad(got, sel, cot)
+    (g_again,) = torch.autograd.grad(_TakeSelected.apply(sel, near), sel, cot)
+    assert torch.equal(g_got, g_again)
+    np.testing.assert_allclose(g_got.numpy(), g_want.numpy(), rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("r,s,block_sc", [(6, 64, 32), (5, 16, 32), (3, 24, 32), (4, 7, 4)])

@@ -1,7 +1,7 @@
-"""The port stands alone: no JAX, no flax, nothing of the JAX package, and
-no module-level cv2 or yaml (the card's machine has neither) anywhere in
-the package or in chip_smoke.py. And its entry points never run on the CPU
-unless asked to."""
+"""The port stands alone: no JAX, no flax or msgpack, nothing of the JAX
+package, and no module-level cv2 or yaml (the card's machine has neither)
+anywhere in the package or in chip_smoke.py. And its entry points never run
+on the CPU unless asked to."""
 
 import ast
 import os
@@ -12,7 +12,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "dual_space_nerf_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "dual_space_nerf_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "dual_space_nerf_tpu")
 LAZY_ONLY = ("cv2", "yaml")
 
 

@@ -11,6 +11,7 @@ import glob
 import logging
 import multiprocessing
 import os
+import shutil
 import threading
 import time
 
@@ -57,6 +58,7 @@ from dual_space_nerf_tpu_torch.utils.image_io import PNG_SIGNATURE, write_png
 from torch_port_common import PARAMS_NPZ, REPO, TINY_CLI_CFG
 
 CPU = torch.device("cpu")
+JAX_CKPT_FIXTURE = os.path.join(REPO, "tests", "fixtures", "jax_trained_s233.ckpt")
 CONFIG_FILES = sorted(os.path.relpath(p, REPO)
                       for p in glob.glob(os.path.join(REPO, "configs", "**", "*.yml"), recursive=True))
 
@@ -240,6 +242,41 @@ def test_ordered_loader_yields_the_jax_order(backend):
     assert ours.epochs == [1, 2, 3]
 
 
+class _SlowHead:
+    """Item 0 sleeps half a second; every start is counted in a counter that
+    forked workers share."""
+
+    def __init__(self, n):
+        self.n = n
+        self.started = multiprocessing.get_context("fork").Value("i", 0)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        with self.started.get_lock():
+            self.started.value += 1
+        if i == 0:
+            time.sleep(0.5)
+        return i
+
+
+@pytest.mark.parametrize("backend", ["thread", "process"])
+def test_ordered_loader_bounds_its_items_in_flight(backend):
+    """While the head item loads, the other workers start at most up to
+    item prefetch + num_workers - 1: the items started and not yet yielded
+    peak at prefetch + num_workers (5), not at the epoch's 40; the items
+    and their order are unchanged."""
+    ds = _SlowHead(40)
+    loader = PrefetchLoader(ds, shuffle=False, num_workers=2, prefetch=3, ordered=True, backend=backend)
+    got, peak = [], 0
+    for k, i in enumerate(loader):
+        peak = max(peak, ds.started.value - k)  # started, less the k yielded before
+        got.append(i)
+    assert got == list(range(40))
+    assert loader.window == 5 and 2 <= peak <= loader.window, peak
+
+
 @pytest.mark.parametrize("where", ["dataset", "transform"])
 @pytest.mark.parametrize("backend", ["thread", "process"])
 def test_a_failing_worker_fails_the_epoch(backend, where):
@@ -360,18 +397,20 @@ def test_save_load_restores_the_next_update(tmp_path):
         assert torch.equal(p, q), n
 
 
-@pytest.mark.parametrize("kind", ["ckpt", "pth", "pth_model_key", "npz"])
+@pytest.mark.parametrize("kind", ["ckpt", "pth", "pth_model_key", "npz", "jax_ckpt"])
 def test_load_params_only_reads_each_format(tmp_path, kind):
     """The port's .ckpt, a reference .pth (bare state dict or under "model",
-    as the reference's trainer saves it) and a flax-params .npz."""
+    as the reference's trainer saves it), a flax-params .npz, and the JAX
+    package's .ckpt (`tests/fixtures/jax_trained_s233.ckpt`: the npz's
+    params, written by the JAX `Checkpointer.save`)."""
     from dual_space_nerf_tpu_torch.models import load_flax_npz
 
     cfg = load_cfg("")
     cfg.defrost()
     cfg.MODEL.MAX_FRAMES = 16
     want = build_model(cfg, seed=5)
-    if kind == "npz":
-        path = PARAMS_NPZ
+    if kind in ("npz", "jax_ckpt"):
+        path = PARAMS_NPZ if kind == "npz" else JAX_CKPT_FIXTURE
         want.load_state_dict(load_flax_npz(PARAMS_NPZ))
     elif kind == "ckpt":
         path = Checkpointer(str(tmp_path)).save("m", create_train_state(want, cfg), 1)
@@ -461,13 +500,65 @@ def _flat(tree) -> dict:
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.fixture(scope="module", params=list(PATHS))
+#: the fixture's cases: each path with both sides from the JAX key(233)
+#: init; and the production path's JAX run against the port resuming the
+#: JAX side's first-call directory (its flax `.ckpt`) for the second call
+CASES = list(PATHS) + ["production_from_jax_ckpt"]
+_JAX_SIDES: dict = {}
+
+
+def _recording_logger(name: str):
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.INFO)
+    logger.propagate = False
+    handler = _Records()
+    logger.handlers = [handler]
+    return logger, handler
+
+
+def _jax_side(path_kind: str, tmp_path_factory) -> dict:
+    """The JAX package's do_train calls of ``path_kind`` (once per module):
+    {"init", "writer", "records", "dir", "final", "step", "first"}, with
+    "first" the copy of its directory after the first call and the counts
+    of records and scalars written by then."""
+    if path_kind in _JAX_SIDES:
+        return _JAX_SIDES[path_kind]
+    work = tmp_path_factory.mktemp(f"jax_do_train_{path_kind}")
+    (work / "cfg.yml").write_text(PARITY_CFG.format(**PATHS[path_kind]))
+    jcfg = jax_load_cfg(str(work / "cfg.yml"))
+    jmodel = jax_build_model(jcfg)
+    init = jmodel.init(jax.random.key(233), jnp.zeros((4, 3)), jnp.zeros((4,), jnp.int32),
+                       jnp.zeros((4, 16)))
+    logger, handler = _recording_logger(f"do_train_parity.{path_kind}.jax")
+    writer = _Writer()
+    out_dir = str(work / "jax")
+    first = None
+    for n, max_epochs in enumerate(CALLS[path_kind]):
+        train_set, _ = jax_select_dataset(jcfg, train_nrays=32)
+        state = jax_do_train(jcfg, jmodel, train_set, jax_load_faces(jcfg, train_set),
+                             writer, logger, out_dir, max_epochs=max_epochs)
+        if n == 0:
+            shutil.copytree(out_dir, work / "jax_first_call")
+            first = {"dir": str(work / "jax_first_call"), "records": len(handler.records),
+                     "scalars": len(writer.scalars)}
+    _JAX_SIDES[path_kind] = {"init": init, "writer": writer, "records": handler.records,
+                             "dir": out_dir, "final": state_dict_from_flax(_flat(state.params)),
+                             "step": int(state.step), "first": first}
+    return _JAX_SIDES[path_kind]
+
+
+@pytest.fixture(scope="module", params=CASES)
 def trained(request, tmp_path_factory):
-    """Both packages' do_train on one path, from the JAX key(233) init,
-    deterministic data: (jax, torch) each {"writer", "records", "dir",
-    "final"} (final: reference-named state dict)."""
-    path_kind = request.param
-    work = tmp_path_factory.mktemp(f"do_train_{path_kind}")
+    """Both packages' do_train on one path, deterministic data: (jax,
+    torch) each {"writer", "records", "dir", "final", "step"} (final:
+    reference-named state dict). The port starts from the JAX key(233)
+    init; in "production_from_jax_ckpt" it runs only the second call, in a
+    copy of the JAX side's first-call directory, and both sides' records
+    and scalars are the second call's."""
+    case = request.param
+    from_jax = case == "production_from_jax_ckpt"
+    path_kind = "production" if from_jax else case
+    work = tmp_path_factory.mktemp(f"do_train_{case}")
     cfg_path = work / "cfg.yml"
     cfg_path.write_text(PARITY_CFG.format(**PATHS[path_kind]))
     mp = MonkeyPatch()
@@ -475,39 +566,33 @@ def trained(request, tmp_path_factory):
     for var in ("DSNERF_SEED", "DSNERF_LOADER_BACKEND", "DSNERF_VAL_PERIOD"):
         mp.delenv(var, raising=False)
     try:
-        jcfg, cfg = jax_load_cfg(str(cfg_path)), load_cfg(str(cfg_path))
-        jmodel = jax_build_model(jcfg)
-        init = jmodel.init(jax.random.key(233), jnp.zeros((4, 3)), jnp.zeros((4,), jnp.int32),
-                           jnp.zeros((4, 16)))
-        out = {}
-        for side in ("jax", "torch"):
-            logger = logging.getLogger(f"do_train_parity.{path_kind}.{side}")
-            logger.setLevel(logging.INFO)
-            logger.propagate = False
-            handler = _Records()
-            logger.handlers = [handler]
-            writer = _Writer()
-            out_dir = str(work / side)
-            for n, max_epochs in enumerate(CALLS[path_kind]):
-                if side == "jax":
-                    train_set, _ = jax_select_dataset(jcfg, train_nrays=32)
-                    state = jax_do_train(jcfg, jmodel, train_set, jax_load_faces(jcfg, train_set),
-                                         writer, logger, out_dir, max_epochs=max_epochs)
-                    final = state_dict_from_flax(_flat(state.params))
-                else:
-                    train_set, _ = select_dataset(cfg, train_nrays=32)
-                    # a resumed call starts from another init: the checkpoint must replace it
-                    model = build_model(cfg, seed=n + 1)
-                    if n == 0:
-                        model.load_state_dict(state_dict_from_flax(_flat(init)))
-                    state = do_train(cfg, model, train_set, load_faces(cfg, train_set), writer,
-                                     logger, out_dir, max_epochs=max_epochs, device="cpu")
-                    final = state.model.state_dict()
-            out[side] = {"writer": writer, "records": handler.records, "dir": out_dir,
-                         "final": final, "step": int(state.step)}
+        jax_side = _jax_side(path_kind, tmp_path_factory)
+        cfg = load_cfg(str(cfg_path))
+        logger, handler = _recording_logger(f"do_train_parity.{case}.torch")
+        writer = _Writer()
+        out_dir = str(work / "torch")
+        calls = list(enumerate(CALLS[path_kind]))
+        if from_jax:
+            shutil.copytree(jax_side["first"]["dir"], out_dir)
+            calls = calls[1:]
+        for n, max_epochs in calls:
+            train_set, _ = select_dataset(cfg, train_nrays=32)
+            # a resumed call starts from another init: the checkpoint must replace it
+            model = build_model(cfg, seed=n + 1)
+            if n == 0:
+                model.load_state_dict(state_dict_from_flax(_flat(jax_side["init"])))
+            state = do_train(cfg, model, train_set, load_faces(cfg, train_set), writer,
+                             logger, out_dir, max_epochs=max_epochs, device="cpu")
     finally:
         mp.undo()
-    return out
+    jax_out = dict(jax_side)
+    if from_jax:  # the second call's records and scalars
+        jax_out["records"] = jax_side["records"][jax_side["first"]["records"]:]
+        jax_out["writer"] = _Writer()
+        jax_out["writer"].scalars = jax_side["writer"].scalars[jax_side["first"]["scalars"]:]
+    return {"jax": jax_out,
+            "torch": {"writer": writer, "records": handler.records, "dir": out_dir,
+                      "final": state.model.state_dict(), "step": int(state.step)}}
 
 
 def test_do_train_logs_match_jax(trained):
@@ -549,7 +634,9 @@ def test_do_train_final_params_match_jax(trained):
     state or a skipped update would part by ~lr / max ~ 1e-2. Measured:
     2.2e-5 on the production path across the resume, 1.0e-5 on the exact
     path (`nerf.stage2.2.weight` both; Adam moves an entry whose gradient
-    is ~0 by up to lr either way, so near-zero gradients part first)."""
+    is ~0 by up to lr either way, so near-zero gradients part first), 5.9e-7
+    where the port resumes the JAX side's checkpoint (one call of 4 steps
+    apart, from the same params and Adam moments)."""
     j, t = trained["jax"]["final"], trained["torch"]["final"]
     assert set(t) == set(j)
     for name, want in j.items():

@@ -322,3 +322,29 @@ def test_two_process_train_cli_matches_one_process(tmp_path):
     assert got["step"] == want["step"] == 8
     for n, w in want["model"].items():
         assert float((got["model"][n] - w).abs().max()) <= 1e-5, n
+
+
+def test_two_rank_validation_outlasting_the_group_timeout(tmp_path):
+    """Two gloo ranks run `do_train` (tiny config, two epochs, a validation
+    after each: DSNERF_VAL_PERIOD=1) in a group with a 4 s timeout, and rank
+    0's first validation sleeps 6 s. The other rank waits for it in the
+    loop's own barrier (a gloo group sized for a validation), not in the
+    next step's all-reduce, where the group's timeout would end the run;
+    both ranks end with the same parameters, bit for bit."""
+    from torch_port_parallel_workers import slow_validation_rank
+
+    (tmp_path / "tiny.yml").write_text(TINY_CLI_CFG)
+    mp = MonkeyPatch()
+    try:
+        for var in ("DSNERF_SEED", "DSNERF_LOADER_BACKEND", "DSNERF_NUM_PROCESSES",
+                    "DSNERF_COORD_ADDR", "DSNERF_PROCESS_ID"):
+            mp.delenv(var, raising=False)
+        mp.setenv("DSNERF_VAL_PERIOD", "1")
+        spawn_ranks(slow_validation_rank, 2, args=(str(tmp_path), 4.0, 6.0), timeout=SPAWN_TIMEOUT)
+    finally:
+        mp.undo()
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=True) for r in range(2)]
+    assert set(ranks[0]) == set(ranks[1]) and ranks[0]
+    for n, p in ranks[0].items():
+        assert torch.equal(p, ranks[1][n]), n
+    assert os.path.exists(tmp_path / "EXP" / "t" / "model_epoch_0000002.ckpt")

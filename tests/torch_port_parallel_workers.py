@@ -65,3 +65,51 @@ def fail_or_wait(rank: int) -> None:
     if rank == 1:
         raise SystemExit(3)
     time.sleep(120)
+
+
+def slow_validation_rank(rank: int, work: str, group_timeout: float, val_sleep: float) -> None:
+    """`do_train` of the tiny config in ``work`` (two epochs, validation
+    after each, DSNERF_VAL_PERIOD from the parent) as one rank of a gloo
+    group whose timeout is ``group_timeout`` seconds; rank 0's first
+    validation sleeps ``val_sleep`` seconds. Each rank saves its final
+    parameters to ``work/rank<r>.pt``."""
+    import datetime
+    import logging
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from dual_space_nerf_tpu_torch.cli.common import build_model, load_cfg, load_faces
+    from dual_space_nerf_tpu_torch.data import select_dataset
+    from dual_space_nerf_tpu_torch.parallel import maybe_initialize_distributed
+    from dual_space_nerf_tpu_torch.training.loop import do_train
+    from dual_space_nerf_tpu_torch.utils.logger import _NullWriter
+
+    torch.set_num_threads(1)
+    os.chdir(work)
+    cfg = load_cfg("tiny.yml")
+    train_set, _ = select_dataset(cfg, train_nrays=cfg.SOLVER.TRAIN_NRAYS)
+    model = build_model(cfg, seed=233)
+    faces = load_faces(cfg, train_set)
+    slept = []
+
+    def val_fn(state, epoch):
+        if not slept:
+            time.sleep(val_sleep)
+            slept.append(epoch)
+        return {"psnr_wMask": 0.0}
+
+    assert maybe_initialize_distributed("gloo")
+    try:
+        # the group the steps run in, with the short timeout; the default
+        # group's (long) one covers the ranks' start
+        group = dist.new_group([0, 1], backend="gloo",
+                               timeout=datetime.timedelta(seconds=group_timeout))
+        state = do_train(cfg, model, train_set, faces, _NullWriter(), logging.getLogger(f"rank{rank}"),
+                         os.path.join("EXP", "t"), val_fn=val_fn, mesh_devices=group, max_epochs=3,
+                         device="cpu")
+        torch.save({n: p.detach() for n, p in state.model.named_parameters()},
+                   os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
