@@ -1,0 +1,7 @@
+"""Device kernels per image in the traced stretch."""
+
+from portbench import readers
+
+
+def read(r: readers.Readings):
+    return readers.launches_per_unit(r)

@@ -1,0 +1,7 @@
+"""Device ms of GG and the nearest-face searches per image."""
+
+from portbench import readers
+
+
+def read(r: readers.Readings):
+    return readers.search_ms_per_unit(r)
