@@ -45,7 +45,9 @@ def parse_args(argv=None):
                         help="override SOLVER.MAX_EPOCHS (0 = use config)")
     parser.add_argument("--profile_dir", type=str, default="",
                         help="write a torch.profiler trace of the first epoch "
-                             "here (TensorBoard format)")
+                             "here (TensorBoard format), with the program's "
+                             "dsnerf.* stage spans (step.forward/backward/optimizer, "
+                             "render.*, loader.*) and the loader's threads")
     parser.add_argument("--debug_nans", action="store_true",
                         help="run under torch.autograd.set_detect_anomaly (the "
                              "reference's commented-out call, main.py:70)")

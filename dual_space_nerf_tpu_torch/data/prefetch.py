@@ -27,6 +27,16 @@ meanwhile (stopping it would deadlock a worker that holds the head).
 Unordered, the thread backend's bounded queue keeps the count, and the
 process backend hands the pool an item only for one yielded.
 
+``stats`` counts, over the loader's life, the items yielded (``items``),
+the consumer's time blocked waiting for the next item (``wait_s``) and the
+time spent in the transform, on whichever thread runs it
+(``transform_s``); a reader takes the difference of two readings. With
+tracing on (`utils/tracing.py`) the same parts are the spans
+``loader.wait`` (the consumer's blocking read), ``loader.fetch``
+(``dataset[i]`` on a worker thread; under the process backend it runs in
+the forked workers, which no profiler of this process sees) and
+``loader.transform``.
+
 An exception in a worker or in the transform fails the epoch in the
 consumer. Abandoning an epoch (``break``, generator GC, a new ``iter()``)
 stops the workers: they check a per-epoch stop event between items, and
@@ -39,9 +49,12 @@ import multiprocessing
 import os
 import queue
 import threading
+import time
 from typing import Callable, Iterator
 
 import numpy as np
+
+from ..utils import tracing
 
 _SENTINEL = object()
 
@@ -94,6 +107,31 @@ class PrefetchLoader:
                 "'thread' or 'process' (DSNERF_LOADER_BACKEND)"
             )
         self.backend = backend
+        self._stats_lock = threading.Lock()
+        self._items, self._wait_s, self._transform_s = 0, 0.0, 0.0
+
+    @property
+    def stats(self) -> dict:
+        """The counters so far: {"items", "wait_s", "transform_s"}."""
+        with self._stats_lock:
+            return {"items": self._items, "wait_s": self._wait_s, "transform_s": self._transform_s}
+
+    def _count(self, wait_s: float, transform_s: float) -> None:
+        """One item yielded, after ``wait_s`` blocked in the consumer and
+        ``transform_s`` in its transform."""
+        with self._stats_lock:
+            self._items += 1
+            self._wait_s += wait_s
+            self._transform_s += transform_s
+
+    def _transform(self, item) -> tuple:
+        """(the transformed item, the seconds the transform took)."""
+        if self.transform is None:
+            return item, 0.0
+        t0 = time.perf_counter()
+        with tracing.span("loader.transform"):
+            item = self.transform(item)
+        return item, time.perf_counter() - t0
 
     def __len__(self) -> int:
         return len(self.dataset)
@@ -123,9 +161,16 @@ class PrefetchLoader:
 
         try:
             imap = pool.imap if self.ordered else pool.imap_unordered
-            for item in imap(_get_item, dispatch()):
-                if self.transform is not None:
-                    item = self.transform(item)
+            items = imap(_get_item, dispatch())
+            while True:
+                t0 = time.perf_counter()
+                with tracing.span("loader.wait"):
+                    item = next(items, _SENTINEL)
+                wait = time.perf_counter() - t0
+                if item is _SENTINEL:
+                    return
+                item, took = self._transform(item)
+                self._count(wait, took)
                 yield item
                 slots.release()
         finally:
@@ -168,9 +213,9 @@ class PrefetchLoader:
                         if stop.is_set():
                             return
                     try:
-                        item = self.dataset[i]
-                        if self.transform is not None:
-                            item = self.transform(item)
+                        with tracing.span("loader.fetch"):
+                            item = self.dataset[i]
+                        item, took = self._transform(item)
                     except BaseException as exc:
                         # fail the epoch: stopping drains the pool, the
                         # closer posts the sentinel, the consumer re-raises
@@ -179,7 +224,7 @@ class PrefetchLoader:
                         return
                     while not stop.is_set():
                         try:
-                            out_q.put((seq, item), timeout=0.1)
+                            out_q.put((seq, item, took), timeout=0.1)
                             break
                         except queue.Full:
                             continue
@@ -212,20 +257,29 @@ class PrefetchLoader:
             # window keeps the buffer at most prefetch + num_workers items
             buffered: dict = {}
             next_seq = 0
+            wait = 0.0  # blocked since the last item yielded
             while True:
-                got = out_q.get()
+                t0 = time.perf_counter()
+                with tracing.span("loader.wait"):
+                    got = out_q.get()
+                wait += time.perf_counter() - t0
                 if got is _SENTINEL:
                     if error[0] is not None:
                         i, exc = error[0]
                         raise RuntimeError(f"prefetch worker failed on dataset[{i}]") from exc
                     return
-                seq, item = got
+                seq, item, took = got
                 if not self.ordered:
+                    self._count(wait, took)
+                    wait = 0.0
                     yield item
                     continue
-                buffered[seq] = item
+                buffered[seq] = (item, took)
                 while next_seq in buffered:
-                    yield buffered.pop(next_seq)
+                    item, took = buffered.pop(next_seq)
+                    self._count(wait, took)
+                    wait = 0.0
+                    yield item
                     next_seq += 1
                     with moved:
                         yielded[0] = next_seq

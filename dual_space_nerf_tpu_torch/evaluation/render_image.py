@@ -15,6 +15,11 @@ canvas is float32 either way.
 With ``devices`` each chunk's rays are split evenly over the devices (one
 model replica per device), and the outputs are gathered on the first device
 before the copy: the JAX package's ray-sharded eval (`mesh_devices`).
+
+With tracing on (`utils/tracing.py`) an image is the spans ``image.mesh``
+(the item's mesh and light on each device), the chunks' ``render.*``
+stages, and ``image.pack`` (the concatenation, the cast and the copy,
+where the host waits for the card).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from ..data.batching import item_to_mesh, iter_ray_chunks
 from ..device import resolve_device
 from ..renderer import LightState, RayBatch, RenderSettings, render_rays
+from ..utils import tracing
 
 # per-ray outputs kept, with their channel counts
 _KEYS = (("color", 3), ("disp_map", 1), ("acc_map", 1), ("depth_map", 1))
@@ -101,8 +107,9 @@ class ImageRenderer:
         coarse_disp/acc/depth (H, W, 1); with the fine pass fine_color and
         fine_disp/acc/depth too."""
         light = LightState.identity() if light is None else light
-        meshes = {d: item_to_mesh(item, self.faces, self.verts_cano, d) for d in self.replicas}
-        lights = {d: LightState(*(t.to(d) for t in light)) for d in self.replicas}
+        with tracing.span("image.mesh"):
+            meshes = {d: item_to_mesh(item, self.faces, self.verts_cano, d) for d in self.replicas}
+            lights = {d: LightState(*(t.to(d) for t in light)) for d in self.replicas}
         passes = ("coarse", "fine") if self.settings.n_fine > 0 else ("coarse",)
         keys = [(("" if p == "coarse" else "fine_") + k, c, p) for p in passes for k, c in _KEYS]
         parts = []
@@ -114,12 +121,13 @@ class ImageRenderer:
         H, W = item["img"].shape[:2]
         mask = np.asarray(item["mask_at_box"]).reshape(-1).astype(bool)
         width = sum(c for _, c, _ in keys)
-        canvas = np.zeros((H * W, width), np.float32)
-        if parts:  # one device-to-host copy per image, float16 under the f16 pack
-            packed = torch.cat(parts)
-            if self.pack == "f16":
-                packed = packed.to(torch.float16)
-            canvas[mask] = packed.cpu().numpy()
+        with tracing.span("image.pack"):  # the host waits for the card here
+            canvas = np.zeros((H * W, width), np.float32)
+            if parts:  # one device-to-host copy per image, float16 under the f16 pack
+                packed = torch.cat(parts)
+                if self.pack == "f16":
+                    packed = packed.to(torch.float16)
+                canvas[mask] = packed.cpu().numpy()
         images, col = {}, 0
         for (k, c, p), name in zip(keys, ("color", "disp", "acc", "depth") * len(passes)):
             images[f"{p}_{name}"] = canvas[:, col:col + c].reshape(H, W, c)

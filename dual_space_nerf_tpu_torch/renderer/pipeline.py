@@ -52,6 +52,17 @@ are detached. The fine pass takes its own uniforms and noise.
 The JAX package's REMAT (rematerialization) and FUSED_BLOCK (the
 TPU kernels' grid block) change no number; the port does not read them: it
 keeps the whole graph, and its fused kernels tile by 64 points.
+
+With tracing on (`utils/tracing.py`) each stage of a pass is a profiler
+span, entered once a pass and not once an mlp_chunk slice (the set-up is
+entered before and after the world search, which keeps its place in the
+order of ops): ``render.sample`` (GG near/far, z, the sample
+points, the face centroids and table, the pose feature and frame code),
+``render.search`` (each nearest-face search), ``render.density`` and
+``render.select`` (the gated path's density pass and its top-K selection
+with the selected points' warp), ``render.warp`` (the full path's warp),
+``render.color`` (the triangles' gather, the networks, the normal, the
+lighting) and ``render.composite``.
 """
 
 from __future__ import annotations
@@ -85,6 +96,7 @@ from ..ops import (
     slot_perm_from_tiles,
 )
 from ..ops.nearest_face import check_knn_impl
+from ..utils import tracing
 
 # The renderer is float32 throughout and is held against a float32 reference.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -276,19 +288,20 @@ def _search(pts: torch.Tensor, centroids: torch.Tensor, mesh: MeshBundle,
     return_slots (listed only): tile-slot ids for a slot-ordered table.
     group ("grouped" only): consecutive points that share one candidate set
     (samples of one ray, in ray-major order)."""
-    if settings.knn_impl == "listed":
-        if mesh.tile_table is None:
-            raise ValueError("knn_impl 'listed' needs MeshBundle.tile_table (item_to_mesh builds it)")
-        return pruned_search_listed(pts, centroids, mesh.tile_table,
-                                    return_slots=return_slots, tables=tables)
-    if settings.knn_impl == "grouped":
-        if mesh.cluster_table is None:
-            raise ValueError("knn_impl 'grouped' needs MeshBundle.cluster_table (item_to_mesh builds it)")
-        n = pts.shape[0]
-        return nearest_face_grouped(pts.reshape(n // group, group, 3), centroids,
-                                    mesh.cluster_table).reshape(n)
-    return nearest_face(pts, centroids, settings.knn_impl, mesh.cluster_table,
-                        face_perm=mesh.face_perm)
+    with tracing.span("render.search"):
+        if settings.knn_impl == "listed":
+            if mesh.tile_table is None:
+                raise ValueError("knn_impl 'listed' needs MeshBundle.tile_table (item_to_mesh builds it)")
+            return pruned_search_listed(pts, centroids, mesh.tile_table,
+                                        return_slots=return_slots, tables=tables)
+        if settings.knn_impl == "grouped":
+            if mesh.cluster_table is None:
+                raise ValueError("knn_impl 'grouped' needs MeshBundle.cluster_table (item_to_mesh builds it)")
+            n = pts.shape[0]
+            return nearest_face_grouped(pts.reshape(n // group, group, 3), centroids,
+                                        mesh.cluster_table).reshape(n)
+        return nearest_face(pts, centroids, settings.knn_impl, mesh.cluster_table,
+                            face_perm=mesh.face_perm)
 
 
 def _search_canonical(pts_c: torch.Tensor, centroids_c: torch.Tensor, mesh: MeshBundle,
@@ -407,25 +420,29 @@ def _light_space(pts_w: torch.Tensor, light: LightState) -> torch.Tensor:
 
 
 def _color_pass(model, settings: RenderSettings, light: LightState, pts_w, pts_c, dir_w,
-                code, pose_feat, tris_c2, tris_w2):
+                code, pose_feat, faces_wc, cidx):
     """`_point_network` over slices of mlp_chunk points (one call under the
-    fused kernels, which hold no activation of the slice in device memory):
+    fused kernels, which hold no activation of the slice in device memory),
+    the normal carried through the triangles of ``faces_wc`` rows ``cidx``:
     color (n, 3), sigma (n,) (before the transparent mask)."""
-    n = pts_w.shape[0]
-    chunk = max(n, 1) if _use_fused(settings, model) else settings.mlp_chunk
-    pts_w_light = _light_space(pts_w, light)
-    colors, sigmas = [], []
-    for a in range(0, n, chunk):
-        sl = slice(a, a + chunk)
-        m = pts_w[sl].shape[0]
-        c, s = _point_network(
-            model, settings, pts_w_light[sl], pts_c[sl], dir_w[sl], code,
-            pose_feat.expand(m, pose_feat.shape[-1]), light.code_scale,
-            tris_c2[sl], tris_w2[sl],
-        )
-        colors.append(c)
-        sigmas.append(s)
-    return torch.cat(colors), torch.cat(sigmas)
+    with tracing.span("render.color"):
+        tris_wc2 = faces_wc[cidx]                                    # (n, 18)
+        tris_c2, tris_w2 = tris_wc2[:, 9:].reshape(-1, 3, 3), tris_wc2[:, :9].reshape(-1, 3, 3)
+        n = pts_w.shape[0]
+        chunk = max(n, 1) if _use_fused(settings, model) else settings.mlp_chunk
+        pts_w_light = _light_space(pts_w, light)
+        colors, sigmas = [], []
+        for a in range(0, n, chunk):
+            sl = slice(a, a + chunk)
+            m = pts_w[sl].shape[0]
+            c, s = _point_network(
+                model, settings, pts_w_light[sl], pts_c[sl], dir_w[sl], code,
+                pose_feat.expand(m, pose_feat.shape[-1]), light.code_scale,
+                tris_c2[sl], tris_w2[sl],
+            )
+            colors.append(c)
+            sigmas.append(s)
+        return torch.cat(colors), torch.cat(sigmas)
 
 
 def _block_layout(r: int, s: int, block_sc: int):
@@ -558,9 +575,10 @@ def render_rays(
             # the hierarchical pass (the JAX package's `render_rays`, its
             # `:599-618`): n_fine z values from the coarse weights, the
             # whole chain again on the sorted union
-            mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-            z_fine = sample_pdf(mids.detach(), out["weights"][..., 1:-1].detach(), nf, u_fine)
-            z_all = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1).values
+            with tracing.span("render.sample"):
+                mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+                z_fine = sample_pdf(mids.detach(), out["weights"][..., 1:-1].detach(), nf, u_fine)
+                z_all = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1).values
             fine = _render_with_z(model, batch, mesh, settings, light, z_all, noise_fine)
             out.update({f"fine_{k}": v for k, v in fine.items()})
         return out
@@ -571,12 +589,13 @@ def sample_z(batch: RayBatch, mesh: MeshBundle, settings: RenderSettings,
     """z (R, S) of a chunk: between the GG near/far of the posed mesh
     (sample_mode "GG") or the batch's own, evenly spaced, or stratified by
     the uniforms t_rand (R, S) when given."""
-    near, far = batch.near, batch.far
-    if settings.sample_mode == "GG":
-        near, far = gg_near_far_cuda(
-            batch.ray_o, batch.ray_d, near, far, mesh.verts_world, settings.gg_gamma
-        )
-    return stratified_z(near, far, settings.n_samples, t_rand)
+    with tracing.span("render.sample"):
+        near, far = batch.near, batch.far
+        if settings.sample_mode == "GG":
+            near, far = gg_near_far_cuda(
+                batch.ray_o, batch.ray_d, near, far, mesh.verts_world, settings.gg_gamma
+            )
+        return stratified_z(near, far, settings.n_samples, t_rand)
 
 
 def _render_with_z(model, batch: RayBatch, mesh: MeshBundle,
@@ -586,12 +605,6 @@ def _render_with_z(model, batch: RayBatch, mesh: MeshBundle,
     the sigma noise (R, S) of a training step, if any."""
     r, s = z_vals.shape
     n = r * s
-    pts_w = sample_along_rays(batch.ray_o, batch.ray_d, z_vals)     # (R, S, 3)
-    dir_w = batch.ray_d[:, None, :].expand(r, s, 3)
-
-    centroids_w = face_centroids(mesh.verts_world, mesh.faces)
-    centroids_c = face_centroids(mesh.verts_cano, mesh.faces)
-
     # The listed and pruned searches run in the block-coherent point order;
     # the networks do not care about the order, so it is undone only on the
     # per-point results. The listed search returns tile-slot ids, and every
@@ -600,28 +613,37 @@ def _render_with_z(model, batch: RayBatch, mesh: MeshBundle,
     # nothing outside this function sees them.
     blocked = settings.knn_impl in ("listed", "pruned")
     use_slots = settings.knn_impl == "listed"
-    from_blocked = None
-    if blocked:
-        to_blocked, from_blocked = _block_layout(r, s, settings.block_sc)
-        pts_w_flat = to_blocked(pts_w).contiguous()
-        dir_w_flat = to_blocked(dir_w)
-    else:
-        pts_w_flat = pts_w.reshape(n, 3)
-        dir_w_flat = dir_w.reshape(n, 3)
+    with tracing.span("render.sample"):
+        pts_w = sample_along_rays(batch.ray_o, batch.ray_d, z_vals)  # (R, S, 3)
+        dir_w = batch.ray_d[:, None, :].expand(r, s, 3)
+
+        centroids_w = face_centroids(mesh.verts_world, mesh.faces)
+        centroids_c = face_centroids(mesh.verts_cano, mesh.faces)
+
+        from_blocked = None
+        if blocked:
+            to_blocked, from_blocked = _block_layout(r, s, settings.block_sc)
+            pts_w_flat = to_blocked(pts_w).contiguous()
+            dir_w_flat = to_blocked(dir_w)
+        else:
+            pts_w_flat = pts_w.reshape(n, 3)
+            dir_w_flat = dir_w.reshape(n, 3)
 
     # the searches depend on geometry only; each runs once per chunk
     gsz = ray_group(s)
     fidx_w = _search(pts_w_flat, centroids_w, mesh, settings, mesh.world_tables, use_slots, gsz)
-    faces_wc = _faces_table(mesh, slot_perm_from_tiles(mesh.tile_table) if use_slots else None)
-    pose_feat = model.pose_feature(batch.body_pose)                  # (16,)
-    code = model.frame_code(batch.frame)
+    with tracing.span("render.sample"):
+        faces_wc = _faces_table(mesh, slot_perm_from_tiles(mesh.tile_table) if use_slots else None)
+        pose_feat = model.pose_feature(batch.body_pose)              # (16,)
+        code = model.frame_code(batch.frame)
 
     if 0 < settings.shade_topk < s:
         return _gated_shading(model, batch, mesh, settings, light, z_vals, pts_w,
                               pts_w_flat, fidx_w, faces_wc, centroids_c, code, pose_feat,
                               from_blocked, use_slots, noise)
 
-    pts_c, tmask, _, _ = _warp_chunk(pts_w_flat, fidx_w, faces_wc)
+    with tracing.span("render.warp"):
+        pts_c, tmask, _, _ = _warp_chunk(pts_w_flat, fidx_w, faces_wc)
     if settings.reuse_warp_faces:
         cidx = fidx_w
     else:
@@ -629,16 +651,14 @@ def _render_with_z(model, batch: RayBatch, mesh: MeshBundle,
         # package's `_full_shading_fused` does
         cidx = _search_canonical(pts_c, centroids_c, mesh, settings, use_slots,
                                  1 if _use_fused(settings, model) else gsz)
-    tris_wc2 = faces_wc[cidx]                                        # (N, 18)
-    color, sigma = _color_pass(
-        model, settings, light, pts_w_flat, pts_c, dir_w_flat, code, pose_feat,
-        tris_wc2[:, 9:].reshape(-1, 3, 3), tris_wc2[:, :9].reshape(-1, 3, 3),
-    )
-    sigma = torch.where(tmask, 0.0, sigma)
-    if blocked:
-        color, sigma = from_blocked(color), from_blocked(sigma)
-    return _outputs(composite(color.reshape(r, s, 3), sigma.reshape(r, s), z_vals, batch.ray_d,
-                              noise), z_vals)
+    color, sigma = _color_pass(model, settings, light, pts_w_flat, pts_c, dir_w_flat, code,
+                               pose_feat, faces_wc, cidx)
+    with tracing.span("render.composite"):
+        sigma = torch.where(tmask, 0.0, sigma)
+        if blocked:
+            color, sigma = from_blocked(color), from_blocked(sigma)
+        return _outputs(composite(color.reshape(r, s, 3), sigma.reshape(r, s), z_vals,
+                                  batch.ray_d, noise), z_vals)
 
 
 def _outputs(out, z_vals: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -676,39 +696,42 @@ def _gated_shading(model, batch: RayBatch, mesh: MeshBundle, settings: RenderSet
     # Under the fused kernels it is one call; otherwise slices of mlp_chunk
     # points. At eval it builds no autograd graph; in training its graph
     # carries the density gradient of every sample.
-    fused = _use_fused(settings, model)
-    chunk = max(n, 1) if fused else settings.mlp_chunk
-    sigmas = []
-    for a in range(0, n, chunk):
-        sl = slice(a, a + chunk)
-        pc, tmask, _, _ = _warp_chunk(pts_w_flat[sl], fidx_flat[sl], faces_wc)
-        pf = pose_feat.expand(pc.shape[0], pf_dim)
-        if fused:
-            density = fused_sigma(nerf_params(model.nerf),
-                                  *_fused_inputs(pc, code, pf, light.code_scale),
-                                  fast=settings.fused_fast)
-        else:
-            density = model.sigma_essence(pc, code, pf, light.code_scale, density_only=True)[1][:, 0]
-        sigmas.append(torch.where(tmask, 0.0, density))
-    sigma_flat = torch.cat(sigmas)
-    if from_blocked is not None:
-        sigma_flat = from_blocked(sigma_flat)
-        fidx_flat = from_blocked(fidx_flat)
-    sigma = sigma_flat.reshape(r, s)
+    with tracing.span("render.density"):
+        fused = _use_fused(settings, model)
+        chunk = max(n, 1) if fused else settings.mlp_chunk
+        sigmas = []
+        for a in range(0, n, chunk):
+            sl = slice(a, a + chunk)
+            pc, tmask, _, _ = _warp_chunk(pts_w_flat[sl], fidx_flat[sl], faces_wc)
+            pf = pose_feat.expand(pc.shape[0], pf_dim)
+            if fused:
+                density = fused_sigma(nerf_params(model.nerf),
+                                      *_fused_inputs(pc, code, pf, light.code_scale),
+                                      fast=settings.fused_fast)
+            else:
+                density = model.sigma_essence(pc, code, pf, light.code_scale,
+                                              density_only=True)[1][:, 0]
+            sigmas.append(torch.where(tmask, 0.0, density))
+        sigma_flat = torch.cat(sigmas)
+        if from_blocked is not None:
+            sigma_flat = from_blocked(sigma_flat)
+            fidx_flat = from_blocked(fidx_flat)
+        sigma = sigma_flat.reshape(r, s)
 
     # ---- the K samples per ray that carry the weight mass ----
     # selection and the final composite go through the one `composite`, so
     # they see the same weights (and, in training, the same noise); the
     # selection weights are detached, as the JAX package's stop_gradient does
-    zero_rgb = torch.zeros((r, s, 3), dtype=sigma.dtype, device=sigma.device)
-    w_sel = composite(zero_rgb, sigma.detach(), z_vals, batch.ray_d, noise).weights
-    top_idx = topk_first(w_sel, k)                                   # (R, K)
-    pw_sel = torch.take_along_dim(pts_w, top_idx[..., None], dim=1).reshape(r * k, 3)
-    fi_sel = torch.take_along_dim(fidx_flat.reshape(r, s), top_idx, dim=1).reshape(r * k)
-    dw_sel = batch.ray_d[:, None, :].expand(r, k, 3).reshape(r * k, 3)
+    with tracing.span("render.select"):
+        zero_rgb = torch.zeros((r, s, 3), dtype=sigma.dtype, device=sigma.device)
+        w_sel = composite(zero_rgb, sigma.detach(), z_vals, batch.ray_d, noise).weights
+        top_idx = topk_first(w_sel, k)                               # (R, K)
+        pw_sel = torch.take_along_dim(pts_w, top_idx[..., None], dim=1).reshape(r * k, 3)
+        fi_sel = torch.take_along_dim(fidx_flat.reshape(r, s), top_idx, dim=1).reshape(r * k)
+        dw_sel = batch.ray_d[:, None, :].expand(r, k, 3).reshape(r * k, 3)
 
-    # canonical coordinates of the selected points, from the face ids again
-    pc_sel, _, _, _ = _warp_chunk(pw_sel, fi_sel, faces_wc)
+        # canonical coordinates of the selected points, from the face ids again
+        pc_sel, _, _, _ = _warp_chunk(pw_sel, fi_sel, faces_wc)
     if settings.reuse_warp_faces:
         cidx = fi_sel
     else:
@@ -719,18 +742,16 @@ def _gated_shading(model, batch: RayBatch, mesh: MeshBundle, settings: RenderSet
         cidx = _search_canonical(pc_sel, centroids_c, mesh, settings, use_slots)
 
     # ---- the full color chain on the selected samples ----
-    tris_wc2 = faces_wc[cidx]
-    color_sel, _ = _color_pass(
-        model, settings, light, pw_sel, pc_sel, dw_sel, code, pose_feat,
-        tris_wc2[:, 9:].reshape(-1, 3, 3), tris_wc2[:, :9].reshape(-1, 3, 3),
-    )
+    color_sel, _ = _color_pass(model, settings, light, pw_sel, pc_sel, dw_sel, code, pose_feat,
+                               faces_wc, cidx)
 
     # tail completion: an unselected sample takes the color of the nearest
     # selected sample of its ray (colors vary smoothly along a ray), so the
     # weight tail adds about its true color and not black
-    nearest = nearest_selected(top_idx, s)                           # (R, S)
-    color = _TakeSelected.apply(color_sel.reshape(r, k, 3), nearest)
-    return _outputs(composite(color, sigma, z_vals, batch.ray_d, noise), z_vals)
+    with tracing.span("render.composite"):
+        nearest = nearest_selected(top_idx, s)                       # (R, S)
+        color = _TakeSelected.apply(color_sel.reshape(r, k, 3), nearest)
+        return _outputs(composite(color, sigma, z_vals, batch.ray_d, noise), z_vals)
 
 
 def density_grid(model, pts_c: torch.Tensor, frame: int, body_pose: torch.Tensor,

@@ -29,6 +29,7 @@ JAX package's (`training/checkpoint.py`), and the epoch comes from it.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import logging
 import os
@@ -42,6 +43,7 @@ from ..data.prefetch import PrefetchLoader
 from ..device import resolve_device
 from ..parallel.distributed import broadcast_object, broadcast_state, is_multiprocess, rank
 from ..renderer import RenderSettings
+from ..utils import tracing
 from .checkpoint import Checkpointer, PeriodicCheckpointer
 from .state import create_train_state, draw_randoms, make_train_step
 
@@ -50,6 +52,11 @@ from .state import create_train_state, draw_randoms, make_train_step
 #: the whole val set on one device (minutes for a real subject); the
 #: process group's own timeout is sized for a step's collectives
 VAL_WAIT_TIMEOUT = datetime.timedelta(hours=4)
+
+#: the port's addition to the JAX package's iteration log line: since the
+#: last line, the share of the wall time the loop waited on the loader, and
+#: the loader's transform time per item (`PrefetchLoader.stats`)
+LOADER_LOG = " Loader wait: %.1f%% transform: %.1f[ms/item]"
 
 
 def _train_seed() -> int:
@@ -73,6 +80,17 @@ def step_seed(seed: int, step: int) -> int:
     return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
 
 
+def _all_threads_config():
+    """The profiler setting that records threads the session did not start
+    on (the loader's), where the installed torch has it; else None."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    try:
+        return _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
+
+
 def do_train(
     cfg,
     model,
@@ -93,7 +111,9 @@ def do_train(
     """Train ``model`` (moved to ``device``: CUDA unless the caller passes
     another) and return the final `TrainState`. ``val_fn(state, epoch)``
     returns the validation metrics. ``profile_dir``: write a torch.profiler
-    trace of this run's first epoch there (TensorBoard format).
+    trace of this run's first epoch there (TensorBoard format), with the
+    program's ``dsnerf.*`` stage spans on (`utils/tracing.py`) and the
+    loader's threads recorded.
     ``mesh_devices``: None, or the process group whose ranks share every
     step's rays (`parallel.global_ray_group()`; TRAIN_NRAYS a multiple of
     its size, `parallel.pad_rays_for_mesh`). ``resume_from``: a checkpoint
@@ -156,11 +176,14 @@ def do_train(
                                             backend="gloo", timeout=VAL_WAIT_TIMEOUT)
                 if multiproc else None)
     prof = None
+    spans = contextlib.ExitStack()  # the stage spans, on while the profiler runs
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-        prof = profile(activities=acts, on_trace_ready=tensorboard_trace_handler(profile_dir))
+        prof = profile(activities=acts, on_trace_ready=tensorboard_trace_handler(profile_dir),
+                       experimental_config=_all_threads_config())
+        spans.enter_context(tracing.enabled())
         prof.start()
     try:
         # fresh runs start at epoch 1, as the reference's loop
@@ -171,6 +194,7 @@ def do_train(
             epoch_start = time.time()
             iters_start = epoch_start
             last_log_bidx = -1  # rays/s counts the true steps since the last log
+            loader_at = loader.stats
             pending = None      # (metrics, step, batch index), read one step late
 
             for batch_idx, (batch, geom) in enumerate(loader):
@@ -197,12 +221,18 @@ def do_train(
                         iters_start = time.time()
                         steps = bidx - last_log_bidx
                         last_log_bidx = bidx
+                        now = loader.stats
+                        waited = now["wait_s"] - loader_at["wait_s"]
+                        items = max(now["items"] - loader_at["items"], 1)
+                        transform_ms = 1e3 * (now["transform_s"] - loader_at["transform_s"]) / items
+                        loader_at = now
                         if is_main:
                             logger.info(
                                 "Epoch[%d] Iteration[%d/%d] Loss: %.3e "
-                                "Psnr: %.2f Lr: %.2e Speed: %.1f[rays/s]",
+                                "Psnr: %.2f Lr: %.2e Speed: %.1f[rays/s]" + LOADER_LOG,
                                 epoch, bidx, len(loader), float(m["loss"]),
                                 psnr_v, base_lr * lr_at(gstep), steps * nrays / max(dt, 1e-9),
+                                100.0 * waited / max(dt, 1e-9), transform_ms,
                             )
                 pending = (metrics, state.step, batch_idx)
 
@@ -214,6 +244,7 @@ def do_train(
             if prof is not None:  # the first epoch's trace
                 prof.stop()
                 prof = None
+                spans.close()
             # full-val renders every 40 epochs (`trainer.py:121-122`);
             # DSNERF_VAL_PERIOD overrides, 0 disables
             val_period = int(os.environ.get("DSNERF_VAL_PERIOD", "40"))
@@ -239,6 +270,7 @@ def do_train(
     finally:
         if prof is not None:
             prof.stop()
+        spans.close()
         if val_wait is not None:
             torch.distributed.destroy_process_group(val_wait)
     return state

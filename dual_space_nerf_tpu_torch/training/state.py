@@ -22,6 +22,7 @@ import torch
 
 from ..device import resolve_device
 from ..renderer import LightState, MeshBundle, RayBatch, RenderSettings, render_rays
+from ..utils import tracing
 from .loss import make_loss
 from .optim import make_optimizer
 
@@ -95,7 +96,12 @@ def make_train_step(settings: RenderSettings, loss_type: str = "L2", loss_with_m
     `parallel.global_ray_group()`): the step takes the global batch and
     draws, computes on this rank's share (`rank_share`), and averages the
     gradients and the metrics over the group in one all-reduce of a flat
-    buffer before the update, so every rank takes the same step."""
+    buffer before the update, so every rank takes the same step.
+
+    With tracing on (`utils/tracing.py`) the step's three parts are the
+    spans ``step.forward`` (render and loss), ``step.backward`` (the
+    backward and the zero gradients) and ``step.optimizer`` (the metrics,
+    the all-reduce, Adam and the schedule)."""
     loss_fn = make_loss(loss_type, loss_with_mask)
     dev = resolve_device(device)
     if group is not None:
@@ -108,35 +114,39 @@ def make_train_step(settings: RenderSettings, loss_type: str = "L2", loss_with_m
         if group is not None:
             batch, randoms = rank_share(batch, randoms, *share)
         state.optimizer.zero_grad(set_to_none=True)
-        dtype = next(model.parameters()).dtype  # float32; float64 for conditioning checks
-        light = LightState(*(t.to(dtype) for t in LightState.identity(dev)))
-        out = render_rays(model, batch.rays, mesh, settings, light, device=dev, train=True,
-                          randoms=randoms)
-        losses = loss_fn(out, batch.rgb, batch.occupancy)
-        if settings.n_fine > 0:
-            fine = {k[len("fine_"):]: v for k, v in out.items() if k.startswith("fine_")}
-            losses.update({f"fine_{k}": v for k, v in loss_fn(fine, batch.rgb, batch.occupancy).items()})
-        total = sum(losses.values())
-        total.backward()
-        params = list(model.parameters())
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        with torch.no_grad():
-            mse = ((out["color"] - batch.rgb) ** 2).mean()
-            scalars = [total.detach(), *(v.detach() for v in losses.values()), mse]
-            if group is not None:
-                # one all-reduce: every gradient, then the metrics
-                flat = torch.cat([p.grad.reshape(-1) for p in params]
-                                 + [v.reshape(1).to(params[0].grad.dtype) for v in scalars])
-                all_reduce_mean_(flat, group)
-                at = 0
-                for p in params:
-                    p.grad.copy_(flat[at:at + p.numel()].view_as(p))
-                    at += p.numel()
-                scalars = [flat[at + i].to(v.dtype) for i, v in enumerate(scalars)]
-        state.optimizer.step()
-        state.scheduler.step()
+        with tracing.span("step.forward"):
+            dtype = next(model.parameters()).dtype  # float32; float64 for conditioning checks
+            light = LightState(*(t.to(dtype) for t in LightState.identity(dev)))
+            out = render_rays(model, batch.rays, mesh, settings, light, device=dev, train=True,
+                              randoms=randoms)
+            losses = loss_fn(out, batch.rgb, batch.occupancy)
+            if settings.n_fine > 0:
+                fine = {k[len("fine_"):]: v for k, v in out.items() if k.startswith("fine_")}
+                losses.update({f"fine_{k}": v
+                               for k, v in loss_fn(fine, batch.rgb, batch.occupancy).items()})
+            total = sum(losses.values())
+        with tracing.span("step.backward"):
+            total.backward()
+            params = list(model.parameters())
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        with tracing.span("step.optimizer"):
+            with torch.no_grad():
+                mse = ((out["color"] - batch.rgb) ** 2).mean()
+                scalars = [total.detach(), *(v.detach() for v in losses.values()), mse]
+                if group is not None:
+                    # one all-reduce: every gradient, then the metrics
+                    flat = torch.cat([p.grad.reshape(-1) for p in params]
+                                     + [v.reshape(1).to(params[0].grad.dtype) for v in scalars])
+                    all_reduce_mean_(flat, group)
+                    at = 0
+                    for p in params:
+                        p.grad.copy_(flat[at:at + p.numel()].view_as(p))
+                        at += p.numel()
+                    scalars = [flat[at + i].to(v.dtype) for i, v in enumerate(scalars)]
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
         total, *terms, mse = scalars
         return {"loss": total, "psnr": -10.0 * torch.log10(mse), **dict(zip(losses, terms))}
