@@ -34,7 +34,9 @@ LEGS = ("fixed", "gg", "prod")
 def slice_cfg():
     """The eval slice's config: `configs/zju_mocap/313.yml` semantics (64 GG
     samples, full shading, no face reuse, no fine pass), the brute-force
-    search, and the trained fixture's 16-frame embedding."""
+    search, the plain network chain (`MODEL.FUSED_MLP` "off", which "auto"
+    resolves to on the CPU only), and the trained fixture's 16-frame
+    embedding."""
     from ..config import get_cfg_defaults
 
     cfg = get_cfg_defaults()
@@ -44,6 +46,7 @@ def slice_cfg():
     cfg.MODEL.SHADE_TOPK = 0
     cfg.MODEL.REUSE_WARP_FACES = False
     cfg.MODEL.KNN_IMPL = "pallas"
+    cfg.MODEL.FUSED_MLP = "off"
     cfg.MODEL.MAX_FRAMES = 16
     cfg.TEST.RAY_CHUNK = 8192
     return cfg

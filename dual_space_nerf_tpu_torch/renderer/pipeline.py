@@ -33,10 +33,15 @@ are torch ops and need `MeshBundle.cluster_table` ("clustered", "grouped").
 `MODEL.FUSED_MLP: "on"` runs SpaceNet's density, essence and normal chain
 through the fused kernels of `ops/fused_mlp.py` (hand-derived second-order
 backward): the density pass over all samples in one call, the color pass in
-one call. "auto" is off, as in the JAX package. `MODEL.FUSED_FAST` feeds
-their products bfloat16 operands (float32 sums); without `FUSED_MLP` it
-changes nothing, as in the JAX package. `MODEL.MATMUL_PRECISION: "bf16"` is
-the model's compute dtype (`models/spacenet.py`), not a render setting.
+one call; "off" runs the plain chain (cuBLAS products and autograd's normal,
+in slices of mlp_chunk points). "auto", the default, is resolved per pass
+from the model (`network_path`): the float32 fused kernels where its
+parameters are on a CUDA device and it computes in float32, the plain chain
+elsewhere (the CPU, a bfloat16 or float64 model), which the JAX package's
+"auto" runs everywhere. Only the default SpaceNet shape takes the kernels. `MODEL.FUSED_FAST` feeds their products bfloat16 operands (float32
+sums); it is read only under "on", so it changes nothing under "auto" or
+"off", as in the JAX package. `MODEL.MATMUL_PRECISION: "bf16"` is the
+model's compute dtype (`models/spacenet.py`), not a render setting.
 
 `MODEL.FINE_RAY_SAMPLING > 0` adds the hierarchical pass: `sample_pdf`
 draws n_fine more z values from the coarse pass's weights, and the whole
@@ -166,11 +171,14 @@ def resolve_mlp_chunk(cfg_value: int, shade_topk: int) -> int:
     return 16384 if 0 < shade_topk <= 8 else 8192
 
 
-def resolve_fused(cfg_value) -> bool:
-    """MODEL.FUSED_MLP as the JAX package resolves it ("auto" is off)."""
+def resolve_fused(cfg_value) -> bool | None:
+    """MODEL.FUSED_MLP: True for "on", False for "off", None for "auto",
+    which each pass resolves from the model (`network_path`)."""
     if isinstance(cfg_value, str):
         v = cfg_value.lower()
-        if v in ("auto", "off", "false", "0"):
+        if v == "auto":
+            return None
+        if v in ("off", "false", "0"):
             return False
         if v in ("on", "true", "1"):
             return True
@@ -201,9 +209,10 @@ class RenderSettings:
     # deviation; both draw on the randoms passed to render_rays
     perturb: float = 1.0
     raw_noise_std: float = 1.0
-    # SpaceNet through the fused kernels (ops/fused_mlp.py); fused_fast:
-    # their bfloat16-fed variants (read only with fused_mlp)
-    fused_mlp: bool = False
+    # SpaceNet through the fused kernels (ops/fused_mlp.py): True "on",
+    # False "off", None "auto" (resolved per pass, `network_path`);
+    # fused_fast: their bfloat16-fed variants (read only with fused_mlp True)
+    fused_mlp: bool | None = None
     fused_fast: bool = False
     # hierarchical samples per ray of the fine pass (FINE_RAY_SAMPLING); 0: none
     n_fine: int = 0
@@ -370,13 +379,36 @@ def normal_canonical_to_world(
     )
 
 
-def _use_fused(settings: RenderSettings, model) -> bool:
-    """The fused kernels serve exactly the default SpaceNet (code 8, width
-    256, essence 3, 10 posenc frequencies); other models take the plain
-    chain, as in the JAX package."""
+def network_path(fused_mlp: bool | None, fused_fast: bool, device_type: str,
+                 dtype: torch.dtype, default_shape: bool) -> str:
+    """How SpaceNet's passes run: "plain" (the cuBLAS chain and autograd's
+    normal, in slices of mlp_chunk points), "fused" (the float32 fused
+    kernels, one call a pass) or "fast" (their bfloat16-fed entry points).
+
+    A function of the setting (`RenderSettings.fused_mlp`: True "on", False
+    "off", None "auto") and of what the model shows: its parameters' device
+    type, the dtype it computes in, and whether it is the default SpaceNet
+    that the kernels serve (other models take the plain chain, as in the
+    JAX package). "on" takes FUSED_FAST; "auto" takes the float32 kernels
+    on a CUDA device in float32 and the plain chain elsewhere, and never
+    reads FUSED_FAST, so no pass computes below the model's precision."""
+    if not default_shape or fused_mlp is False:
+        return "plain"
+    if fused_mlp is None:
+        return "fused" if device_type == "cuda" and dtype == torch.float32 else "plain"
+    return "fast" if fused_fast else "fused"
+
+
+def _network_path(settings: RenderSettings, model) -> str:
+    """`network_path` of this model: the default SpaceNet is code 8, width
+    256, essence 3 and 10 posenc frequencies; its compute dtype is
+    MATMUL_PRECISION's, else its parameters'."""
     nerf = model.nerf
-    return (settings.fused_mlp and model.code_dim == 8 and nerf.pe_freqs == 10
-            and nerf.stage1[0].out_features == 256 and nerf.rgb_net[3].out_features == 3)
+    weight = nerf.stage1[0].weight
+    default_shape = (model.code_dim == 8 and nerf.pe_freqs == 10
+                     and nerf.stage1[0].out_features == 256 and nerf.rgb_net[3].out_features == 3)
+    return network_path(settings.fused_mlp, settings.fused_fast, weight.device.type,
+                        model.compute_dtype or weight.dtype, default_shape)
 
 
 def _fused_inputs(pts_c, code, pose_feat, code_scale):
@@ -387,17 +419,18 @@ def _fused_inputs(pts_c, code, pose_feat, code_scale):
     return posenc(pts_c, 10), cp
 
 
-def _point_network(model, settings, pts_w, pts_c, dir_w, code, pose_feat, code_scale,
+def _point_network(model, path, pts_w, pts_c, dir_w, code, pose_feat, code_scale,
                    tris_c2, tris_w2):
-    """color (n, 3), sigma (n,) for one slice of points.
+    """color (n, 3), sigma (n,) for one slice of points on `network_path`
+    ``path``.
 
     The normal is d(sum sigma)/d(pts_c): one autograd backward over the
     slice (with its graph when gradients are on, for the second-order
     training backward), or the fused kernels' gpe."""
-    if _use_fused(settings, model):
+    if path != "plain":
         pe, cp = _fused_inputs(pts_c, code, pose_feat, code_scale)
         sigma, essence, normal_local = fused_sigma_essence_normal(nerf_params(model.nerf), pe, cp,
-                                                                  fast=settings.fused_fast)
+                                                                  fast=path == "fast")
     else:
         train = torch.is_grad_enabled()
         with torch.enable_grad():
@@ -429,14 +462,16 @@ def _color_pass(model, settings: RenderSettings, light: LightState, pts_w, pts_c
         tris_wc2 = faces_wc[cidx]                                    # (n, 18)
         tris_c2, tris_w2 = tris_wc2[:, 9:].reshape(-1, 3, 3), tris_wc2[:, :9].reshape(-1, 3, 3)
         n = pts_w.shape[0]
-        chunk = max(n, 1) if _use_fused(settings, model) else settings.mlp_chunk
+        path = _network_path(settings, model)
+        tracing.count_pass(path)
+        chunk = settings.mlp_chunk if path == "plain" else max(n, 1)
         pts_w_light = _light_space(pts_w, light)
         colors, sigmas = [], []
         for a in range(0, n, chunk):
             sl = slice(a, a + chunk)
             m = pts_w[sl].shape[0]
             c, s = _point_network(
-                model, settings, pts_w_light[sl], pts_c[sl], dir_w[sl], code,
+                model, path, pts_w_light[sl], pts_c[sl], dir_w[sl], code,
                 pose_feat.expand(m, pose_feat.shape[-1]), light.code_scale,
                 tris_c2[sl], tris_w2[sl],
             )
@@ -650,7 +685,7 @@ def _render_with_z(model, batch: RayBatch, mesh: MeshBundle,
         # "grouped": the fused path searches single points, as the JAX
         # package's `_full_shading_fused` does
         cidx = _search_canonical(pts_c, centroids_c, mesh, settings, use_slots,
-                                 1 if _use_fused(settings, model) else gsz)
+                                 gsz if _network_path(settings, model) == "plain" else 1)
     color, sigma = _color_pass(model, settings, light, pts_w_flat, pts_c, dir_w_flat, code,
                                pose_feat, faces_wc, cidx)
     with tracing.span("render.composite"):
@@ -697,20 +732,21 @@ def _gated_shading(model, batch: RayBatch, mesh: MeshBundle, settings: RenderSet
     # points. At eval it builds no autograd graph; in training its graph
     # carries the density gradient of every sample.
     with tracing.span("render.density"):
-        fused = _use_fused(settings, model)
-        chunk = max(n, 1) if fused else settings.mlp_chunk
+        path = _network_path(settings, model)
+        tracing.count_pass(path)
+        chunk = settings.mlp_chunk if path == "plain" else max(n, 1)
         sigmas = []
         for a in range(0, n, chunk):
             sl = slice(a, a + chunk)
             pc, tmask, _, _ = _warp_chunk(pts_w_flat[sl], fidx_flat[sl], faces_wc)
             pf = pose_feat.expand(pc.shape[0], pf_dim)
-            if fused:
-                density = fused_sigma(nerf_params(model.nerf),
-                                      *_fused_inputs(pc, code, pf, light.code_scale),
-                                      fast=settings.fused_fast)
-            else:
+            if path == "plain":
                 density = model.sigma_essence(pc, code, pf, light.code_scale,
                                               density_only=True)[1][:, 0]
+            else:
+                density = fused_sigma(nerf_params(model.nerf),
+                                      *_fused_inputs(pc, code, pf, light.code_scale),
+                                      fast=path == "fast")
             sigmas.append(torch.where(tmask, 0.0, density))
         sigma_flat = torch.cat(sigmas)
         if from_blocked is not None:

@@ -53,9 +53,11 @@ from .state import create_train_state, draw_randoms, make_train_step
 #: process group's own timeout is sized for a step's collectives
 VAL_WAIT_TIMEOUT = datetime.timedelta(hours=4)
 
-#: the port's addition to the JAX package's iteration log line: since the
-#: last line, the share of the wall time the loop waited on the loader, and
-#: the loader's transform time per item (`PrefetchLoader.stats`)
+#: the port's additions to the JAX package's iteration log line, since the
+#: last line: the network passes by path (`utils/tracing.py::passes`), then
+#: the share of the wall time the loop waited on the loader, and the
+#: loader's transform time per item (`PrefetchLoader.stats`)
+NETWORK_LOG = " Passes: %d fused %d fast %d plain"
 LOADER_LOG = " Loader wait: %.1f%% transform: %.1f[ms/item]"
 
 
@@ -194,7 +196,7 @@ def do_train(
             epoch_start = time.time()
             iters_start = epoch_start
             last_log_bidx = -1  # rays/s counts the true steps since the last log
-            loader_at = loader.stats
+            loader_at, passes_at = loader.stats, tracing.passes()
             pending = None      # (metrics, step, batch index), read one step late
 
             for batch_idx, (batch, geom) in enumerate(loader):
@@ -226,13 +228,16 @@ def do_train(
                         items = max(now["items"] - loader_at["items"], 1)
                         transform_ms = 1e3 * (now["transform_s"] - loader_at["transform_s"]) / items
                         loader_at = now
+                        passes = tracing.passes()
+                        ran = [passes[k] - passes_at[k] for k in tracing.PATHS]
+                        passes_at = passes
                         if is_main:
                             logger.info(
                                 "Epoch[%d] Iteration[%d/%d] Loss: %.3e "
-                                "Psnr: %.2f Lr: %.2e Speed: %.1f[rays/s]" + LOADER_LOG,
+                                "Psnr: %.2f Lr: %.2e Speed: %.1f[rays/s]" + NETWORK_LOG + LOADER_LOG,
                                 epoch, bidx, len(loader), float(m["loss"]),
                                 psnr_v, base_lr * lr_at(gstep), steps * nrays / max(dt, 1e-9),
-                                100.0 * waited / max(dt, 1e-9), transform_ms,
+                                *ran, 100.0 * waited / max(dt, 1e-9), transform_ms,
                             )
                 pending = (metrics, state.step, batch_idx)
 

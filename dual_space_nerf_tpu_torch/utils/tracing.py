@@ -6,7 +6,7 @@ loader's wait, fetch and transform) as a `torch.profiler.record_function`
 named ``dsnerf.<stage>``. A profiler session then records it on the same
 timeline as the host's ops and the card's kernels, so that the card's
 work and its idle gaps can be charged to a stage. The profiler is the only
-exporter: nothing is kept here.
+exporter of the spans: nothing of them is kept here.
 
 Off (the default), `span` returns one shared no-op context after a single
 flag test: no profiler call, no allocation. An operator turns the spans on
@@ -16,11 +16,19 @@ around a profiled stretch::
         ...
 
 `training/loop.py::do_train(profile_dir=...)` does so for its traced epoch.
+
+One counter is always on: the network passes of `render_rays` (a density
+or a colour pass, however many mlp_chunk slices it takes) by the path they
+took (`renderer/pipeline.py::network_path`: "plain", "fused" or "fast"),
+one add a pass under a lock, as `PrefetchLoader.stats` counts its items.
+`passes()` reads it over the process's life; a reader takes the difference
+of two readings.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -28,6 +36,10 @@ PREFIX = "dsnerf."
 
 _on = False
 _OFF = contextlib.nullcontext()
+
+PATHS = ("fused", "fast", "plain")
+_passes_lock = threading.Lock()
+_passes = dict.fromkeys(PATHS, 0)
 
 
 def span(name: str):
@@ -52,3 +64,15 @@ def enabled(on: bool = True):
         yield
     finally:
         _on = prev
+
+
+def count_pass(path: str) -> None:
+    """One network pass took ``path`` (one of `PATHS`)."""
+    with _passes_lock:
+        _passes[path] += 1
+
+
+def passes() -> dict:
+    """The network passes so far, {path: count} over `PATHS`."""
+    with _passes_lock:
+        return dict(_passes)

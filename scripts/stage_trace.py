@@ -22,6 +22,10 @@ ms and launches per unit; a stretch with the spans on also gives, per unit,
 - ``device_ms``: the device ms of the ops launched inside each stage
   (`stage_device_ns`).
 
+Every stretch also gives ``passes_per_unit``: the network passes of its
+recorded units by path (fused, fast, plain; the port's counter,
+`utils/tracing.py::passes`).
+
 One JSON line a seed on standard output; all of them in ``--out``.
 """
 
@@ -217,17 +221,21 @@ def _stretch(sess, n: int, spans_on: bool, read: bool = True) -> dict | None:
     with tracing.enabled(spans_on), profile(activities=acts, schedule=schedule(
             wait=0, warmup=1, active=n, repeat=1), on_trace_ready=ready) as prof:
         for i in range(n + 1):
+            if i == 1:
+                passes_at = tracing.passes()
             unit(i)
             prof.step()
     if not read:
         return None
+    passes = tracing.passes()
     tr, bench_host, stage_host, stage_dev = got[0]
     t0, t1, units = tr.stretch(sess.unit)
     per = lambda d: {k: v / 1e6 / units for k, v in sorted(d.items())}  # noqa: E731
     out = {"spans": spans_on, "units": units, "ms_per_unit": (t1 - t0) / 1e6 / units,
            "busy_ms_per_unit": tr.busy_ns(t0, t1) / 1e6 / units,
            "launches_per_unit": sum(1 for d in tr.in_stretch(t0, t1) if d[3]) / units,
-           "bench_ms": per(bench_host)}
+           "bench_ms": per(bench_host),
+           "passes_per_unit": {k: (passes[k] - passes_at[k]) / n for k in tracing.PATHS}}
     if spans_on:
         out["host_ms"], out["device_ms"] = per(stage_host), per(stage_dev)
     return out

@@ -695,6 +695,66 @@ def test_fused_fast_production_step(dev):
     assert ratios[worst] <= 0.25, (worst, ratios[worst])
 
 
+def test_auto_takes_the_float32_fused_pair_on_the_card(dev):
+    """`MODEL.FUSED_MLP: "auto"` on the card, on a production step (5500
+    rays) and on an eval chunk of the same rays: the float32 fused pair
+    launched (forward twice, backward twice in the step) and counted as two
+    fused passes, FUSED_FAST set and engaging nothing, the same bits as an
+    explicit "on"; a bfloat16 model under "auto" takes the plain chain (no
+    fused launch, two plain passes)."""
+    from dual_space_nerf_tpu_torch.data import SyntheticDataset, item_to_mesh, item_to_train_batch
+    from dual_space_nerf_tpu_torch.evaluation.golden import train_cfg
+    from dual_space_nerf_tpu_torch.models import DualSpaceNeRF
+    from dual_space_nerf_tpu_torch.ops import KERNELS
+    from dual_space_nerf_tpu_torch.renderer import LightState, RenderSettings, render_rays
+    from dual_space_nerf_tpu_torch.training import create_train_state, draw_randoms, make_train_step
+    from dual_space_nerf_tpu_torch.utils import tracing
+
+    ds = SyntheticDataset(split="train", nrays=5500, n_frames=1, n_views=1, h=512, w=512)
+    item = ds[0]
+    batch = item_to_train_batch(item, 5500, dev)
+    mesh = item_to_mesh(item, ds.faces, ds.canonical_vertex, dev)
+
+    def run(mode, fast, unit, dtype=None):
+        """(the step's loss and gradients or the chunk's outputs, on the host;
+        the fused kernels' launches; the passes by path)."""
+        cfg = train_cfg(production=True, fused=True)
+        cfg.MODEL.FUSED_MLP, cfg.MODEL.FUSED_FAST = mode, fast
+        settings = RenderSettings.from_cfg(cfg)
+        model = DualSpaceNeRF(max_frames=cfg.MODEL.MAX_FRAMES, compute_dtype=dtype,
+                              generator=torch.Generator().manual_seed(0)).to(dev)
+        for k in KERNELS:
+            k.launches = 0
+        before = tracing.passes()
+        if unit == "step":
+            randoms = draw_randoms(5500, settings.n_samples,
+                                   torch.Generator(device=dev).manual_seed(0), dev)
+            metrics = make_train_step(settings, device=dev)(create_train_state(model, cfg),
+                                                            batch, mesh, randoms)
+            out = {"loss": metrics["loss"], **{n: p.grad for n, p in model.named_parameters()}}
+        else:
+            with torch.no_grad():
+                out = render_rays(model, batch.rays, mesh, settings, LightState.identity(dev),
+                                  device=dev)
+        torch.cuda.synchronize()
+        after = tracing.passes()
+        launched = {k.name: k.launches for k in KERNELS if k.name.startswith("fused_mlp")}
+        return ({k: v.detach().cpu().numpy().tobytes() for k, v in out.items()}, launched,
+                {k: after[k] - before[k] for k in tracing.PATHS})
+
+    for unit in ("step", "chunk"):
+        auto, auto_launched, auto_passes = run("auto", True, unit)
+        on, _, _ = run("on", False, unit)
+        bwd = 2 if unit == "step" else 0
+        assert auto_launched == {"fused_mlp_fwd": 2, "fused_mlp_bwd": bwd,
+                                 "fused_mlp_fwd_fast": 0, "fused_mlp_bwd_fast": 0}, unit
+        assert auto_passes == {"fused": 2, "fast": 0, "plain": 0}, unit
+        assert auto.keys() == on.keys() and all(auto[k] == on[k] for k in on), unit
+    _, bf16_launched, bf16_passes = run("auto", False, "step", torch.bfloat16)
+    assert set(bf16_launched.values()) == {0}
+    assert bf16_passes == {"fused": 0, "fast": 0, "plain": 2}
+
+
 # ---------------------------------------------------------------------------
 # the real-data pipeline on the card's machine
 # ---------------------------------------------------------------------------

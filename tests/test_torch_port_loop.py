@@ -53,7 +53,7 @@ from dual_space_nerf_tpu_torch.training import (
     make_train_step,
 )
 from dual_space_nerf_tpu_torch.renderer import RenderSettings
-from dual_space_nerf_tpu_torch.training.loop import LOADER_LOG, step_seed
+from dual_space_nerf_tpu_torch.training.loop import LOADER_LOG, NETWORK_LOG, step_seed
 from dual_space_nerf_tpu_torch.utils.image_io import PNG_SIGNATURE, write_png
 from torch_port_common import PARAMS_NPZ, REPO, TINY_CLI_CFG
 
@@ -597,13 +597,14 @@ def trained(request, tmp_path_factory):
 
 def test_do_train_logs_match_jax(trained):
     """The same log records in the same order (the format strings; the
-    port's step lines end in its loader readings, `LOADER_LOG`), and the
+    port's step lines end in its network passes and loader readings,
+    `NETWORK_LOG` and `LOADER_LOG`), and the
     step lines' epoch, iteration and count equal, their loss and PSNR
     within 1e-5 relative and their learning rate within 1e-6 (the JAX
     schedule runs in float32). Measured: 1.1e-7 relative at worst."""
     j, t = trained["jax"]["records"], trained["torch"]["records"]
-    assert [r.msg for r in t] == [r.msg + LOADER_LOG if r.msg.startswith("Epoch[") else r.msg
-                                  for r in j]
+    assert [r.msg for r in t] == [r.msg + NETWORK_LOG + LOADER_LOG if r.msg.startswith("Epoch[")
+                                  else r.msg for r in j]
     steps = [(a.args, b.args) for a, b in zip(j, t) if a.msg.startswith("Epoch[")]
     assert steps
     for a, b in steps:

@@ -180,6 +180,56 @@ def test_ported_settings_are_accepted(key, value, field):
     assert getattr(settings, field) == want
 
 
+@pytest.mark.parametrize("fused_fast", [False, True], ids=["f32", "fast-set"])
+@pytest.mark.parametrize("default_shape", [True, False], ids=["default", "other-width"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("device_type", ["cpu", "cuda"])
+@pytest.mark.parametrize("fused_mlp", ["auto", "on", "off"])
+def test_fused_mlp_resolves_from_what_the_model_shows(fused_mlp, device_type, dtype,
+                                                      default_shape, fused_fast):
+    """`network_path` over every setting and every model it can observe:
+    "off" and other widths take the plain chain; "on" the fused pair, fast
+    with FUSED_FAST; "auto" the float32 pair on a CUDA device in float32
+    and the plain chain elsewhere, FUSED_FAST engaging nothing."""
+    from dual_space_nerf_tpu_torch.renderer.pipeline import network_path
+
+    cfg = slice_cfg(get_cfg_defaults)
+    cfg.MODEL.FUSED_MLP = fused_mlp
+    cfg.MODEL.FUSED_FAST = fused_fast
+    settings = RenderSettings.from_cfg(cfg)
+    assert settings.fused_mlp is {"auto": None, "on": True, "off": False}[fused_mlp]
+    got = network_path(settings.fused_mlp, settings.fused_fast, device_type, dtype, default_shape)
+    if not default_shape or fused_mlp == "off":
+        want = "plain"
+    elif fused_mlp == "on":
+        want = "fast" if fused_fast else "fused"
+    else:
+        want = "fused" if device_type == "cuda" and dtype == torch.float32 else "plain"
+    assert got == want
+
+
+@pytest.mark.parametrize("fused_mlp", ["auto", "on", "off"])
+def test_network_path_reads_the_models_shape_and_dtype(fused_mlp):
+    """What `_network_path` observes of a model on the CPU: the default
+    SpaceNet in float32, in bfloat16 (MATMUL_PRECISION) and in float64
+    (its parameters), and a narrower SpaceNet. "auto" is the plain chain on
+    the CPU for all of them; "on" takes the pair for the default shape
+    whatever the dtype, as before."""
+    from dual_space_nerf_tpu_torch.models import DualSpaceNeRF
+    from dual_space_nerf_tpu_torch.renderer.pipeline import _network_path
+
+    cfg = slice_cfg(get_cfg_defaults)
+    cfg.MODEL.FUSED_MLP = fused_mlp
+    settings = RenderSettings.from_cfg(cfg)
+    models = {"f32": DualSpaceNeRF(max_frames=4),
+              "bf16": DualSpaceNeRF(max_frames=4, compute_dtype=torch.bfloat16),
+              "f64": DualSpaceNeRF(max_frames=4).to(torch.float64),
+              "narrow": DualSpaceNeRF(max_frames=4, backbone_dim=128)}
+    got = {name: _network_path(settings, m) for name, m in models.items()}
+    on = "fused" if fused_mlp == "on" else "plain"
+    assert got == {"f32": on, "bf16": on, "f64": on, "narrow": "plain"}
+
+
 @pytest.mark.parametrize("novel", [False, True])
 def test_render_rays_with_fixed_near_far_matches_jax(item, novel):
     """Both sides sample z from the same near/far (the JAX GG result): every

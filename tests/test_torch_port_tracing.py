@@ -11,6 +11,7 @@ import importlib.util
 import json
 import logging
 import os
+import re
 import time
 
 import numpy as np
@@ -203,6 +204,32 @@ def test_loader_stats_count_the_items(backend, ordered, monkeypatch):
     assert second["transform_s"] > first["transform_s"] and second["wait_s"] >= first["wait_s"]
 
 
+def test_pass_counter_loses_no_add_across_threads():
+    """`tracing.count_pass` from more threads than cores, the interpreter
+    switching threads every microsecond: every add is counted."""
+    import sys
+    import threading
+
+    n_threads, n_adds = 2 * (os.cpu_count() or 1) + 2, 2000
+    before = tracing.passes()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda p=tracing.PATHS[i % 3]: [
+            tracing.count_pass(p) for _ in range(n_adds)]) for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    after = tracing.passes()
+    added = {k: after[k] - before[k] for k in tracing.PATHS}
+    assert added == {p: n_adds * sum(1 for i in range(n_threads) if tracing.PATHS[i % 3] == p)
+                     for p in tracing.PATHS}
+
+
 @pytest.mark.parametrize("backend", ["thread", "process"])
 def test_loader_spans_name_their_threads(backend, monkeypatch):
     """On: the consumer's loader.wait on the main thread; the transform on
@@ -242,7 +269,8 @@ class _NoWriter:
 def test_do_train_profile_holds_the_spans_and_the_loader_threads(tmp_path, monkeypatch):
     """do_train(profile_dir=...) writes a trace with dsnerf.step.backward on
     the loop's thread and dsnerf.loader.transform on another; the iteration
-    lines end in the loader's readings; the spans are off again after."""
+    lines end in the network passes (on the CPU all plain) and the
+    loader's readings; the spans are off again after."""
     for var in ("DSNERF_LOADER_BACKEND", "DSNERF_DETERMINISTIC_DATA", "DSNERF_VAL_PERIOD"):
         monkeypatch.delenv(var, raising=False)
     (tmp_path / "tiny.yml").write_text(TINY_CLI_CFG)
@@ -267,6 +295,8 @@ def test_do_train_profile_holds_the_spans_and_the_loader_threads(tmp_path, monke
     steps = [line for line in handler.lines if line.startswith("Epoch[")]
     assert steps and all(" Loader wait: " in line and line.endswith("[ms/item]") for line in steps)
     assert LOADER_LOG.startswith(" Loader wait: ")
+    passes = [re.search(r" Passes: (\d+) fused (\d+) fast (\d+) plain Loader", line) for line in steps]
+    assert all(p and p.group(1) == p.group(2) == "0" and int(p.group(3)) > 0 for p in passes)
 
 
 # ---------------------------------------------------------------------------
@@ -416,6 +446,9 @@ def test_stage_trace_reads_a_tiny_cell(name, float32_default):
     row = st.measure(_tiny(name), 7, "cpu", pairs=1, window=0.2)
     off, on = row["stretches"]
     assert not off["spans"] and on["spans"] and "host_ms" not in off
+    for st_ in (off, on):  # the CPU takes the plain chain under "auto"
+        assert st_["passes_per_unit"]["fused"] == st_["passes_per_unit"]["fast"] == 0
+        assert st_["passes_per_unit"]["plain"] >= (2 if name.startswith("train") else 1)
     if name.startswith("train"):
         unit = on["bench_ms"]["portbench.train_step"]
         parts = sum(on["host_ms"][s] for s in STEP_SPANS)

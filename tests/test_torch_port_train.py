@@ -305,6 +305,43 @@ def test_train_step_matches_jax(step_inputs, production, fused, draws):
     assert state.step == 1
 
 
+@pytest.mark.parametrize("production", [True, False], ids=["production", "exact"])
+@pytest.mark.parametrize("unit", ["train-step", "eval-chunk"])
+def test_auto_runs_the_plain_chain_on_the_cpu(step_inputs, unit, production):
+    """On the CPU `MODEL.FUSED_MLP: "auto"` keeps the JAX-parity path: a
+    train step (loss and every gradient) and an eval chunk (every output)
+    give the same bits as "off", and the pass counter sees only plain
+    passes: two on the gated production path (density, colour), one on
+    the exact path (colour)."""
+    from dual_space_nerf_tpu_torch.renderer import LightState, render_rays
+    from dual_space_nerf_tpu_torch.utils import tracing
+
+    _, _, _, tb, tmesh, randoms = step_inputs
+    runs = {}
+    for mode in ("auto", "off"):
+        cfg, _, ts = _settings(production, False, True)
+        cfg.MODEL.FUSED_MLP = mode
+        ts = dataclasses.replace(RenderSettings.from_cfg(cfg), sample_mode="uniform")
+        model = torch_model()
+        before = tracing.passes()
+        if unit == "train-step":
+            state = create_train_state(model, cfg)
+            metrics = make_train_step(ts, device="cpu")(state, tb, tmesh, randoms=randoms)
+            got = {"loss": metrics["loss"].detach()}
+            got.update({n: p.grad for n, p in model.named_parameters()})
+        else:
+            with torch.no_grad():
+                got = render_rays(model, tb.rays, tmesh, ts, LightState.identity(), device="cpu")
+        after = tracing.passes()
+        runs[mode] = got, {k: after[k] - before[k] for k in tracing.PATHS}
+    (auto, auto_passes), (off, off_passes) = runs["auto"], runs["off"]
+    assert set(auto) == set(off)
+    for k in off:
+        assert auto[k].numpy().tobytes() == off[k].numpy().tobytes(), k  # NaN disp included
+    want = {"fused": 0, "fast": 0, "plain": 2 if production else 1}
+    assert auto_passes == off_passes == want
+
+
 def test_draws_make_the_float32_gradient_ill_conditioned(step_inputs):
     """Why the band above is wide with the draws: on the exact path with
     JAX's draws, the port's float32 gradient and the JAX package's are both
