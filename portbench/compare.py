@@ -17,8 +17,8 @@ under a thousandth of the median weight's move by rounding alone and are
 left out of both.
 
 Rendering (a sample of the rays of the window's images): ``mismatch_share``,
-the share of the compared values (colour, opacity and depth of each ray)
-whose bits differ from the reference's rounded the way the program's eval
+the share of the compared values (colour, opacity and depth of each ray,
+of each pass where the fine pass runs) whose bits differ from the reference's rounded the way the program's eval
 copy rounds them (float16).
 """
 
@@ -67,10 +67,10 @@ def pack_f16(x: np.ndarray) -> np.ndarray:
 
 
 def render_numbers(program: np.ndarray, reference: np.ndarray, detail: dict | None = None) -> dict:
-    """program: (n, 5) values as the program returned them; reference:
-    (n, 5) float32 values of the plain reference. ``detail``, if given,
-    receives the share and the largest gap of each channel and the
-    mismatched rays' count."""
+    """program: (n, 5) values as the program returned them ((n, 10) with
+    the fine pass); reference: the same values of the plain reference, in
+    float32. ``detail``, if given, receives the share and the largest gap
+    of each channel and the mismatched rays' count."""
     ref = pack_f16(reference)
     prog = np.asarray(program, np.float32)
     same = (prog == ref) | (np.isnan(prog) & np.isnan(ref))

@@ -10,6 +10,10 @@ architecture needs (an FMA is two FLOPs), whatever implements them:
   positional encoding only: the frame code and pose feature are constants
   of a point) and the lighting MLP.
 
+With the fine pass (``FINE_RAY_SAMPLING`` > 0) a ray is rendered twice:
+the coarse pass over its S samples and the fine pass over S + n_fine,
+each gated or fully shaded as the configuration says (`render_points`).
+
 A training step adds the backward of each pass, twice its forward less the
 input gradients that no parameter needs (the encoding's parts of the two
 stage inputs, and the lighting input's point and view parts).
@@ -18,8 +22,8 @@ counted, so a roofline or utilisation share read against these counts is
 never above what the program could reach.
 
 Bytes: the passes' per-point inputs and outputs (encoding, code and pose
-in; density, essence and normal out) and the weights, each once: the least
-any implementation moves.
+in; density, essence and normal out) and the weights, each once a render
+pass: the least any implementation moves.
 """
 
 from __future__ import annotations
@@ -85,6 +89,25 @@ def points(n_rays: int, n_samples: int, shade_topk: int) -> tuple[int, int]:
     if 0 < shade_topk < n_samples:
         return n_rays * n_samples, n_rays * shade_topk
     return 0, n_rays * n_samples
+
+
+def render_points(n_rays: int, n_samples: int, n_fine: int, shade_topk: int) -> list:
+    """`points` of each render pass over ``n_rays`` rays: the coarse pass
+    over ``n_samples`` samples a ray and, with ``n_fine`` > 0, the fine
+    pass over ``n_samples + n_fine``."""
+    out = [points(n_rays, n_samples, shade_topk)]
+    if n_fine > 0:
+        out.append(points(n_rays, n_samples + n_fine, shade_topk))
+    return out
+
+
+def render_counts(n_rays: int, n_samples: int, n_fine: int, shade_topk: int,
+                  train: bool) -> tuple[float, float]:
+    """(FLOPs, bytes) of rendering ``n_rays`` rays, every pass of
+    `render_points`; with ``train`` the backward too."""
+    passes = render_points(n_rays, n_samples, n_fine, shade_topk)
+    return (sum(pass_flops(*p, train=train) for p in passes),
+            sum(pass_bytes(*p, train=train) for p in passes))
 
 
 def bound_s(flops: float, n_bytes: float, peak_flops: float, peak_bytes: float) -> float:

@@ -7,7 +7,8 @@ The images (every ray of the view that hits the body's box, of a frame)
 are made in set-up from the seed and cycled through; the window renders
 until its time is up and the image across the end finishes and counts.
 Afterwards a sample of the window's images, and of the rays of each,
-drawn from the seed, is rendered again by the plain reference.
+drawn from the seed, is rendered again by the plain reference (with the
+fine pass, ``FINE_RAY_SAMPLING`` > 0, both passes' values are compared).
 """
 
 from __future__ import annotations
@@ -78,9 +79,9 @@ class Session:
         self.outputs = []  # (item index, the program's images)
 
     def image_flops(self, item: dict) -> tuple[float, float]:
-        pts = flops.points(len(item["ray_o"]), int(self.cfg.MODEL.COARSE_RAY_SAMPLING),
-                           self.settings.shade_topk)
-        return flops.pass_flops(*pts, train=False), flops.pass_bytes(*pts, train=False)
+        return flops.render_counts(len(item["ray_o"]), int(self.cfg.MODEL.COARSE_RAY_SAMPLING),
+                                   max(int(self.cfg.MODEL.FINE_RAY_SAMPLING), 0),
+                                   self.settings.shade_topk, train=False)
 
     def window(self, seconds: float | None = None, images: int | None = None) -> dict:
         """Images until ``seconds`` have passed (or ``images`` are done)."""
@@ -145,13 +146,15 @@ class Session:
         there (with ``tf32``: the reference computed in TF32 and copied
         as the program copies, in the program's place)."""
         settings = Settings.from_model_block(self.cell.config["MODEL"])
+        passes = ("coarse", "fine") if settings.n_fine > 0 else ("coarse",)
         progs, refs, ctls = [], [], []
         for i, images, rays in self._sample():
             item = self.items[i]
             pix = np.flatnonzero(item["mask_at_box"])[rays]
             flat = lambda k, c: images[k].reshape(-1, c)[pix]
-            progs.append(np.concatenate([flat("coarse_color", 3), flat("coarse_acc", 1),
-                                         flat("coarse_depth", 1)], axis=1))
+            progs.append(np.concatenate([flat(f"{p}_{k}", c) for p in passes
+                                         for k, c in (("color", 3), ("acc", 1), ("depth", 1))],
+                                        axis=1))
             refs.append(self._reference(item, rays, settings))
             if tf32:
                 prev = torch.backends.cuda.matmul.allow_tf32
@@ -179,4 +182,6 @@ class Session:
                 "verts_world": torch.as_tensor(item["xyz"], device=dev),
                 "verts_cano": torch.as_tensor(self.scene.verts_cano, device=dev)}
         out = render(self.weights, batch, mesh, settings)
-        return torch.cat([out["color"], out["acc"][:, None], out["depth"][:, None]], 1).cpu().numpy()
+        prefixes = ("", "fine_") if settings.n_fine > 0 else ("",)
+        return torch.cat([t for p in prefixes for t in (out[p + "color"], out[p + "acc"][:, None],
+                                                         out[p + "depth"][:, None])], 1).cpu().numpy()

@@ -5,8 +5,9 @@ Items of the mix's split (frames x views of the capsule scene, a fixed
 number of rays each) come through the program's `PrefetchLoader` (the
 configuration's workers, ordered, so that a seed gives the same stream)
 with its own transform, `item_to_train_batch` and `item_to_mesh`; each
-step draws its uniforms and normals on the device from the seed and
-calls the program's step; the previous step's metrics are read one step
+step draws its uniforms and normals on the device from the seed (with the
+fine pass, ``FINE_RAY_SAMPLING`` > 0, two more after them) and calls the
+program's step; the previous step's metrics are read one step
 late. The first steps run in set-up and are the ones the reference
 follows; the measured window continues with the same state.
 """
@@ -73,6 +74,7 @@ class Session:
         self.settings = RenderSettings.from_cfg(cfg)
         self.scene = CapsuleScene(seed, cell.traffic["scene"])
         self.nrays, self.n_samples = int(cfg.SOLVER.TRAIN_NRAYS), int(cfg.MODEL.COARSE_RAY_SAMPLING)
+        self.n_fine = max(int(cfg.MODEL.FINE_RAY_SAMPLING), 0)
         self.model, self.weights = harness.build_model(cfg, seed, self.dev)
         self.state = create_train_state(self.model, cfg)
         step = make_train_step(self.settings, loss_type=cfg.MODEL.LOSS,
@@ -104,11 +106,18 @@ class Session:
             return next(self.it)
 
     def _draw(self):
+        """The step's uniforms and normals (R, S); with the fine pass then
+        its uniforms (R, n_fine) and normals (R, S + n_fine), drawn after
+        the first two, so that without it the draws are the same bits."""
         self.k += 1
         self.gen.manual_seed(harness.sub_seed(self.seed, "draws", self.k) & ((1 << 63) - 1))
-        shape = (self.nrays, self.n_samples)
-        return (torch.rand(shape, generator=self.gen, device=self.dev),
-                torch.randn(shape, generator=self.gen, device=self.dev))
+        r, s, nf = self.nrays, self.n_samples, self.n_fine
+        draws = (torch.rand((r, s), generator=self.gen, device=self.dev),
+                 torch.randn((r, s), generator=self.gen, device=self.dev))
+        if nf > 0:
+            draws += (torch.rand((r, nf), generator=self.gen, device=self.dev),
+                      torch.randn((r, s + nf), generator=self.gen, device=self.dev))
+        return draws
 
     @staticmethod
     def _read(metrics) -> None:
@@ -154,14 +163,16 @@ class Session:
 
     # ---- the run ----------------------------------------------------------
     def step_flops(self) -> tuple[float, float]:
-        pts = flops.points(self.nrays, self.n_samples, self.settings.shade_topk)
-        return flops.pass_flops(*pts, train=True), flops.pass_bytes(*pts, train=True)
+        return flops.render_counts(self.nrays, self.n_samples, self.n_fine,
+                                   self.settings.shade_topk, train=True)
 
     def window(self, seconds: float) -> dict:
         """Steps until ``seconds`` have passed; the step across the end
         finishes and counts. Returns the end-to-end numbers and the
-        window's readings."""
+        window's readings, the loader's counters at its start and end among
+        them."""
         _sync(self.dev)
+        stats_at = self.loader.stats
         t0 = t_prev = time.perf_counter()
         intervals, waits = [], []
         while True:
@@ -176,6 +187,7 @@ class Session:
         elapsed = time.perf_counter() - t0
         n = len(intervals)
         return {"units": n, "seconds": elapsed, "waits": waits, "unit_s": intervals,
+                "loader_stats": (stats_at, self.loader.stats),
                 "metrics": {"s_per_step": elapsed / n, "step_p90_s": harness.p90(intervals)}}
 
     def trace(self, n: int):

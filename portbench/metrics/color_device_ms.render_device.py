@@ -1,0 +1,9 @@
+"""Device ms a traced image of the ops launched inside the program's
+colour passes (``dsnerf.render.color``), in the cell whose end-to-end time
+is the device's."""
+
+from portbench import readers
+
+
+def read(r: readers.Readings):
+    return readers.stage_device_ms(r, "render.color")

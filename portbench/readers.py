@@ -27,6 +27,7 @@ class Readings:
     peak_flops: float | None     # the card's peaks at the configuration's precision
     peak_bytes: float | None
     loader_waits_s: list         # train: the wait in next() of each window step
+    loader_stats: tuple = ()     # train: the loader's counters at the window's start and end
 
 
 def family_device_s(r: Readings, role: str) -> float | None:
@@ -52,6 +53,43 @@ def search_ms_per_unit(r: Readings) -> float | None:
     if s is None or s == 0:
         return None
     return s * 1e3 / r.trace.stretch(r.unit)[2]
+
+
+def stage_host_ms(r: Readings, stage: str) -> float | None:
+    """Wall ms a unit of the stretch in which the main thread is inside
+    the program's ``dsnerf.<stage>`` spans."""
+    if r.trace is None:
+        return None
+    t0, t1, n = r.trace.stretch(r.unit)
+    ns = r.trace.stage_host_ns(stage, t0, t1)
+    return None if ns is None else ns / 1e6 / n
+
+
+def stage_device_ms(r: Readings, stage: str) -> float | None:
+    """Device ms a unit of the stretch of the ops launched inside the
+    program's ``dsnerf.<stage>`` spans."""
+    if r.trace is None:
+        return None
+    t0, t1, n = r.trace.stretch(r.unit)
+    ns = r.trace.stage_device_ns(stage, t0, t1)
+    return None if ns is None else ns / 1e6 / n
+
+
+def loader_transform_ms(r: Readings) -> float | None:
+    """The loader's transform time over the items it yielded in the
+    window, ms: the difference of its counters at the window's ends."""
+    if len(r.loader_stats) != 2:
+        return None
+    start, end = r.loader_stats
+    items = end["items"] - start["items"]
+    return 1e3 * (end["transform_s"] - start["transform_s"]) / items if items > 0 else None
+
+
+def fused_pass_share(r: Readings) -> float | None:
+    """The fused network passes of the stretch over all its passes, %."""
+    if r.trace is None or not sum(r.trace.passes.values()):
+        return None
+    return 100.0 * r.trace.passes.get("fused", 0) / sum(r.trace.passes.values())
 
 
 def networks_roofline(r: Readings) -> float | None:

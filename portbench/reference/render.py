@@ -15,6 +15,18 @@ compositing weights (ties to the earlier sample) get the colour chain, and
 every other sample takes the colour of the nearest selected sample of its
 ray (ties to the earlier of the K): the production configuration.
 
+With ``n_fine`` > 0 (``FINE_RAY_SAMPLING``) the hierarchical pass of NeRF
+(arXiv:2003.08934, section 5.2) follows: ``n_fine`` more depths per ray
+drawn by inverse transform from the coarse pass's weights, and the whole
+render again (`render_z`) on the sorted union of both sets of depths.
+Where this departs from the published code:
+
+- upstream's fine path does not run (its ``can_render.py`` fails on it), so
+  the pass is written from NeRF's equations;
+- one set of networks serves both passes, as in the program: upstream's
+  ``SAME_SPACENET`` option (a second SpaceNet for the fine pass) is read
+  by neither.
+
 Nothing here comes from the program: searches are brute force over every
 face, slice by slice.
 """
@@ -36,6 +48,7 @@ _GG_PAIRS = 1 << 24
 @dataclasses.dataclass(frozen=True)
 class Settings:
     n_samples: int = 64
+    n_fine: int = 0
     shade_topk: int = 0
     reuse_warp_faces: bool = False
     gg_gamma: float = 0.05
@@ -44,9 +57,10 @@ class Settings:
     @classmethod
     def from_model_block(cls, model: dict) -> "Settings":
         """From a configuration's MODEL block (the published keys)."""
-        if model.get("sample_points_mode") != "GG" or model.get("FINE_RAY_SAMPLING", -1) > 0:
-            raise ValueError("reference: GG sampling without the fine pass only")
+        if model.get("sample_points_mode") != "GG":
+            raise ValueError("reference: GG sampling only")
         return cls(n_samples=int(model["COARSE_RAY_SAMPLING"]),
+                   n_fine=max(int(model.get("FINE_RAY_SAMPLING", -1)), 0),
                    shade_topk=max(int(model.get("SHADE_TOPK", 0)), 0),
                    reuse_warp_faces=bool(model.get("REUSE_WARP_FACES", False)),
                    raw_noise_std=float(model.get("raw_noise_std", 1.0)))
@@ -170,52 +184,97 @@ def _color_chain(w, s: Settings, pts_w, dir_w, fw, mesh, code, pose_feat, train:
     return sigma, nets.lighting(w, normal_w, pts_w, dir_w, ess), off_face(u, v, h)
 
 
+def importance_depths(z, weights, n: int, u=None):
+    """``n`` more depths per ray from the coarse pass's depths z (r, S) and
+    compositing weights (r, S), by inverse transform sampling (NeRF,
+    section 5.2): the edges are the midpoints of z, the interval between
+    two edges has the weight of the sample inside it (``weights[:, 1:-1]``)
+    plus 1e-5, and the i-th of the n depths lies where the CDF reaches
+    (i + u_i) / n, with u_i = 1/2 at eval or the given uniforms u (r, n) in
+    training. No gradient flows through them."""
+    z, weights = z.detach(), weights.detach()
+    r = z.shape[0]
+    edges = 0.5 * (z[:, 1:] + z[:, :-1])                                     # (r, S-1)
+    mass = weights[:, 1:-1] + 1e-5                                          # (r, S-2)
+    pdf = mass / mass.sum(-1, keepdim=True)
+    cdf = torch.cat([torch.zeros_like(pdf[:, :1]), torch.cumsum(pdf, -1)], -1)   # (r, S-1)
+    strata = torch.arange(n, dtype=z.dtype, device=z.device)
+    u = ((strata + 0.5) / n).expand(r, n) if u is None else (strata + u) / n
+    # the interval of each u: the last edge whose CDF is at or below it
+    at = (cdf[:, None, :] <= u[:, :, None]).sum(-1)                         # (r, n)
+    lo = torch.clamp(at - 1, 0, cdf.shape[1] - 2)
+    hi = torch.clamp(at, 1, cdf.shape[1] - 1)
+    c_lo, c_hi = torch.gather(cdf, 1, lo), torch.gather(cdf, 1, hi)
+    e_lo, e_hi = torch.gather(edges, 1, lo), torch.gather(edges, 1, hi)
+    span = c_hi - c_lo
+    t = (u - c_lo) / torch.where(span < 1e-10, 1.0, span)
+    return e_lo + t * (e_hi - e_lo)
+
+
 def render(w: dict, rays: dict, mesh: dict, s: Settings, train: bool = False, randoms=None) -> dict:
     """Render rays (``ray_o``, ``ray_d``, ``near``, ``far`` on one device;
     ``frame``, ``body_pose`` (23, 3)) of one frame's ``mesh`` (``faces``,
     ``verts_world``, ``verts_cano``). ``train``: keep the graph, and take
-    ``randoms`` = (uniforms, standard normals), both (r, S). Returns
-    color (r, 3), depth (r,), acc (r,)."""
+    ``randoms`` = (uniforms, standard normals), both (r, S), and with the
+    fine pass its (uniforms (r, n_fine), standard normals (r, S + n_fine)).
+    Returns color (r, 3), depth (r,), acc (r,), weights (r, S); with the
+    fine pass also fine_color, fine_depth, fine_acc, fine_weights."""
+    with torch.set_grad_enabled(train):
+        with torch.no_grad():
+            near, far = near_far_spheres(rays["ray_o"], rays["ray_d"], rays["near"], rays["far"],
+                                         mesh["verts_world"], s.gg_gamma)
+        u, noise = (randoms[0], randoms[1] * s.raw_noise_std) if train else (None, None)
+        z = depths(near, far, s.n_samples, u)
+        out = render_z(w, rays, mesh, s, z, noise, train)
+        if s.n_fine > 0:
+            u_fine, noise_fine = (randoms[2], randoms[3] * s.raw_noise_std) if train else (None, None)
+            z_fine = importance_depths(z, out["weights"], s.n_fine, u_fine)
+            z_all = torch.sort(torch.cat([z, z_fine], -1), -1).values
+            fine = render_z(w, rays, mesh, s, z_all, noise_fine, train)
+            out.update({"fine_" + k: v for k, v in fine.items()})
+    return out
+
+
+def render_z(w: dict, rays: dict, mesh: dict, s: Settings, z, noise=None, train: bool = False) -> dict:
+    """Everything after the depths: the rays' samples at depths z (r, S'),
+    their searches, warps and networks, and the composite with the sigma
+    noise (r, S') of a training step, if any. Returns color (r, 3), depth
+    (r,), acc (r,), weights (r, S')."""
     ray_o, ray_d = rays["ray_o"], rays["ray_d"]
-    r, n_s = ray_o.shape[0], s.n_samples
+    r, n_s = z.shape
     faces = mesh["faces"].long()
     vw, vc = mesh["verts_world"], mesh["verts_cano"]
     cents_w, cents_c = vw[faces].mean(1), vc[faces].mean(1)
-    with torch.set_grad_enabled(train):
-        code = w["nerf.embedding.weight"][int(rays["frame"])]
-        pose_feat = nets.pose_feature(w, rays["body_pose"])
-        with torch.no_grad():
-            near, far = near_far_spheres(ray_o, ray_d, rays["near"], rays["far"], vw, s.gg_gamma)
-        u, noise = (randoms[0], randoms[1] * s.raw_noise_std) if train else (None, None)
-        z = depths(near, far, n_s, u)
-        pts = ray_o[:, None] + ray_d[:, None] * z[..., None]               # (r, S, 3)
-        dirs = ray_d[:, None].expand(r, n_s, 3)
-        fw = nearest_face(pts.reshape(-1, 3), cents_w).reshape(r, n_s)
-        m = (faces, vw, vc, cents_c)
-        k = s.shade_topk
-        if not 0 < k < n_s:
-            sigma, color, off = _color_chain(w, s, pts.reshape(-1, 3), dirs.reshape(-1, 3),
-                                             fw.reshape(-1), m, code, pose_feat, train)
-            sigma = torch.where(off, 0.0, sigma).reshape(r, n_s)
-            color = color.reshape(r, n_s, 3)
-        else:
-            tri_w, tri_c = vw[faces[fw.reshape(-1)]], vc[faces[fw.reshape(-1)]]
-            uu, vv, hh = to_face(pts.reshape(-1, 3), tri_w)
-            sig = nets.density_pass(w, from_face(uu, vv, hh, tri_c), code, pose_feat)
-            sigma = torch.where(off_face(uu, vv, hh), 0.0, sig).reshape(r, n_s)
-            wsel = composite(torch.zeros(r, n_s, 3, device=z.device), sigma.detach(), z, ray_d,
-                             noise)[3]
-            top = torch.sort(wsel, dim=-1, descending=True, stable=True).indices[:, :k]   # (r, K)
-            gather = lambda x: torch.gather(x, 1, top[..., None].expand(r, k, x.shape[-1]))
-            _, col_sel, _ = _color_chain(w, s, gather(pts).reshape(-1, 3),
-                                         gather(dirs).reshape(-1, 3),
-                                         torch.gather(fw, 1, top).reshape(-1), m, code,
-                                         pose_feat, train)
-            col_sel = col_sel.reshape(r, k, 3)
-            # each sample: the nearest selected sample along the ray, the
-            # earlier of the K on a tie
-            gap = (torch.arange(n_s, device=z.device)[None, :, None] - top[:, None, :]).abs()
-            nearest = (gap * k + torch.arange(k, device=z.device)).argmin(-1)          # (r, S)
-            color = torch.gather(col_sel, 1, nearest[..., None].expand(r, n_s, 3))
-        rgb, depth, acc, _ = composite(color, sigma, z, ray_d, noise)
-    return {"color": rgb, "depth": depth, "acc": acc}
+    code = w["nerf.embedding.weight"][int(rays["frame"])]
+    pose_feat = nets.pose_feature(w, rays["body_pose"])
+    pts = ray_o[:, None] + ray_d[:, None] * z[..., None]                   # (r, S', 3)
+    dirs = ray_d[:, None].expand(r, n_s, 3)
+    fw = nearest_face(pts.reshape(-1, 3), cents_w).reshape(r, n_s)
+    m = (faces, vw, vc, cents_c)
+    k = s.shade_topk
+    if not 0 < k < n_s:
+        sigma, color, off = _color_chain(w, s, pts.reshape(-1, 3), dirs.reshape(-1, 3),
+                                         fw.reshape(-1), m, code, pose_feat, train)
+        sigma = torch.where(off, 0.0, sigma).reshape(r, n_s)
+        color = color.reshape(r, n_s, 3)
+    else:
+        tri_w, tri_c = vw[faces[fw.reshape(-1)]], vc[faces[fw.reshape(-1)]]
+        uu, vv, hh = to_face(pts.reshape(-1, 3), tri_w)
+        sig = nets.density_pass(w, from_face(uu, vv, hh, tri_c), code, pose_feat)
+        sigma = torch.where(off_face(uu, vv, hh), 0.0, sig).reshape(r, n_s)
+        wsel = composite(torch.zeros(r, n_s, 3, device=z.device), sigma.detach(), z, ray_d,
+                         noise)[3]
+        top = torch.sort(wsel, dim=-1, descending=True, stable=True).indices[:, :k]   # (r, K)
+        gather = lambda x: torch.gather(x, 1, top[..., None].expand(r, k, x.shape[-1]))
+        _, col_sel, _ = _color_chain(w, s, gather(pts).reshape(-1, 3),
+                                     gather(dirs).reshape(-1, 3),
+                                     torch.gather(fw, 1, top).reshape(-1), m, code,
+                                     pose_feat, train)
+        col_sel = col_sel.reshape(r, k, 3)
+        # each sample: the nearest selected sample along the ray, the
+        # earlier of the K on a tie
+        gap = (torch.arange(n_s, device=z.device)[None, :, None] - top[:, None, :]).abs()
+        nearest = (gap * k + torch.arange(k, device=z.device)).argmin(-1)          # (r, S')
+        color = torch.gather(col_sel, 1, nearest[..., None].expand(r, n_s, 3))
+    rgb, depth, acc, wts = composite(color, sigma, z, ray_d, noise)
+    return {"color": rgb, "depth": depth, "acc": acc, "weights": wts}

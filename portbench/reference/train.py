@@ -1,6 +1,7 @@
 """Training steps in plain PyTorch: the render with its graph, the L2 loss
-on the ray colours, the gradient of every weight (through the density
-normal: second order), and the published optimizer, Adam (betas 0.9 /
+on the ray colours (with the fine pass, plus the same term on its
+colours), the gradient of every weight (through the density normal:
+second order), and the published optimizer, Adam (betas 0.9 /
 0.999, eps 1e-8, coupled weight decay) at the published learning-rate
 schedule (linear warm-up, then 1, then an exponential decay to LR_SCALE).
 """
@@ -49,8 +50,9 @@ def train_steps(weights: dict, batches: list, randoms: list, settings: Settings,
                 solver: dict) -> dict:
     """Run len(batches) steps from ``weights``. batches: (rays, rgb, mesh)
     as `batch_tensors` gives them; randoms: (uniforms, normals) of each
-    step. Returns the losses, the first step's gradient of every weight,
-    and every weight after the last step."""
+    step, with the fine pass its two more, as `render` takes them. Returns
+    the losses, the first step's gradient of every weight, and every
+    weight after the last step."""
     nets.check_weights(weights)
     names = sorted(weights)
     params = {k: weights[k].detach().clone().requires_grad_(True) for k in names}
@@ -61,6 +63,8 @@ def train_steps(weights: dict, batches: list, randoms: list, settings: Settings,
     for t, ((rays, rgb, mesh), rnd) in enumerate(zip(batches, randoms), start=1):
         out = render(params, rays, mesh, settings, train=True, randoms=rnd)
         loss = ((out["color"] - rgb) ** 2).mean()
+        if settings.n_fine > 0:
+            loss = loss + ((out["fine_color"] - rgb) ** 2).mean()
         grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
         grads = {k: torch.zeros_like(params[k]) if g is None else g for k, g in zip(names, grads)}
         losses.append(float(loss.detach()))

@@ -101,7 +101,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
         r = Readings(trace=tr, unit=drv.Session.unit, families=fams,
                      stretch_flops=st_flops, stretch_bytes=st_bytes, window_units=win["units"],
                      window_s=win["seconds"], window_flops=w_flops, peak_flops=pf, peak_bytes=pb,
-                     loader_waits_s=win.get("waits", []))
+                     loader_waits_s=win.get("waits", []),
+                     loader_stats=win.get("loader_stats", ()))
         for m in cell.metrics("per_layer"):
             v = harness.load_reader(m["name"])(r)
             if v is not None:

@@ -1,7 +1,8 @@
 """CPU tests of the benchmark, at a tiny size (a 40 x 40 image, 48 rays of 8
 samples a step, 256-ray chunks): the plain reference against the program,
-the faults the comparison must catch, the counts of `flops.py`, the kernel
-families, the files a cell is made of, and what a run may load.
+also with the fine pass, the faults the comparison must catch, the counts
+of `flops.py`, the kernel families, the reading of the profiler's events,
+the files a cell is made of, and what a run may load.
 
     python -m pytest portbench -q
 
@@ -52,6 +53,12 @@ def tiny(name: str) -> harness.Cell:
     return c
 
 
+def fine(cell: harness.Cell, n_fine: int = 8) -> harness.Cell:
+    """The cell with the fine pass: ``n_fine`` more samples a ray."""
+    cell.config["MODEL"]["FINE_RAY_SAMPLING"] = n_fine
+    return cell
+
+
 # At this size a weight's norm rests on 384 samples, so one sample's
 # rounding weighs more than at the cells' 352,000: the bounds are the CPU's
 # own, about 10x above what seeds 1-4 read here.
@@ -80,14 +87,130 @@ def test_a_fault_makes_the_run_incorrect(name, kind):
     assert out["correct"] is False and out["failed"] >= 1, out["checks"]
 
 
-@pytest.mark.parametrize("name", [TRAIN[0], RENDER[0]])
+@pytest.mark.parametrize("name", ["train.zju313_tpu", "render.zju313_tpu"])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_reference_holds_the_program_with_the_fine_pass(name, seed):
+    numbers = calibrate.reading(fine(tiny(name)), seed, "cpu")["numbers"]
+    for k, v in numbers.items():
+        assert v <= CPU_BOUNDS[k], (name, seed, k, v)
+
+
+@pytest.mark.parametrize("kind", ["half", "altered"])
+def test_a_fault_makes_the_fine_run_incorrect(kind):
+    cell = fine(tiny("train.zju313_tpu"))
+    out = run_mod.run_cell(cell, 11, 0.1, False, "cpu", time.perf_counter(),
+                           hooks={"wrap_step": faults.train_fault(kind)})
+    assert out["correct"] is False and out["failed"] >= 1, out["checks"]
+
+
+@pytest.mark.parametrize("name", CELLS)
 def test_a_traced_run_reads_its_metrics(name):
-    out = run_mod.run_cell(tiny(name), 12, 0.1, True, "cpu", time.perf_counter())
+    """The program's spans and counters read in every cell their metrics
+    list; a device time only on the card."""
+    cell = tiny(name)
+    out = run_mod.run_cell(cell, 12, 0.1, True, "cpu", time.perf_counter())
     assert set(out) >= {"correct", "attempted", "failed", "metrics", "device", "breakdown"}
     assert list(out)[-1] == "checks"
     assert out["device"]["window_s"] > 0 and out["breakdown"]["idle_gaps"]
-    if out["metrics"]:  # the CPU has no device ops: only host-clock metrics read
-        assert set(out["metrics"]) <= {m["name"] for m in SPEC["per_layer"]}
+    assert set(out["metrics"]) <= {m["name"] for m in cell.metrics("per_layer")}
+    for m in cell.metrics("per_layer"):
+        if m["source"] in ("program_span", "program_counter"):
+            assert m["name"] in out["metrics"], m["name"]
+        if "_device_ms." in m["name"]:  # the device ops of a stage or a family
+            assert m["name"] not in out["metrics"], m["name"]
+    if "fused_pass_share.train" in out["metrics"]:  # the CPU runs the plain chain
+        assert out["metrics"]["fused_pass_share.train"]["value"] == 0.0
+
+
+class _Event:
+    """A profiler event as torch 2.11 gives it: no ``activity_type``."""
+
+    def __init__(self, name, start, end, thread=1, device=False, corr=0):
+        self._v = (name, start, end, thread, device, corr)
+
+    def name(self):
+        return self._v[0]
+
+    def start_ns(self):
+        return self._v[1]
+
+    def duration_ns(self):
+        return self._v[2] - self._v[1]
+
+    def start_thread_id(self):
+        return self._v[3]
+
+    def device_type(self):
+        return torch.autograd.DeviceType.CUDA if self._v[4] else torch.autograd.DeviceType.CPU
+
+    def correlation_id(self):
+        return self._v[5]
+
+
+class _Results:
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return list(self._events)
+
+
+def test_a_stage_span_is_an_annotation_on_either_side():
+    assert trace._kind(_Event("dsnerf.render.color", 0, 9, device=True)) == "gpu_user_annotation"
+    assert trace._kind(_Event("portbench.step", 0, 9, device=True)) == "gpu_user_annotation"
+    assert trace._kind(_Event("dsnerf.render.color", 0, 9)) == "user_annotation"
+    assert trace._kind(_Event("cudaLaunchKernel", 0, 9)) == "cuda_runtime"
+    assert trace._kind(_Event("aten::mm", 0, 9)) == "cpu_op"
+    assert trace._kind(_Event("fused_mlp_fwd_kernel", 0, 9, device=True)) == "kernel"
+    assert trace._kind(_Event("Memcpy HtoD (Pageable -> Device)", 0, 9, device=True)) == "gpu_memcpy"
+
+
+# One traced step: the main thread (1) in the benchmark's step and the
+# program's forward (colour inside it) and backward; autograd's thread (2)
+# with no span of its own; a loader thread (3) whose transform span opens
+# before the step and comes first among the events.
+STEP_EVENTS = [
+    _Event("dsnerf.loader.transform", -50, 700, thread=3),
+    _Event("portbench.step", 0, 1000),
+    _Event("dsnerf.step.forward", 10, 500),
+    _Event("dsnerf.render.color", 100, 300),
+    _Event("dsnerf.step.backward", 550, 900),
+    _Event("cudaLaunchKernel", 50, 55, corr=8),
+    _Event("cudaLaunchKernel", 150, 155, corr=7),
+    _Event("cudaLaunchKernel", 600, 605, thread=2, corr=9),
+    _Event("cudaMemcpyAsync", 200, 205, thread=3, corr=10),
+    _Event("aten::mm", 140, 160),
+    _Event("k1", 160, 200, device=True, corr=7),
+    _Event("k2", 60, 90, device=True, corr=8),
+    _Event("k3", 610, 700, device=True, corr=9),
+    _Event("Memcpy HtoD (Pageable -> Device)", 210, 220, device=True, corr=10),
+    _Event("dsnerf.render.color", 100, 300, device=True),
+    _Event("portbench.step", 0, 1000, device=True),
+]
+
+
+def test_reduce_charges_a_launch_to_the_innermost_span_of_its_thread():
+    tr = trace._reduce(_Results(STEP_EVENTS))
+    assert [d[0] for d in tr.device] == ["k2", "k1", "Memcpy HtoD (Pageable -> Device)", "k3"]
+    assert tr.launched_in == ["dsnerf.step.forward", "dsnerf.render.color",
+                              "dsnerf.loader.transform", "dsnerf.step.backward"]
+    assert tr.stage_device_ns("render.color", 0, 1000) == 40
+    assert tr.stage_device_ns("step.forward", 0, 1000) == 30
+    assert tr.stage_device_ns("step.backward", 0, 1000) == 90
+    assert tr.stage_device_ns("loader.transform", 0, 1000) == 10
+    assert tr.stage_device_ns("render.density", 0, 1000) is None
+    assert sum(1 for d in tr.in_stretch(*tr.stretch("step")[:2]) if d[3]) == 3
+
+
+def test_reduce_finds_the_main_thread_past_the_loaders_spans():
+    tr = trace._reduce(_Results(STEP_EVENTS))
+    assert [s[0] for s in tr.spans] == ["portbench.step"]
+    assert [s[0] for s in tr.stages] == ["dsnerf.step.forward", "dsnerf.render.color",
+                                         "dsnerf.step.backward"]
+    assert tr.stage_host_ns("step.forward", 0, 1000) == 490
+    assert tr.stage_host_ns("loader.transform", -100, 1000) is None
+    assert [h[0] for h in tr.host] == ["cudaLaunchKernel", "aten::mm", "cudaLaunchKernel"]
+    assert [h[0] for h in tr.other] == ["cudaMemcpyAsync", "cudaLaunchKernel"]
 
 
 def _loaded_by_a_run(name: str) -> dict:
@@ -159,10 +282,47 @@ def test_forward_counts_equal_the_flop_counter():
     assert fc.get_total_flops() == flops.pass_flops(0, n, train=False)
 
 
+def test_fine_pass_counts_equal_the_flop_counter():
+    """The fine variant's count (the coarse pass over S samples, the fine
+    one over S + n_fine, both gated) against the counter over the
+    reference's render of the same rays; `flops.py` leaves out the pose
+    MLP, which each pass runs once."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from portbench.reference.render import Settings, render
+    from portbench.reference.scene import CapsuleScene
+    from portbench.reference.train import batch_tensors
+
+    cell = fine(tiny("train.zju313_tpu"))
+    s = Settings.from_model_block(cell.config["MODEL"])
+    scene = CapsuleScene(3, cell.traffic["scene"])
+    rays, _, mesh = batch_tensors(scene.train_item(2, 0, 48, 0, 0, 0.6), scene.verts_cano,
+                                  scene.faces, "cpu")
+    w = harness.make_weights(nets.SHAPES, 3, "cpu")
+    with FlopCounterMode(display=False) as fc:
+        render(w, rays, mesh, s)
+    with FlopCounterMode(display=False) as fp:
+        nets.pose_feature(w, rays["body_pose"])
+    assert flops.render_points(48, 8, 8, 3) == [(48 * 8, 48 * 3), (48 * 16, 48 * 3)]
+    fwd, _ = flops.render_counts(48, s.n_samples, s.n_fine, s.shade_topk, train=False)
+    assert fc.get_total_flops() - 2 * fp.get_total_flops() == fwd
+    sess = harness.loop("train").Session(cell, 3, "cpu")
+    try:
+        assert sess.step_flops() == flops.render_counts(48, 8, 8, 3, train=True)
+    finally:
+        sess.close()
+
+
 def test_counts_follow_the_published_widths():
     assert flops.density_macs() == 87 * 256 + 3 * 256 * 256 + 319 * 256 + 2 * 256 * 256 + 256
     assert flops.points(5500, 64, 16) == (352_000, 88_000)
     assert flops.points(5500, 64, 0) == (0, 352_000)
+    # without the fine pass a render is the one pass
+    for k in (16, 0):
+        p = flops.points(5500, 64, k)
+        assert flops.render_counts(5500, 64, 0, k, train=True) == (
+            flops.pass_flops(*p, train=True), flops.pass_bytes(*p, train=True))
+    assert flops.render_points(5500, 64, 64, 16) == [(352_000, 88_000), (704_000, 88_000)]
     assert flops.WEIGHT_FLOATS == sum(int(np.prod(s)) for s in nets.SHAPES.values())
     # the backward never counts less than the forward, nor more than twice it again
     for args in ((1, 0), (0, 1)):
