@@ -67,7 +67,10 @@ points, the face centroids and table, the pose feature and frame code),
 ``render.select`` (the gated path's density pass and its top-K selection
 with the selected points' warp), ``render.warp`` (the full path's warp),
 ``render.color`` (the triangles' gather, the networks, the normal, the
-lighting) and ``render.composite``.
+lighting) and ``render.composite``. With the fine pass, ``render.fine``
+wraps the whole of it: ``render.resample`` (the midpoints, `sample_pdf`,
+the sorted union), then its own stages under the names above. Each pass
+adds its samples to `tracing.count_samples` by its role.
 """
 
 from __future__ import annotations
@@ -606,15 +609,18 @@ def render_rays(
     with torch.set_grad_enabled(train):
         z_vals = sample_z(batch, mesh, settings, t_rand)
         out = _render_with_z(model, batch, mesh, settings, light, z_vals, noise)
+        tracing.count_samples("coarse", r * s)
         if nf > 0:
             # the hierarchical pass (the JAX package's `render_rays`, its
             # `:599-618`): n_fine z values from the coarse weights, the
             # whole chain again on the sorted union
-            with tracing.span("render.sample"):
-                mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-                z_fine = sample_pdf(mids.detach(), out["weights"][..., 1:-1].detach(), nf, u_fine)
-                z_all = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1).values
-            fine = _render_with_z(model, batch, mesh, settings, light, z_all, noise_fine)
+            with tracing.span("render.fine"):
+                with tracing.span("render.resample"):
+                    mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+                    z_fine = sample_pdf(mids.detach(), out["weights"][..., 1:-1].detach(), nf, u_fine)
+                    z_all = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1).values
+                fine = _render_with_z(model, batch, mesh, settings, light, z_all, noise_fine)
+            tracing.count_samples("fine", r * (s + nf))
             out.update({f"fine_{k}": v for k, v in fine.items()})
         return out
 

@@ -17,12 +17,14 @@ around a profiled stretch::
 
 `training/loop.py::do_train(profile_dir=...)` does so for its traced epoch.
 
-One counter is always on: the network passes of `render_rays` (a density
-or a colour pass, however many mlp_chunk slices it takes) by the path they
-took (`renderer/pipeline.py::network_path`: "plain", "fused" or "fast"),
-one add a pass under a lock, as `PrefetchLoader.stats` counts its items.
-`passes()` reads it over the process's life; a reader takes the difference
-of two readings.
+Two counters are always on, one add under a lock each, as
+`PrefetchLoader.stats` counts its items: the network passes of
+`render_rays` (a density or a colour pass, however many mlp_chunk slices
+it takes) by the path they took (`renderer/pipeline.py::network_path`:
+"plain", "fused" or "fast"), and the samples it renders by the pass's role
+(`ROLES`: the coarse pass's R x S, the fine pass's R x (S + n_fine)).
+`passes()` and `samples()` read them over the process's life; a reader
+takes the difference of two readings.
 """
 
 from __future__ import annotations
@@ -40,6 +42,10 @@ _OFF = contextlib.nullcontext()
 PATHS = ("fused", "fast", "plain")
 _passes_lock = threading.Lock()
 _passes = dict.fromkeys(PATHS, 0)
+
+ROLES = ("coarse", "fine")
+_samples_lock = threading.Lock()
+_samples = dict.fromkeys(ROLES, 0)
 
 
 def span(name: str):
@@ -76,3 +82,15 @@ def passes() -> dict:
     """The network passes so far, {path: count} over `PATHS`."""
     with _passes_lock:
         return dict(_passes)
+
+
+def count_samples(role: str, n: int) -> None:
+    """A pass of role ``role`` (one of `ROLES`) rendered ``n`` samples."""
+    with _samples_lock:
+        _samples[role] += n
+
+
+def samples() -> dict:
+    """The samples rendered so far, {role: count} over `ROLES`."""
+    with _samples_lock:
+        return dict(_samples)
