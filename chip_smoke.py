@@ -1135,8 +1135,10 @@ def fused_variant(w, wflat, x, with_color: bool, gen, fast: bool = False) -> tup
     """One variant of the fused pair against its plain versions on ``x``.
     Points within KINK of a ReLU's kink are left out of the mask-dependent
     outputs (gpe, xbar) and, for the weight gradients, their cotangents are
-    zeroed; everything else is held to the bands. A second backward with
-    every cotangent reports what the left-out points do (`flip_report`).
+    zeroed; everything else is held to the bands, and two launches of the
+    backward to the same bits (``wgrad_chunks``: the record chunks its
+    weight-gradient pass walked). A second backward with every cotangent
+    reports what the left-out points do (`flip_report`).
 
     fast: the bfloat16-fed kernels, held to the oracle of their plain
     versions instead (`fused_mlp.check_fast_kernels`), with the same
@@ -1167,7 +1169,11 @@ def fused_variant(w, wflat, x, with_color: bool, gen, fast: bool = False) -> tup
     v["xbar_flips"] = flip_report(xb, xb_p, BWD_TOL, kinks)
     v["grads_all_cotangents_max_rel_err"] = max(_rel_err(gr[k].reshape(t.shape), t)[1] for k, t in gr_p.items())
     kept = tuple(c * (keep if c.dim() == 1 else keep[:, None]) if c is not None else None for c in cots)
+    chunks = fused_mlp.WGRAD_PASS.chunks
     xb, gp, gr = fused_mlp.fused_bwd(w, x, *kept, with_color, wflat)
+    v["wgrad_chunks"] = fused_mlp.WGRAD_PASS.chunks - chunks
+    again = fused_mlp.fused_bwd(w, x, *kept, with_color, wflat)
+    v["two_launches_equal"] = torch.equal(xb, again[0]) and all(torch.equal(gr[k], again[2][k]) for k in gr)
     xb_p, gp_p, gr_p = fused_mlp.fused_bwd_plain(w, x, *kept, with_color)
     errs = [_rel_err(xb, xb_p, keep)]
     if with_color:
@@ -1180,6 +1186,8 @@ def fused_variant(w, wflat, x, with_color: bool, gen, fast: bool = False) -> tup
     torch.cuda.synchronize()
     if v["fwd_max_rel_err"] > FWD_TOL or v["bwd_max_rel_err"] > BWD_TOL or v["grads_max_rel_err"] > BWD_TOL:
         raise AssertionError(f"fused kernels differ from their plain versions: {v}")
+    if not v["two_launches_equal"]:
+        raise AssertionError(f"fused backward: two launches differ: {v}")
     v["bwd_max_rel_err"] = max(v["bwd_max_rel_err"], v["grads_max_rel_err"])
     return v, kept
 
@@ -1400,8 +1408,10 @@ def fused_resources(kernel) -> dict:
     variant (`entry_resources`, from the build log of its library: a fast
     launcher's ``base`` built it, its kernels in namespace fmlp_tc); its
     dynamic shared memory and resident blocks per SM (the occupancy query
-    the wrapper sizes its grid by), its tile and its scratch per block (the
-    fast backward: its record per tile); the HMMA and FFMA instructions of
+    the wrapper sizes its grid by), its tile and its scratch per block (a
+    backward: its record per tile, the weight-gradient pass's registers and
+    spills, and the float32 one's budget of records a call); the HMMA and
+    FFMA instructions of
     the library's SASS, summed over the fast kernels' functions (fmlp_tc)
     and over the float32 kernels' (`sass_counts`)."""
     dev = torch.device("cuda")
@@ -1412,8 +1422,8 @@ def fused_resources(kernel) -> dict:
     for label, color in (("density", 0), ("with_color", 1)):
         v = entry_resources(built, rf"{entry}ILb{color}E")
         out[label] = {k: v[k] for k in ("registers", "kernel_spill_bytes", "functions_spill_bytes") if k in v}
-        if fast and built is fused_mlp.BWD_KERNEL:  # the weight-gradient pass
-            g = entry_resources(built, rf"fused_mlp_wgrad_kernelILb{color}E")
+        if built is fused_mlp.BWD_KERNEL:  # the weight-gradient pass
+            g = entry_resources(built, rf"fused_mlp_wgrad_{'' if fast else 'f32_'}kernelILb{color}E")
             out[label]["wgrad_pass"] = {k: g[k] for k in ("registers", "kernel_spill_bytes") if k in g}
     query = lambda sym, color=0: built.extra_function(f"{built.name}_{sym}", [ctypes.c_int])(color)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1421,13 +1431,15 @@ def fused_resources(kernel) -> dict:
         blocks = fused_mlp._blocks(kernel, f"{kernel.name}_blocks", dev, color)
         v = out[label]
         v["blocks_per_sm"] = blocks / sms
-        if not fast:
-            v["scratch_bytes_per_block"] = 4 * query("scratch", int(color))
-        elif built is fused_mlp.FWD_KERNEL:
-            v["scratch_bytes_per_block"] = 2 * query("fast_scratch", int(color))
+        if built is fused_mlp.BWD_KERNEL:
+            v["record_bytes_per_tile"] = (2 * query("fast_record", int(color)) if fast
+                                          else 4 * query("record", int(color)))
         else:
-            v["record_bytes_per_tile"] = 2 * query("fast_record", int(color))
+            v["scratch_bytes_per_block"] = (2 * query("fast_scratch", int(color)) if fast
+                                            else 4 * query("scratch", int(color)))
     out["dynamic_smem_bytes"] = query("fast_smem" if fast else "smem")
+    if built is fused_mlp.BWD_KERNEL and not fast:
+        out["record_budget_bytes"] = fused_mlp.RECORD_BUDGET
     if fast and built is fused_mlp.BWD_KERNEL:
         out["wgrad_pass_dynamic_smem_bytes"] = query("fast_wgrad_smem")
     out["tile_points"] = query("tile")

@@ -7,29 +7,42 @@
 // (pallas_call at :507): recompute of the backbone, first-order backprop of
 // sbar and ebar, then the second-order vjp of the g-recursion driven by gbar
 // (the derivation is in ops/fused_mlp.py). The plain version is
-// ops/fused_mlp.py::fused_bwd_plain. The products run on the tiled core of
-// fused_mlp_tiled.cuh (shared-memory slabs, 8 x 8 register micro-tiles).
+// ops/fused_mlp.py::fused_bwd_plain. The TPU kernel carries the weight
+// gradients from one grid step to the next in VMEM; here blocks run in
+// parallel, so the sums over the points are a pass of their own.
+//
+// The float32 kernel (fused_mlp_bwd_launch), on the tiled core of
+// fused_mlp_tiled.cuh (shared-memory slabs, 8 x 8 register micro-tiles):
+// - The chain (`fused_mlp_bwd_kernel`): a persistent grid walks the tiles of
+//   P = 64 points; per tile the recompute, the first-order backprop, xbar,
+//   and with color the g-recursion, gpe and its vjp up the chain (gb1 = m1
+//   (gbar K1[:63]), gb_l = m_l (gb_{l-1} K_l), gb5 = m5 (gb4 K5a + gbar
+//   K5b)). Each tile's rows go into a record of its own (`Rec32`): x,
+//   h1..h7, dz1..dz7, and with color e1, de1, gbar, u1..u7, gb1..gb7, ~15 /
+//   ~32 KB a point. The bias, k8, K10 and b9, b10 sums go to the block's
+//   slice of `small` (~10 KB), summed over the blocks in block order by a
+//   second kernel.
+// - The weight gradients (`fused_mlp_wgrad_f32_kernel`): block (tile, s)
+//   owns one 128 x 128 tile of one gradient (K1, K2..K7, K5b, with color
+//   K9) and the s-th of `splits` contiguous shares of the tiles of points.
+//   It sums both terms of a second-order gradient (h^T dz + gb^T u) in
+//   registers, one fmaf a term, p-slabs of 32 points double-buffered by
+//   `cp.async`, and adds the sum to its partial tile every FLUSH tiles of
+//   points; a reduce adds the shares in share order.
+// - Records take device memory: a call walks its points in chunks of
+//   `chunk` tiles (whole waves of the chain's grid, under the wrapper's
+//   budget, ops/fused_mlp.py::wgrad_plan), each chunk's chain then its
+//   pass, which adds into the same partial tiles in chunk order.
+// Two runs give the same bits: fixed orders everywhere, no atomics.
 //
 // Bound on the H100: FP32 operations, ~1.3 M multiply-adds per point for
 // sigma alone and ~2.7 M with color, of which ~0.45 M / ~0.9 M are the
-// weight gradients' sums over the points; the inputs and outputs move
-// 0.7-1.2 KB per point. The TPU kernel carries the weight gradients from
-// one grid step to the next in VMEM; here blocks run in parallel, so each
-// block of the persistent grid adds its tiles' sums into its own 1.87 MB
-// slice of `partials`, and a second kernel adds the slices in block order:
-// two runs give the same bits, and no atomics are used. Per layer the first-
-// and second-order terms go into one pass: Kbar_l += h_{l-1}^T dz_l +
-// gb_{l-1}^T u_l.
-//
-// Traffic per tile of 64 points beside the FMAs, in device memory or L2:
-// - the slice's read-modify-write, 2 x 1.7-1.9 MB (27-29 KB per point and
-//   direction: the larger the tile, the less);
-// - the scratch rows: each layer product writes its 256 output rows (64 KB)
-//   once and reads its input rows and its mask rows once; each weight
-//   gradient reads its operands twice (two 128-row sub-tiles per side), and
-//   with color both pairs: ~4 MB per tile without color, ~8.5 MB with
-//   (~65 / ~135 KB per point);
-// - the weights, 2.1 MB (3.6 MB with the transposes) from L2.
+// weight gradients' sums over the points. The pass needs each record once
+// from device memory (the blocks of one share read a tile's record at about
+// the same time) and does 28 / 30 gradient tiles of 128 x 128 x 64 (x 2
+// terms) multiply-adds a tile: 59 / 122 MFLOP on 0.96 / 2.05 MB, ~60
+// FLOP/B against the card's 20, so it is bound by its FMAs; its partial
+// tiles (~33 MB) stay in L2. The chain writes each record once.
 //
 // fused_mlp_bwd_fast_launch is the JAX kernel's fast=True: every operand
 // of every product rounded to bfloat16, weights, activations and the
@@ -38,11 +51,12 @@
 // rank-1 term sbar k8 read float32, as the JAX body's jnp.sum and
 // elementwise products do. Bound: bf16 products with float32 sums on the
 // tensor cores, 989 TFLOP/s dense on an H100 SXM, ~1.4 ms a production
-// step. Its design is not the float32 kernel's:
+// step. Its design is the float32 kernel's on other cores:
 // - the chain (recompute, first-order backprop, xbar, the g-recursion and
 //   gb1..gb7) runs on the tensor-core core of fused_mlp_tc.cuh and writes
 //   each tile's bf16 rows (x, h, dz, and with color e1, u, de1, gbar, gb)
-//   into a record of its own, ~0.47 / ~0.94 MB a tile of 64 points;
+//   into a record of its own, ~0.47 / ~0.94 MB a tile of 64 points, for
+//   all the call's tiles at once;
 // - the bias, k8, K10 and b9, b10 sums, per block, go to a 10 KB slice of
 //   `small`, summed over the blocks in block order by a second kernel;
 // - the weight gradients are a pass of their own over the records
@@ -50,197 +64,16 @@
 //   gradient and a fixed share of the tiles of points, sums their products
 //   on the tensor cores (both terms of a second-order gradient, h^T dz +
 //   gb^T u, as one sum), and writes its partial tile; a reduce adds the
-//   shares in order. The float32 kernel's 1.87 MB read-modify-write of a
-//   gradient slice per tile (~26 GB a production step) is gone: the pass
-//   reads each record ~2x instead (~5 GB), and the records cost ~2.6 GB
-//   of device memory at the step's 352,000 points.
-// Two runs give the same bits: fixed orders everywhere, no atomics.
+//   shares in order. The pass reads each record ~2x (~5 GB a production
+//   step), and the records cost ~2.6 GB of device memory at the step's
+//   352,000 points.
 #include "fused_mlp_tc.cuh"
 #include "fused_mlp_tiled.cuh"
 
 using namespace fmlp_tiled;
-using fmlp::O_B10;
-using fmlp::O_B8;
-using fmlp::O_K10;
 using fmlp::O_K10T;
 using fmlp::O_K9T;
 using fmlp::G_FLOATS;
-
-// Every routine of the tiled core ends on a barrier; the barriers here order
-// the per-thread loops between them.
-template <bool COLOR>
-__global__ void __launch_bounds__(NT, 2)
-fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sbar,
-                     const float* __restrict__ ebar, const float* __restrict__ gbar,
-                     const float* __restrict__ w, float* __restrict__ xbar,
-                     float* __restrict__ gpe, float* __restrict__ partials,
-                     float* __restrict__ scratch, int n) {
-  extern __shared__ __align__(16) float sm[];
-  float* s = scratch + (size_t)blockIdx.x * SCRATCH_FLOATS;
-  float* G = partials + (size_t)blockIdx.x * G_FLOATS;
-  const int ntiles = (n + P - 1) / P;
-  // gbar's rows 63..86 stay zero: K1's gradient takes gbar as an 87-row operand
-  for (int i = threadIdx.x; i < (88 - PE) * P; i += NT) row(s, R_GBAR + PE)[i] = 0.f;
-
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int t0 = t * P;
-    load_rows(row(s, R_X), x, IN, t0, n);
-    load_rows(row(s, R_SB), sbar, 1, t0, n);
-    if (COLOR) {
-      load_rows(row(s, R_EB), ebar, 3, t0, n);
-      load_rows(row(s, R_GBAR), gbar, PE, t0, n);
-    }
-    __syncthreads();
-    backbone(sm, s, w);  // h1..h7, the forward's
-
-    // ---- first order: the sigma and essence cotangents ----
-    if (COLOR) {
-      essence_hidden(sm, s, w);  // e1 = relu(h7 K9 + b9), the forward's
-      // the narrow essence head, per thread: de1 = (ebar K10^T) * (z9 > 0),
-      // and z9 > 0 exactly where e1 > 0
-      for (int i = threadIdx.x; i < E * P; i += NT) {
-        const int j = i / P, p = i - j * P;
-        float z = 0.f;
-        for (int k = 0; k < 3; ++k)
-          z = fmaf(row(s, R_EB + k)[p], __ldg(w + O_K10T + k * E + j), z);
-        row(s, R_DE1)[i] = row(s, R_E1)[i] > 0.f ? z : 0.f;
-      }
-      // K10 (E, 3) and b10: one owner thread per element
-      for (int i = threadIdx.x; i < E * 3 + 3; i += NT) {
-        const float* a = i < E * 3 ? row(s, R_E1 + i / 3) : nullptr;
-        const float* b = row(s, R_EB + (i < E * 3 ? i % 3 : i - E * 3));
-        float acc = 0.f;
-        for (int p = 0; p < P; ++p)
-          acc = a != nullptr ? fmaf(a[p], b[p], acc) : acc + b[p];
-        G[i < E * 3 ? O_K10 + i : O_B10 + i - E * 3] += acc;
-      }
-      __syncthreads();
-      wgrad<false>(sm, G + O_K9, W, E, hrow(s, 7), row(s, R_DE1), nullptr, nullptr, G + O_B9);
-    }
-    // dz7 = m7 * (sbar k8 + de1 K9^T)
-    layer<RANK1 | MASK, true>(sm, dzrow(s, 7), W, COLOR ? wide(row(s, R_DE1), E, w + O_K9T) : none(),
-                              none(), nullptr, hrow(s, 7), row(s, R_SB), w + O_K8);
-    // k8 and b8: sums of sbar h7 and of sbar over the tile, one owner each
-    for (int j = threadIdx.x; j < W; j += NT) {
-      const float* h7 = hrow(s, 7) + j * P;
-      float acc = 0.f;
-      for (int p = 0; p < P; ++p) acc = fmaf(row(s, R_SB)[p], h7[p], acc);
-      G[O_K8 + j] += acc;
-    }
-    if (threadIdx.x == 0) {
-      float sb = 0.f;
-      for (int p = 0; p < P; ++p) sb += row(s, R_SB)[p];
-      G[O_B8] += sb;
-    }
-    // dz6 = m6 (dz7 K7^T), ..., dz4 = m4 (dz5 K5a^T), ..., dz1
-    for (int l = 7; l >= 2; --l)
-      masked(sm, dzrow(s, l - 1), dzrow(s, l), w + ktw(l), hrow(s, l - 1));
-    // xbar = dz1 K1^T, plus dz5 K5b^T on the pe lanes (the skip layer); the
-    // transposes' rows are 87 and 63 floats: 4-byte copies
-    layer<0, false, 128>(sm, row(s, R_OUT), IN, {dzrow(s, 1), w + O_K1T, W, IN, IN},
-                         {dzrow(s, 5), w + O_K5BT, W, PE, PE}, nullptr, nullptr, nullptr, nullptr);
-    store_rows(xbar, row(s, R_OUT), IN, t0, n);
-
-    // ---- second order: the g-recursion (u7..u1, gpe) and the start of its
-    // vjp, gb1 = m1 (gbar K1[:63]) ----
-    float* gb = row(s, R_GB);
-    float* gb_next = row(s, R_GB + W);
-    if (COLOR) {
-      g_chain(sm, s, w);  // u7..u1 and gpe, the forward's
-      store_rows(gpe, row(s, R_OUT2), PE, t0, n);
-      layer<MASK, true>(sm, gb, W, wide(row(s, R_GBAR), PE, w + O_K1), none(), nullptr,
-                        hrow(s, 1), nullptr, nullptr);
-    }
-
-    // ---- the weight gradients: Kbar_l += h_{l-1}^T dz_l (+ gb_{l-1}^T u_l
-    // with color, gb running up the chain: gb_l = m_l (gb_{l-1} K_l), gb5 =
-    // m5 (gb4 K5a + gbar K5b)) ----
-    wgrad<COLOR>(sm, G + O_K1, IN, W, row(s, R_X), dzrow(s, 1), row(s, R_GBAR), urow(s, 1),
-                 G + O_B1);
-    for (int l = 2; l <= 7; ++l) {
-      wgrad<COLOR>(sm, G + kw(l), W, W, hrow(s, l - 1), dzrow(s, l), gb, urow(s, l),
-                   G + O_B1 + (l - 1) * W);
-      if (l == 5)
-        wgrad<COLOR>(sm, G + O_K5B, PE, W, row(s, R_X), dzrow(s, 5), row(s, R_GBAR), urow(s, 5),
-                     nullptr);
-      if (COLOR) {
-        layer<MASK, true>(sm, gb_next, W, wide(gb, W, w + kw(l)),
-                          l == 5 ? wide(row(s, R_GBAR), PE, w + O_K5B) : none(), nullptr,
-                          hrow(s, l), nullptr, nullptr);
-        float* tmp = gb; gb = gb_next; gb_next = tmp;
-      }
-    }
-    // k8 += the sum of gb7 over the points (the owner of k8[j] as above)
-    if (COLOR) {
-      for (int j = threadIdx.x; j < W; j += NT) {
-        const float* g7 = gb + j * P;
-        float acc = 0.f;
-        for (int p = 0; p < P; ++p) acc += g7[p];
-        G[O_K8 + j] += acc;
-      }
-    }
-    __syncthreads();  // the next tile overwrites the scratch
-  }
-}
-
-// out[e] = sum over the slices g = 0..nslices-1, in that order, of partials[g][e]
-__global__ void fused_mlp_reduce_kernel(const float* __restrict__ partials, int nslices,
-                                        float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= G_FLOATS) return;
-  float acc = 0.f;
-  for (int g = 0; g < nslices; ++g) acc += partials[(size_t)g * G_FLOATS + e];
-  out[e] = acc;
-}
-
-
-// the dynamic shared memory of the variants on the current device (before
-// the occupancy query and the launch)
-static cudaError_t allow_smem() {
-  cudaError_t e = cudaFuncSetAttribute(fused_mlp_bwd_kernel<true>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(fused_mlp_bwd_kernel<false>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-}
-
-static int grid_blocks(int with_color) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return -1;
-  if (allow_smem() != cudaSuccess) return -1;
-  cudaError_t err = with_color
-      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_bwd_kernel<true>, NT,
-                                                      SMEM_BYTES)
-      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_bwd_kernel<false>, NT,
-                                                      SMEM_BYTES);
-  if (err != cudaSuccess) return -1;
-  return sms * per_sm;
-}
-
-static int launch(const float* x, const float* sbar, const float* ebar, const float* gbar,
-                  const float* w, float* xbar, float* gpe, float* partials, float* grads,
-                  float* scratch, int n, int with_color, int blocks, void* stream) {
-  const int ntiles = (n + P - 1) / P;
-  const int grid = blocks < ntiles ? blocks : ntiles;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = allow_smem();
-  if (err != cudaSuccess) return (int)err;
-  if (grid > 0) {
-    if (with_color) {
-      fused_mlp_bwd_kernel<true><<<grid, NT, SMEM_BYTES, st>>>(x, sbar, ebar, gbar, w, xbar, gpe,
-                                                               partials, scratch, n);
-    } else {
-      fused_mlp_bwd_kernel<false><<<grid, NT, SMEM_BYTES, st>>>(x, sbar, ebar, gbar, w, xbar, gpe,
-                                                                partials, scratch, n);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  fused_mlp_reduce_kernel<<<(G_FLOATS + 255) / 256, 256, 0, st>>>(partials, grid > 0 ? grid : 0,
-                                                                 grads);
-  return (int)cudaGetLastError();
-}
 
 namespace fmlp_tc {
 
@@ -391,13 +224,13 @@ fused_mlp_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ s
 // ---- the weight-gradient pass --------------------------------------------------------
 // Job i: G[off + k * J + j] = sum over every tile's points of A1[k][p]
 // B1[j][p] (+ A2[k][p] B2[j][p] with color), the operands rows of the tile's
-// record (row offsets), k < K, j < J.
+// record (row offsets), k < K, j < J. The float32 pass runs the same jobs
+// on its own records.
 struct Job {
   int a1, b1, a2, b2, K, J, off;
 };
-template <bool COLOR>
+template <bool COLOR, class R = Rec<COLOR>>
 __device__ __forceinline__ Job job(int i) {
-  using R = Rec<COLOR>;
   const int a2 = COLOR ? R::GBAR : -1;
   if (i == 0) return {R::X, R::DZ, a2, R::U, IN, W, O_K1};  // K1: x^T dz1 + gbar^T u1
   if (i <= 6) {                                            // K2..K7 (K5a): h^T dz + gb^T u
@@ -416,12 +249,13 @@ __host__ __device__ constexpr int njobs(bool color) { return color ? 9 : 8; }
 __host__ __device__ constexpr int job_tiles(int i) { return i == 0 || i == 7 ? 2 : i == 8 ? 2 : 4; }
 __host__ __device__ constexpr int gemm_tiles(bool color) { return color ? 30 : 28; }
 
-// tile index -> its job, and its first row k0 and column j0
-template <bool COLOR>
+// tile index -> its job, and its first row k0 and column j0; R: the record
+// whose rows the job names (the float32 backward's is Rec32)
+template <bool COLOR, class R = Rec<COLOR>>
 __device__ __forceinline__ Job gemm_tile(int tile, int& k0, int& j0) {
   int i = 0;
   while (tile >= job_tiles(i)) tile -= job_tiles(i++);
-  const Job jb = job<COLOR>(i);
+  const Job jb = job<COLOR, R>(i);
   const int jt = (jb.J + GT - 1) / GT;
   k0 = (tile / jt) * GT;
   j0 = (tile % jt) * GT;
@@ -611,23 +445,304 @@ static int launch(const float* x, const float* sbar, const float* ebar, const fl
 
 }  // namespace fmlp_tc
 
-// resident blocks of the persistent grid; scratch floats, tile points and
-// dynamic shared bytes of a block
+// ---- the float32 backward ---------------------------------------------------------
+using fmlp_tc::S_B1;
+using fmlp_tc::S_B10;
+using fmlp_tc::S_B8;
+using fmlp_tc::S_B9;
+using fmlp_tc::S_K10;
+using fmlp_tc::S_K8;
+using fmlp_tc::SMALL;
+
+// The rows of one tile's record (P floats each). With color, the tiled
+// core's scratch layout, so that the routines the forward shares (backbone,
+// essence_hidden, g_chain) write h, e1, u and gpe where the forward's do;
+// then gb1..gb6, and gb7 (only summed) in the scratch's gb rows.
+// Density-only: x, h1..h7, dz1..dz7, sbar and the xbar tile. The names are
+// the bf16 record's (fmlp_tc::Rec), so the pass runs the bf16 pass's jobs.
+template <bool COLOR>
+struct Rec32 {
+  static constexpr int X = R_X;
+  static constexpr int H = R_H;
+  static constexpr int U = R_U;
+  static constexpr int DZ = COLOR ? R_DZ : R_U;
+  static constexpr int E1 = R_E1;
+  static constexpr int DE1 = R_DE1;
+  static constexpr int EB = R_EB;
+  static constexpr int GBAR = R_GBAR;  // 87 rows, 63..86 zero
+  static constexpr int GB7 = R_GB;
+  static constexpr int SB = COLOR ? R_SB : DZ + 7 * W;
+  static constexpr int OUT = COLOR ? R_OUT : SB + 1;
+  static constexpr int GB = fmlp_tiled::ROWS;  // gb1..gb6
+  static constexpr int ROWS = COLOR ? GB + 6 * W : OUT + 88;
+};
+
+// gsum[j] += the sum over the tile's points of rows[j], j < J: one owner
+// thread per j
+__device__ __forceinline__ void row_sums(const float* rows, int J, float* gsum) {
+  for (int j = threadIdx.x; j < J; j += NT) {
+    const float4* b = reinterpret_cast<const float4*>(rows + j * P);
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < P / 4; ++q) {
+      const float4 v = b[q];
+      s += v.x; s += v.y; s += v.z; s += v.w;
+    }
+    gsum[j] += s;
+  }
+}
+
+// The chain: tile t's rows into record t, the small sums into the block's
+// slice of `small`. Every routine of the tiled core ends on a barrier; the
+// barriers here order the per-thread loops between them.
+template <bool COLOR>
+__global__ void __launch_bounds__(NT, 2)
+fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sbar,
+                     const float* __restrict__ ebar, const float* __restrict__ gbar,
+                     const float* __restrict__ w, float* __restrict__ xbar,
+                     float* __restrict__ gpe, float* __restrict__ small,
+                     float* __restrict__ rec, int n) {
+  using R = Rec32<COLOR>;
+  extern __shared__ __align__(16) float sm[];
+  float* G = small + (size_t)blockIdx.x * SMALL;
+  const int ntiles = (n + P - 1) / P;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int t0 = t * P;
+    float* s = rec + (size_t)t * R::ROWS * P;
+    auto dz = [&](int l) { return s + (R::DZ + (l - 1) * W) * P; };
+    auto gb = [&](int l) { return s + (l == 7 ? R::GB7 : R::GB + (l - 1) * W) * P; };
+    load_rows(row(s, R::X), x, IN, t0, n);
+    load_rows(row(s, R::SB), sbar, 1, t0, n);
+    if (COLOR) {
+      load_rows(row(s, R::EB), ebar, 3, t0, n);
+      load_rows(row(s, R::GBAR), gbar, PE, t0, n);
+      // K1's gradient takes gbar as an 87-row operand: rows 63..86 zero
+      for (int i = threadIdx.x; i < (IN - PE) * P; i += NT) row(s, R::GBAR + PE)[i] = 0.f;
+    }
+    __syncthreads();
+    backbone(sm, s, w);  // h1..h7, the forward's
+
+    // ---- first order: the sigma and essence cotangents ----
+    if (COLOR) {
+      essence_hidden(sm, s, w);  // e1 = relu(h7 K9 + b9), the forward's
+      // the narrow essence head, per thread: de1 = (ebar K10^T) * (z9 > 0),
+      // and z9 > 0 exactly where e1 > 0
+      for (int i = threadIdx.x; i < E * P; i += NT) {
+        const int j = i / P, p = i - j * P;
+        float z = 0.f;
+        for (int k = 0; k < 3; ++k)
+          z = fmaf(row(s, R::EB + k)[p], __ldg(w + O_K10T + k * E + j), z);
+        row(s, R::DE1)[i] = row(s, R::E1)[i] > 0.f ? z : 0.f;
+      }
+      // K10 (E, 3) and b10: one owner thread per element
+      for (int i = threadIdx.x; i < E * 3 + 3; i += NT) {
+        const float* a = i < E * 3 ? row(s, R::E1 + i / 3) : nullptr;
+        const float* b = row(s, R::EB + (i < E * 3 ? i % 3 : i - E * 3));
+        float acc = 0.f;
+        for (int p = 0; p < P; ++p)
+          acc = a != nullptr ? fmaf(a[p], b[p], acc) : acc + b[p];
+        G[i < E * 3 ? S_K10 + i : S_B10 + i - E * 3] += acc;
+      }
+      __syncthreads();
+      row_sums(row(s, R::DE1), E, G + S_B9);
+    }
+    // dz7 = m7 * (sbar k8 + de1 K9^T)
+    layer<RANK1 | MASK, true>(sm, dz(7), W, COLOR ? wide(row(s, R::DE1), E, w + O_K9T) : none(),
+                              none(), nullptr, hrow(s, 7), row(s, R::SB), w + O_K8);
+    // k8 and b8: sums of sbar h7 and of sbar over the tile, one owner each
+    for (int j = threadIdx.x; j < W; j += NT) {
+      const float* h7 = hrow(s, 7) + j * P;
+      float acc = 0.f;
+      for (int p = 0; p < P; ++p) acc = fmaf(row(s, R::SB)[p], h7[p], acc);
+      G[S_K8 + j] += acc;
+    }
+    if (threadIdx.x == 0) {
+      float sb = 0.f;
+      for (int p = 0; p < P; ++p) sb += row(s, R::SB)[p];
+      G[S_B8] += sb;
+    }
+    // dz6 = m6 (dz7 K7^T), ..., dz4 = m4 (dz5 K5a^T), ..., dz1
+    for (int l = 7; l >= 2; --l) masked(sm, dz(l - 1), dz(l), w + ktw(l), hrow(s, l - 1));
+    // xbar = dz1 K1^T, plus dz5 K5b^T on the pe lanes (the skip layer); the
+    // transposes' rows are 87 and 63 floats: 4-byte copies
+    layer<0, false, 128>(sm, row(s, R::OUT), IN, {dz(1), w + O_K1T, W, IN, IN},
+                         {dz(5), w + O_K5BT, W, PE, PE}, nullptr, nullptr, nullptr, nullptr);
+    store_rows(xbar, row(s, R::OUT), IN, t0, n);
+    for (int l = 1; l <= 7; ++l) row_sums(dz(l), W, G + S_B1 + (l - 1) * W);  // b1..b7
+
+    // ---- second order: the g-recursion (u7..u1, gpe) and its vjp up the
+    // chain, gb1..gb7; k8 += the sum of gb7 ----
+    if (COLOR) {
+      g_chain(sm, s, w);  // u7..u1 and gpe, the forward's
+      store_rows(gpe, row(s, R_OUT2), PE, t0, n);
+      layer<MASK, true>(sm, gb(1), W, wide(row(s, R::GBAR), PE, w + O_K1), none(), nullptr,
+                        hrow(s, 1), nullptr, nullptr);
+      for (int l = 2; l <= 7; ++l)
+        layer<MASK, true>(sm, gb(l), W, wide(gb(l - 1), W, w + kw(l)),
+                          l == 5 ? wide(row(s, R::GBAR), PE, w + O_K5B) : none(), nullptr,
+                          hrow(s, l), nullptr, nullptr);
+      for (int j = threadIdx.x; j < W; j += NT) {
+        const float* g7 = gb(7) + j * P;
+        float acc = 0.f;
+        for (int p = 0; p < P; ++p) acc += g7[p];
+        G[S_K8 + j] += acc;
+      }
+    }
+    __syncthreads();  // the next tile's loads reuse the shared memory
+  }
+}
+
+// The weight-gradient pass. Block (tile, s): the gradient tile's sum over
+// the records [ta, tb) of split s, both terms of each in turn, into its
+// partial tile part[s][tile] (accumulate: added to it, as a later chunk's
+// pass does). Thread (tx, ty) keeps rows ty + 16 i and columns tx + 16 jj
+// of the tile (`wslab_mac`); every FLUSH records of points its sums are
+// added to the partial tile, whose entries only it touches, so that no
+// float32 sum runs over more than FLUSH * 2P terms.
+constexpr int FLUSH = 4;
+static_assert(2 * W_STAGE <= SMEM_FLOATS, "the pass's two stages fit the chain's shared memory");
+template <bool COLOR>
+__global__ void __launch_bounds__(NT, 2)
+fused_mlp_wgrad_f32_kernel(const float* __restrict__ rec, int ntiles, int splits, int accumulate,
+                           float* __restrict__ part) {
+  using R = Rec32<COLOR>;
+  extern __shared__ __align__(16) float sm[];
+  int k0, j0;
+  const fmlp_tc::Job jb = fmlp_tc::gemm_tile<COLOR, R>(blockIdx.x, k0, j0);
+  const int s = blockIdx.y;
+  const int ta = (int)((long long)ntiles * s / splits), tb = (int)((long long)ntiles * (s + 1) / splits);
+  constexpr int NS = P / BP;  // p-slabs a record
+  const int per_tile = (jb.a2 >= 0 ? 2 : 1) * NS;
+  const int n = (tb - ta) * per_tile;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
+  auto load = [&](int q) {
+    const float* r = rec + (size_t)(ta + q / per_tile) * R::ROWS * P;
+    const bool second = q % per_tile >= NS;
+    wslab_load(sm + (q & 1) * W_STAGE, r + (second ? jb.a2 : jb.a1) * P,
+               r + (second ? jb.b2 : jb.b1) * P, jb.K, jb.J, k0, j0, (q % NS) * BP);
+  };
+  float* out = part + ((size_t)s * gridDim.x + blockIdx.x) * WG * WG;
+  bool first = !accumulate;
+  auto flush = [&]() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        float* o = out + (ty + 16 * i) * WG + tx + 16 * jj;
+        *o = (first ? 0.f : *o) + acc[i][jj];
+        acc[i][jj] = 0.f;
+      }
+    first = false;
+  };
+  if (n > 0) {
+    load(0);
+    for (int q = 0; q < n; ++q) {
+      if (q + 1 < n) {
+        load(q + 1);
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();
+      wslab_mac(sm + (q & 1) * W_STAGE, acc);
+      __syncthreads();
+      if ((q + 1) % (FLUSH * per_tile) == 0 || q + 1 == n) flush();
+    }
+  }
+  if (first) flush();  // no points, and the first chunk: zeros
+}
+
+template <bool COLOR>
+static cudaError_t allow_smem() {
+  cudaError_t e = cudaFuncSetAttribute(fused_mlp_bwd_kernel<COLOR>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fused_mlp_wgrad_f32_kernel<COLOR>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+}
+
+static int grid_blocks(int with_color) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return -1;
+  cudaError_t err = with_color ? allow_smem<true>() : allow_smem<false>();
+  if (err != cudaSuccess) return -1;
+  err = with_color
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_bwd_kernel<true>, NT,
+                                                      SMEM_BYTES)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_bwd_kernel<false>, NT,
+                                                      SMEM_BYTES);
+  if (err != cudaSuccess) return -1;
+  return sms * per_sm;
+}
+
+// Per chunk of `chunk` records: the chain over its points, then the pass
+// (into `part`, added to it after the first chunk); then the two reduces.
+template <bool COLOR>
+static int launch(const float* x, const float* sbar, const float* ebar, const float* gbar,
+                  const float* w, float* xbar, float* gpe, float* small, float* part, float* rec,
+                  float* grads, int n, int blocks, int chunk, int splits, cudaStream_t st) {
+  const int ntiles = (n + P - 1) / P;
+  const int grid = blocks < chunk ? blocks : chunk;
+  const int tiles = fmlp_tc::gemm_tiles(COLOR);
+  cudaError_t err = allow_smem<COLOR>();
+  if (err != cudaSuccess) return (int)err;
+  for (int t0 = 0; t0 < ntiles; t0 += chunk) {
+    const int m = ntiles - t0 < chunk ? ntiles - t0 : chunk;
+    const size_t p0 = (size_t)t0 * P;
+    const int nc = n - (int)p0 < m * P ? n - (int)p0 : m * P;
+    fused_mlp_bwd_kernel<COLOR><<<m < grid ? m : grid, NT, SMEM_BYTES, st>>>(
+        x + p0 * IN, sbar + p0, COLOR ? ebar + p0 * 3 : nullptr, COLOR ? gbar + p0 * PE : nullptr, w,
+        xbar + p0 * IN, COLOR ? gpe + p0 * PE : nullptr, small, rec, nc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    fused_mlp_wgrad_f32_kernel<COLOR><<<dim3(tiles, splits), NT, SMEM_BYTES, st>>>(rec, m, splits,
+                                                                                 t0 > 0, part);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (ntiles > 0) {
+    fmlp_tc::fused_mlp_wgrad_reduce<COLOR><<<dim3(WG * WG / 256, tiles), 256, 0, st>>>(part, splits,
+                                                                                      grads);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  fmlp_tc::fused_mlp_small_reduce<<<(SMALL + 255) / 256, 256, 0, st>>>(small, ntiles > 0 ? grid : 0,
+                                                                       grads);
+  return (int)cudaGetLastError();
+}
+
+// The float32 kernel's sizes: resident blocks of the chain's grid; floats
+// of one tile's record; points a tile; gradient tiles of the pass; floats
+// of a block's slice of `small`; dynamic shared bytes of the chain and of
+// the pass.
 extern "C" int fused_mlp_bwd_blocks(int with_color) { return grid_blocks(with_color); }
-extern "C" int fused_mlp_bwd_scratch(int) { return SCRATCH_FLOATS; }
+extern "C" int fused_mlp_bwd_record(int with_color) {
+  return (with_color ? Rec32<true>::ROWS : Rec32<false>::ROWS) * P;
+}
 extern "C" int fused_mlp_bwd_tile(int) { return P; }
+extern "C" int fused_mlp_bwd_gemm_tiles(int with_color) { return fmlp_tc::gemm_tiles(with_color); }
+extern "C" int fused_mlp_bwd_small(int) { return SMALL; }
 extern "C" int fused_mlp_bwd_smem(int) { return SMEM_BYTES; }
 
 // x (n, 87), sbar (n,), ebar (n, 3), gbar (n, 63) (the last two with color);
 // w the flat weights; out: xbar (n, 87), gpe (n, 63) (with color), grads
-// (G_FLOATS); partials: blocks * G_FLOATS zeros; scratch: blocks *
-// SCRATCH_FLOATS floats.
+// (G_FLOATS), zeros (the density-only variant leaves the color heads'
+// entries as they are). small: blocks * small floats, zeros; part: splits *
+// gemm tiles * 128 * 128 floats; rec: chunk records; chunk >= 1 tiles a
+// chunk, splits >= 1 shares a chunk (ops/fused_mlp.py::wgrad_plan).
 extern "C" int fused_mlp_bwd_launch(const float* x, const float* sbar, const float* ebar,
                                     const float* gbar, const float* w, float* xbar, float* gpe,
-                                    float* partials, float* grads, float* scratch, int n,
-                                    int with_color, int blocks, void* stream) {
-  return launch(x, sbar, ebar, gbar, w, xbar, gpe, partials, grads, scratch, n, with_color,
-                blocks, stream);
+                                    float* small, float* part, float* rec, float* grads, int n,
+                                    int with_color, int blocks, int chunk, int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_color
+      ? launch<true>(x, sbar, ebar, gbar, w, xbar, gpe, small, part, rec, grads, n, blocks, chunk,
+                     splits, st)
+      : launch<false>(x, sbar, ebar, gbar, w, xbar, gpe, small, part, rec, grads, n, blocks, chunk,
+                      splits, st);
 }
 
 // The bfloat16-fed variant. Its sizes: resident blocks of the chain's grid;

@@ -7,10 +7,12 @@
 // Design:
 // - A persistent grid of 256-thread blocks, two per SM; block b takes the
 //   tiles of P = 64 points b, b + grid, ... in order.
-// - The activations of a tile live in the block's own scratch (device
-//   memory), feature-major: row f holds feature f of the P points, so a row
-//   is 16 float4s. They reach shared memory only in bulk, as 16-byte
-//   `cp.async` copies of whole slabs, never as per-thread reads.
+// - The activations of a tile live in device memory, in the block's own
+//   scratch (the forward) or in the tile's record (the backward, whose
+//   weight-gradient pass reads them afterwards), feature-major: row f holds
+//   feature f of the P points, so a row is 16 float4s. They reach shared
+//   memory only in bulk, as 16-byte `cp.async` copies of whole slabs, never
+//   as per-thread reads.
 // - A layer product out[j][p] = sum_k in[k][p] M[k][j] (M row-major, the
 //   weight or its packed transpose) streams k-slabs of BK rows of M and of
 //   the input rows through two shared buffers: the copy of slab s + 1 is in
@@ -21,20 +23,21 @@
 //   two of the input (one address per warp): 64 FMAs per 4 shared loads. A
 //   narrow product (J <= 128: the essence head's hidden layer, xbar, gpe)
 //   keeps 4 x 8.
-// - A weight gradient G[k][j] += sum_p A[k][p] B[j][p] runs over output
-//   sub-tiles of 128 x 128: p-slabs of BP points of 128 rows of A and of B go
-//   through two shared buffers (rows BP + 4 floats apart, so that eight
-//   neighbouring rows fall in eight distinct bank groups); thread (tx, ty)
-//   keeps G's rows ty + 16 i and columns tx + 16 i, i < 8, and reads eight
-//   float4s of B and eight of A per four points: 256 FMAs per 16 shared
-//   loads. Then one read-modify-write of the block's slice of the partials
-//   per tile. The two terms of a second-order gradient (h^T dz + gb^T u)
-//   run as one sum over 2P points.
+// - The backward's weight gradients G[k][j] = sum_p A[k][p] B[j][p] are a
+//   pass of their own over the tiles' records (fused_mlp_bwd.cu), on the
+//   slab routines at the end of the products: output tiles of 128 x 128,
+//   p-slabs of BP points of 128 rows of A and of B through two shared
+//   buffers (rows BP + 4 floats apart, so that eight neighbouring rows fall
+//   in eight distinct bank groups); thread (tx, ty) keeps G's rows ty + 16 i
+//   and columns tx + 16 i, i < 8, and reads eight float4s of B and eight of
+//   A per four points: 256 FMAs per 16 shared loads. A block sums its share
+//   of the records in registers and adds the sums to its partial tile every
+//   few records of points.
 // - Output tiles go back through shared memory, so that the epilogues read
 //   and write device memory in whole rows of float4s.
-// - `layer` and `wgrad` are not inlined: each gets the 128 registers of the
-//   launch bounds to itself (inlined into the kernel, the 64 accumulators
-//   and the kernel's own state spilled).
+// - `layer` is not inlined: it gets the 128 registers of the launch bounds
+//   to itself (inlined into the kernel, the 64 accumulators and the
+//   kernel's own state spilled).
 // - Every sum runs over k (or p) in increasing order with one fmaf per term,
 //   then the bias; the kernels' per-thread heads keep the same order. Rows
 //   past K, columns past J and points past n come in as zeros and add
@@ -71,19 +74,19 @@ constexpr int BP = 32;         // p-slab of a weight gradient
 constexpr int WG = 128;        // weight-gradient output sub-tile, WG x WG
 constexpr int LDW = BP + 4;    // shared row stride of the weight-gradient slabs
 constexpr int LDO = P + 4;     // shared row stride of a staged layer output
-constexpr int LDG = WG + 4;    // shared row stride of a staged weight-gradient tile
 constexpr int F_STAGE = BK * W + BK * P;  // floats of one layer-product slab
 constexpr int W_STAGE = 2 * WG * LDW;     // floats of one weight-gradient slab
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 // two stages of slabs; a staged output tile reuses their room
-constexpr int SMEM_FLOATS = cmax(cmax(2 * F_STAGE, 2 * W_STAGE), cmax(W * LDO, WG * LDG));
+constexpr int SMEM_FLOATS = cmax(cmax(2 * F_STAGE, 2 * W_STAGE), W * LDO);
 constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
 static_assert(P == 8 * (NT / 32), "a layer product gives each warp 8 points");
 static_assert(BK * P / 4 == NT, "one input chunk per thread and slab");
 static_assert(NT == 2 * WG, "a weight-gradient sub-tile is 16 x 16 threads of 8 x 8");
 static_assert(P % BP == 0 && BP % 4 == 0, "whole p-slabs of float4s");
 
-// the scratch of one block, in rows of P floats
+// the scratch of one block (with color, the backward's record begins so), in
+// rows of P floats
 constexpr int R_X = 0;                 // x, 87 rows (+1)
 constexpr int R_H = R_X + 88;          // h1..h7
 constexpr int R_U = R_H + 7 * W;       // u1..u7 (g-recursion)
@@ -102,7 +105,6 @@ constexpr int SCRATCH_FLOATS = ROWS * P;
 __device__ __forceinline__ float* row(float* s, int r) { return s + r * P; }
 __device__ __forceinline__ float* hrow(float* s, int l) { return s + (R_H + (l - 1) * W) * P; }
 __device__ __forceinline__ float* urow(float* s, int l) { return s + (R_U + (l - 1) * W) * P; }
-__device__ __forceinline__ float* dzrow(float* s, int l) { return s + (R_DZ + (l - 1) * W) * P; }
 
 // ---- asynchronous copies (cp.async; a copy of 0 source bytes fills zeros) ---
 __device__ __forceinline__ void cp16(float* dst, const float* src, bool valid) {
@@ -343,81 +345,6 @@ __device__ __forceinline__ void wslab_mac(const float* st, float (&acc)[8][8]) {
         v = fmaf(a.w, b[jj].w, v);
         acc[i][jj] = v;
       }
-    }
-  }
-}
-
-// G[k * J + j] += sum_p A1[k][p] B1[j][p] (+ sum_p A2[k][p] B2[j][p] when
-// TWO) for k < K, j < J; gbias[j] += sum_p B1[j][p] when given. A and B are
-// scratch rows. The read-modify-write of G runs along its rows, in float4s
-// where they are float4-aligned. Each G element has one owner thread: no two
-// threads write one address. Ends on a barrier.
-template <bool TWO>
-__device__ __noinline__ void wgrad(float* sm, float* G, int K, int J, const float* A1,
-                                   const float* B1, const float* A2, const float* B2,
-                                   float* gbias) {
-  constexpr int NS = P / BP;
-  constexpr int n = TWO ? 2 * NS : NS;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const bool wide = J % 4 == 0 && (reinterpret_cast<size_t>(G) & 15) == 0;
-  for (int k0 = 0; k0 < K; k0 += WG) {
-    for (int j0 = 0; j0 < J; j0 += WG) {
-      float acc[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
-      wslab_load(sm, A1, B1, K, J, k0, j0, 0);
-#pragma unroll 1
-      for (int s = 0; s < n; ++s) {
-        if (s + 1 < n) {
-          const bool second = s + 1 >= NS;
-          wslab_load(sm + ((s + 1) & 1) * W_STAGE, second ? A2 : A1, second ? B2 : B1, K, J, k0,
-                     j0, ((s + 1) % NS) * BP);
-          cp_wait<1>();
-        } else {
-          cp_wait<0>();
-        }
-        __syncthreads();
-        wslab_mac(sm + (s & 1) * W_STAGE, acc);
-        __syncthreads();
-      }
-      // the slabs are done (the loop ended on a barrier): stage the sub-tile
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) sm[(ty + 16 * i) * LDG + tx + 16 * jj] = acc[i][jj];
-      __syncthreads();
-      const int kn = K - k0 < WG ? K - k0 : WG, jn = J - j0 < WG ? J - j0 : WG;
-      if (wide) {
-        for (int i = threadIdx.x; i < kn * (WG / 4); i += NT) {
-          const int k = i / (WG / 4), j = 4 * (i % (WG / 4));
-          if (j >= jn) continue;
-          float4* g = reinterpret_cast<float4*>(G + (size_t)(k0 + k) * J + j0 + j);
-          const float4 a = *reinterpret_cast<const float4*>(sm + k * LDG + j);
-          float4 v = *g;
-          v.x += a.x; v.y += a.y; v.z += a.z; v.w += a.w;
-          *g = v;
-        }
-      } else {
-        for (int i = threadIdx.x; i < kn * WG; i += NT) {
-          const int k = i / WG, j = i % WG;
-          if (j < jn) G[(size_t)(k0 + k) * J + j0 + j] += sm[k * LDG + j];
-        }
-      }
-      __syncthreads();  // the staged sub-tile is read before the next copies land
-    }
-  }
-  if (gbias != nullptr) {
-    for (int j = threadIdx.x; j < J; j += NT) {
-      const float4* b = reinterpret_cast<const float4*>(B1 + j * P);
-      float s = 0.f;
-#pragma unroll
-      for (int q = 0; q < P / 4; ++q) {
-        const float4 v = b[q];
-        s += v.x; s += v.y; s += v.z; s += v.w;
-      }
-      gbias[j] += s;
     }
   }
 }

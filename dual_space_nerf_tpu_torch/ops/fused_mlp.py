@@ -38,14 +38,16 @@ The gpe cotangent gbar runs the recursion upward:
 Bound on the H100 (the float32 pair: FP32, no tensor cores): operations.
 Per point ~0.43 M multiply-adds for the density-only forward, ~0.89 M with
 color, ~1.3 M and ~2.7 M for the backward; the inputs and outputs move
-0.3-1 KB per point. The float32 kernels keep every activation of a tile of
-points in the block's own scratch (device memory, never a whole-batch
-activation) and read the 2.1 MB of weights from L2. They run their
-products on one tiled core, `csrc/fused_mlp_tiled.cuh` (shared-memory
-slabs, register micro-tiles), the fast pair on `csrc/fused_mlp_tc.cuh`;
-each pair shares its core's backbone and g-recursion routines, so a
-forward's gpe is its backward's recomputed gpe bit for bit; see the
-sources' headers.
+0.3-1 KB per point. The float32 forward keeps every activation of a tile
+of points in the block's own scratch (device memory, never a whole-batch
+activation); the backward writes each tile's rows into a record that its
+weight-gradient pass sums over the points, a chunk of records at a time
+under `RECORD_BUDGET` (`wgrad_plan`). Both read the 2.1 MB of weights from
+L2 and run their products on one tiled core, `csrc/fused_mlp_tiled.cuh`
+(shared-memory slabs, register micro-tiles), the fast pair on
+`csrc/fused_mlp_tc.cuh`; each pair shares its core's backbone and
+g-recursion routines, so a forward's gpe is its backward's recomputed gpe
+bit for bit; see the sources' headers.
 """
 
 from __future__ import annotations
@@ -116,9 +118,9 @@ FWD_KERNEL = CudaKernel(
 )
 BWD_KERNEL = CudaKernel(
     "fused_mlp_bwd.cu", "fused_mlp_bwd_launch",
-    # x, sbar, ebar, gbar, weights, xbar, gpe, partials, grads, scratch, n,
-    # with_color, blocks, stream
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, sbar, ebar, gbar, weights, xbar, gpe, small, gradient partials,
+    # records, grads, n, with_color, blocks, chunk, splits, stream
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     includes=_HEADERS,
 )
 # the bfloat16-fed variants: other launchers of the same libraries, on the
@@ -134,6 +136,53 @@ BWD_FAST_KERNEL = CudaKernel.entry_of(
     # partials, records, grads, n, with_color, blocks, splits, stream
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 )
+
+
+#: device bytes that one call of the float32 backward may hold in per-tile
+#: records; a call over more points walks them in chunks (`wgrad_plan`)
+RECORD_BUDGET = 9 << 28  # 2.25 GiB
+
+
+class WgradPassCount:
+    """Plain integer counts of the float32 backward's weight-gradient pass,
+    as `CudaKernel.launches`: ``launches`` of its kernels (one a chunk, then
+    the reduce of the shares) and record ``chunks`` walked."""
+
+    def __init__(self):
+        self.launches = 0
+        self.chunks = 0
+
+
+WGRAD_PASS = WgradPassCount()
+
+
+def wgrad_plan(n: int, blocks: int, record_bytes: int, gemm_tiles: int,
+               budget: int = RECORD_BUDGET) -> tuple:
+    """(tiles a chunk, splits) of the float32 backward over ``n`` points:
+    the records of a chunk fit ``budget`` and, where more than a wave fit,
+    fill whole waves of the chain's grid of ``blocks``; each chunk's pass
+    runs its ``gemm_tiles`` gradient tiles in ``splits`` shares, as many as
+    two waves of the grid hold (at least 1, at most the chunk's tiles): 30
+    tiles fill 240 of an H100's 264 resident blocks in one wave, 510 of 528
+    in two."""
+    ntiles = -(-n // TILE)
+    cap = max(1, budget // record_bytes)
+    if cap >= blocks:
+        cap -= cap % blocks
+    chunk = max(1, min(ntiles, cap))
+    return chunk, max(1, min(chunk, 2 * blocks // gemm_tiles))
+
+
+def wgrad_shares(n: int, chunk: int, splits: int) -> list:
+    """The tiles that the pass's split s sums in each chunk, as the launcher
+    walks them: per chunk, [(first tile, end tile)] for s = 0..splits-1, in
+    the call's tile numbers."""
+    ntiles = -(-n // TILE)
+    out = []
+    for t0 in range(0, ntiles, chunk):
+        m = min(chunk, ntiles - t0)
+        out.append([(t0 + m * s // splits, t0 + m * (s + 1) // splits) for s in range(splits)])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -774,15 +823,26 @@ def fused_bwd(w: dict, x, sbar, ebar, gbar, with_color: bool,
                 part.data_ptr(), rows.data_ptr(), grads.data_ptr(), n, int(with_color), blocks,
                 splits)
     else:
-        grads = torch.empty((G_FLOATS,), dtype=F32, device=dev)
-        # every block accumulates into its own slice; a second kernel sums the
-        # slices in block order, so two runs give the same bits
-        partials = torch.zeros((blocks * G_FLOATS,), dtype=F32, device=dev)
-        scratch = _scratch(blocks, _query(BWD_KERNEL, "fused_mlp_bwd_scratch", with_color), dev)
-        args = (x.data_ptr(), *cots, wflat.data_ptr(), *outs, partials.data_ptr(),
-                grads.data_ptr(), scratch.data_ptr(), n, int(with_color), blocks)
+        # per chunk of records the chain, then the weight-gradient pass into
+        # the splits' partial tiles; every block sums into its own slice of
+        # `small` and every split into its own tiles, and the reduces add
+        # them in order, so two runs give the same bits
+        record = _query(BWD_KERNEL, "fused_mlp_bwd_record", with_color)
+        tiles = _query(BWD_KERNEL, "fused_mlp_bwd_gemm_tiles", with_color)
+        chunk, splits = wgrad_plan(n, blocks, 4 * record, tiles)
+        small = torch.zeros((blocks * _query(BWD_KERNEL, "fused_mlp_bwd_small", with_color),),
+                            dtype=F32, device=dev)
+        part = torch.empty((splits * tiles * 128 * 128,), dtype=F32, device=dev)
+        rec = torch.empty((chunk * record,), dtype=F32, device=dev)
+        grads = torch.zeros((G_FLOATS,), dtype=F32, device=dev)
+        args = (x.data_ptr(), *cots, wflat.data_ptr(), *outs, small.data_ptr(), part.data_ptr(),
+                rec.data_ptr(), grads.data_ptr(), n, int(with_color), blocks, chunk, splits)
     with torch.cuda.device(dev):
         kernel.launch(*args, stream_ptr(dev))
+    if not fast and n > 0:
+        chunks = -(-n // (TILE * chunk))
+        WGRAD_PASS.chunks += chunks
+        WGRAD_PASS.launches += chunks + 1
     return xbar, gpe, split_grads(grads)
 
 

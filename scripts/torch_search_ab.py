@@ -146,11 +146,14 @@ FLAGS = ("split", "ranked", "gg_rel", "bitonic")
 
 def other_fused(csrc: str) -> dict:
     """Another tree's fused pair, its fast entry points in the float32
-    launchers' signature."""
+    launchers' signature of that time (the backward's: x, sbar, ebar, gbar,
+    weights, xbar, gpe, partials, grads, scratch, n, with_color, blocks,
+    stream)."""
     inc = ("fused_mlp.cuh", "fused_mlp_tiled.cuh")
+    bwd_args = [_P] * 10 + [_I] * 3 + [_P]
     return {"fwd": CudaKernel("fused_mlp_fwd.cu", "fused_mlp_fwd_fast_launch", fused_mlp.FWD_KERNEL.argtypes,
                               includes=inc, csrc=csrc),
-            "bwd": CudaKernel("fused_mlp_bwd.cu", "fused_mlp_bwd_fast_launch", fused_mlp.BWD_KERNEL.argtypes,
+            "bwd": CudaKernel("fused_mlp_bwd.cu", "fused_mlp_bwd_fast_launch", bwd_args,
                               includes=inc, csrc=csrc)}
 
 

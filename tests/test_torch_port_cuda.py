@@ -530,18 +530,36 @@ def _close(got, want, tol, keep=None):
 
 
 _TILE = 64  # both fused kernels' tile of points (`csrc/fused_mlp_tiled.cuh`: P)
+_PAST_A_CHUNK = "one_past_a_chunk"  # a count of points: see `_wgrad_plan`
 
 
-@pytest.mark.parametrize("n", [1, _TILE - 1, _TILE, _TILE + 1, 100, 100 * _TILE, 88_000])
+def _wgrad_plan(dev, n, with_color):
+    """(n, chunk, splits): the float32 backward's plan on this card
+    (`fused_mlp.wgrad_plan`); n = `_PAST_A_CHUNK` becomes the count one
+    point past a chunk of records, so that the pass walks two chunks."""
+    from dual_space_nerf_tpu_torch.ops import fused_mlp as fm
+
+    blocks = fm._blocks(fm.BWD_KERNEL, "fused_mlp_bwd_blocks", dev, with_color)
+    plan = lambda m: fm.wgrad_plan(m, blocks, 4 * fm._query(fm.BWD_KERNEL, "fused_mlp_bwd_record", with_color),
+                                   fm._query(fm.BWD_KERNEL, "fused_mlp_bwd_gemm_tiles", with_color))
+    if n == _PAST_A_CHUNK:
+        n = plan(1 << 30)[0] * _TILE + 1
+    return (n, *plan(n))
+
+
+@pytest.mark.parametrize("n", [1, _TILE - 1, _TILE, _TILE + 1, 100, 100 * _TILE, 88_000, _PAST_A_CHUNK])
 @pytest.mark.parametrize("with_color", [True, False])
 def test_fused_kernels_match_plain(dev, n, with_color):
     """Forward within 1e-5 and backward within 2e-5 of the reference's
     max-abs scale (the bands of the CPU tests against the JAX package), on
-    the kernels' tile edges and on fewer tiles (100) than the persistent
-    grid has blocks. Points with a pre-activation within 1e-6 of a ReLU's
-    kink (relative to the layer's largest) may take the mask the other way
-    in either order of the sums: their mask-dependent outputs are left out
-    and their cotangents zeroed, so that they add nothing to the gradients."""
+    the kernels' tile edges, on fewer tiles (100) than the persistent grid
+    has blocks, and one point past the backward's chunk of records (its
+    weight-gradient pass walks the chunks its plan gives). Points with a
+    pre-activation within 1e-6 of a ReLU's kink (relative to the layer's
+    largest) may take the mask the other way in either order of the sums:
+    their mask-dependent outputs are left out and their cotangents zeroed,
+    so that they add nothing to the gradients."""
+    n, chunk, splits = _wgrad_plan(dev, n, with_color)
     fm, w, x, sbar, ebar, gbar = _fused_inputs(n, dev)
     assert fm.BWD_KERNEL.extra_function("fused_mlp_bwd_tile", [ctypes.c_int])(0) == _TILE
     assert fm.FWD_KERNEL.extra_function("fused_mlp_fwd_tile", [ctypes.c_int])(0) == _TILE
@@ -557,7 +575,9 @@ def test_fused_kernels_match_plain(dev, n, with_color):
         assert _close(got[2], want[2], 1e-5, keep)
     sbar = sbar * keep
     eb, gb = (ebar * keep[:, None], gbar * keep[:, None]) if with_color else (None, None)
+    chunks = fm.WGRAD_PASS.chunks
     xbar, gpe, grads = fm.fused_bwd(w, x, sbar, eb, gb, with_color)
+    assert fm.WGRAD_PASS.chunks - chunks == len(fm.wgrad_shares(n, chunk, splits))
     xbar_p, gpe_p, grads_p = fm.fused_bwd_plain(w, x, sbar, eb, gb, with_color)
     torch.cuda.synchronize()
     assert _close(xbar, xbar_p, 2e-5, keep)
@@ -567,8 +587,9 @@ def test_fused_kernels_match_plain(dev, n, with_color):
         assert _close(grads[k].reshape(v.shape), v, 2e-5), k
 
 
-@pytest.mark.parametrize("n", [5000, 100_003])
+@pytest.mark.parametrize("n", [5000, 100_003, _PAST_A_CHUNK])
 def test_fused_backward_is_deterministic(dev, n):
+    n = _wgrad_plan(dev, n, True)[0]
     fm, w, x, sbar, ebar, gbar = _fused_inputs(n, dev, seed=1)
     a = fm.fused_bwd(w, x, sbar, ebar, gbar, True)
     b = fm.fused_bwd(w, x, sbar, ebar, gbar, True)

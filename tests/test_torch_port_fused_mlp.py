@@ -174,3 +174,38 @@ def test_wrappers_refuse_other_devices(models):
         fm.fused_fwd(w, x, True)
     with pytest.raises(ValueError):
         fm.build_x(torch.zeros(4, 60), torch.zeros(4, 24))
+
+
+# an H100's grid of the float32 backward (132 SMs, two blocks each) and its
+# records (`fused_mlp_bwd_record`: 3,761 / 8,012 rows of 64 floats a tile)
+# and gradient tiles (28 / 30)
+_GRID = 264
+_RECORD = {False: 3761 * fm.TILE * 4, True: 8012 * fm.TILE * 4}
+_GEMM_TILES = {False: 28, True: 30}
+
+
+@pytest.mark.parametrize("budget", [fm.RECORD_BUDGET, 50 << 20])
+@pytest.mark.parametrize("with_color", [False, True])
+@pytest.mark.parametrize("ntiles", [1, 63, 64, 65, 100, 264, 1055, 1057, 2377, 11_000])
+def test_wgrad_plan_covers_every_tile_once(ntiles, with_color, budget):
+    """The float32 backward's plan (`wgrad_plan`, `wgrad_shares`) for a
+    ragged and a whole last tile: every tile of points in one share of one
+    chunk, in order; the shares of a chunk contiguous, one a split; at least
+    one split, no more than two waves of the grid hold or the chunk has tiles;
+    each chunk's records within the budget, in whole waves of the grid where
+    more than a wave fits; two or more chunks where the tiles outgrow the
+    budget."""
+    record, gemm_tiles = _RECORD[with_color], _GEMM_TILES[with_color]
+    for n in (ntiles * fm.TILE - fm.TILE + 1, ntiles * fm.TILE):
+        chunk, splits = fm.wgrad_plan(n, _GRID, record, gemm_tiles, budget)
+        assert 1 <= splits <= min(chunk, max(1, 2 * _GRID // gemm_tiles))
+        assert chunk * record <= budget
+        if budget // record >= _GRID and chunk < ntiles:
+            assert chunk % _GRID == 0
+        shares = fm.wgrad_shares(n, chunk, splits)
+        assert len(shares) == -(-ntiles // chunk)
+        assert len(shares) > 1 or ntiles * record <= budget
+        assert all(len(split) == splits for split in shares)
+        walked = [(a, b) for split in shares for a, b in split]
+        assert all(b == a2 for (_, b), (a2, _) in zip(walked, walked[1:]))
+        assert walked[0][0] == 0 and walked[-1][1] == ntiles
